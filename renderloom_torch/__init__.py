@@ -1,0 +1,20 @@
+"""renderloom_torch — the PyTorch/CUDA port of renderloom for one NVIDIA H100.
+
+The JAX package ``renderloom`` stays the reference; this package mirrors
+its module names (``renderloom_torch/models/layers.py`` is the port of
+``renderloom/models/layers.py``, and so on) and imports nothing from it.
+Plain tensor code is PyTorch; the two TPU kernels of the serving path are
+hand-written CUDA kernels under ``csrc/``, built with ``nvcc`` at first
+use (``ops/_build.py``):
+
+* ``ops/rasterize_kernel.py`` — the pose label rasterizer
+  (replaces ``renderloom/ops/rasterize_pallas.py``);
+* ``ops/norm_kernel.py`` — the instance norm
+  (replaces ``renderloom/ops/norm_pallas.py``).
+
+Each kernel wrapper runs its plain PyTorch twin for a CPU tensor and the
+kernel for a CUDA tensor.  The serving entry point is
+:func:`renderloom_torch.eval.pipeline.build_pipeline`.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,119 @@
+"""Weight bridge: flax param trees → the port's modules, spectral-norm
+folding, and seeded random weights.
+
+* :func:`fold_spectral_norm` — port of ``renderloom/train/gan.py:
+  fold_spectral_norm``: one power step from each stored ``u`` gives σ,
+  and the matching conv kernel is divided by it (``σ == 0`` leaves the
+  kernel as it is).  Works on numpy trees, as ``jax.device_get`` gives
+  them.
+* :func:`state_dict_from_flax` / :func:`load_flax_params` — the port's
+  modules carry the flax tree's names, so a tree loads by path: conv
+  kernels go HWIO → OIHW (the inverse of
+  ``renderloom/data/torch_import.py:_conv_w``), dense kernels (in, out) →
+  (out, in), ``scale`` → ``weight``; ``load_state_dict(strict=True)``
+  refuses a tree that misses or adds a name.
+* :func:`random_init_` — seeded weights for runs without a checkpoint:
+  lecun-normal kernels (as flax's default), zero biases, unit norm
+  scales, and spectral convs divided by their largest singular value,
+  which is what folding does to a trained spectral conv.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from renderloom_torch.models.layers import Conv, SNConv
+
+
+def _l2norm(x: np.ndarray, eps: float = 1e-12) -> np.ndarray:
+    return x / np.sqrt((x * x).sum() + np.float32(eps))
+
+
+def _sigma(kernel: np.ndarray, u: np.ndarray) -> np.float32:
+    mat = kernel.reshape(-1, kernel.shape[-1]).astype(np.float32)
+    v = _l2norm(u.astype(np.float32) @ mat.T)
+    u1 = _l2norm(v @ mat)
+    return (v @ mat @ u1.T)[0, 0]
+
+
+def fold_spectral_norm(params: Mapping, stats: Mapping) -> dict:
+    """Divide every spectral conv kernel of ``params`` by its σ from the
+    power-iteration state in ``stats`` (``batch_stats``); returns a new
+    tree of float32 numpy arrays."""
+
+    def walk(p, s):
+        out = {}
+        for k, v in p.items():
+            sv = s.get(k, {}) if isinstance(s, Mapping) else {}
+            out[k] = walk(v, sv) if isinstance(v, Mapping) \
+                else np.asarray(v, np.float32)
+        sn = s.get("sn") if isinstance(s, Mapping) else None
+        if sn and "conv/kernel/u" in sn and "conv" in out:
+            sig = _sigma(out["conv"]["kernel"],
+                         np.asarray(sn["conv/kernel/u"]))
+            sig = sig if sig != 0 else np.float32(1.0)
+            out["conv"] = dict(out["conv"],
+                               kernel=out["conv"]["kernel"] / sig)
+        return out
+
+    return walk(params, stats)
+
+
+def _leaves(tree: Mapping, prefix: str = ""
+            ) -> Iterator[Tuple[str, str, np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _leaves(v, f"{prefix}{k}.")
+        else:
+            yield prefix, k, np.asarray(v, np.float32)
+
+
+def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flat torch state dict of a flax param tree (numpy leaves)."""
+    out = {}
+    for prefix, name, leaf in _leaves(params):
+        if name == "kernel" and leaf.ndim == 4:        # HWIO → OIHW
+            out[prefix + "weight"] = leaf.transpose(3, 2, 0, 1)
+        elif name == "kernel" and leaf.ndim == 2:      # (in, out) → (out, in)
+            out[prefix + "weight"] = leaf.T
+        elif name == "scale":
+            out[prefix + "weight"] = leaf
+        elif name == "bias":
+            out[prefix + name] = leaf
+        else:
+            raise KeyError(f"no torch counterpart for {prefix}{name}")
+    return {k: torch.tensor(v) for k, v in out.items()}
+
+
+def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
+    """Load a flax param tree into ``module`` by name (strict)."""
+    module.load_state_dict(state_dict_from_flax(params), strict=True)
+    return module
+
+
+def random_init_(module: nn.Module, seed: int) -> nn.Module:
+    """Seeded weights, drawn on the CPU in module order so every device
+    gets the same numbers."""
+    g = torch.Generator().manual_seed(seed)
+    spectral = {id(m.conv) for m in module.modules()
+                if isinstance(m, SNConv) and m.spectral}
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (Conv, nn.Linear)):
+                w = torch.randn(m.weight.shape, generator=g)
+                w /= math.sqrt(w[0].numel())            # fan-in
+                if id(m) in spectral:
+                    w /= torch.linalg.matrix_norm(w.reshape(w.shape[0], -1),
+                                                  ord=2)
+                m.weight.copy_(w)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+    return module

@@ -1,0 +1,124 @@
+"""Serving pipeline: motion upsample → flow backgrounds → label
+rasterization → segment rollout + compositing, over N clips.
+
+Port of the JAX package's ``renderloom/eval/pipeline.py``
+(``assemble_keyframe_stream``, ``make_pipeline_fn``, ``build_pipeline``).
+The stages run eagerly on one device; on the card the label raster and
+every instance norm are the port's CUDA kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from renderloom_torch.convert import load_flax_params, random_init_
+from renderloom_torch.data.hsm import prepare_batch
+from renderloom_torch.eval.motion_infer import (MotionInterpolator,
+                                                bucket_length)
+from renderloom_torch.models.motion_transformer import build_motion_model
+from renderloom_torch.ops.flow import upsample_background
+from renderloom_torch.ops.image import separable_resize
+from renderloom_torch.train.gan import (make_inference_pair,
+                                        make_segment_rollout)
+
+
+def assemble_keyframe_stream(keys: torch.Tensor, rate: int) -> torch.Tensor:
+    """Spread K keyframes (..., K, H, W, C) into an L = (K−1)·rate + 1
+    frame stream with zeros at the in-between slots."""
+    *lead, K, H, W, C = keys.shape
+    z = keys.new_zeros((*lead, K - 1, rate - 1, H, W, C))
+    grp = torch.cat([keys[..., :-1, None, :, :, :], z], dim=-4)
+    flat = grp.reshape(*lead, (K - 1) * rate, H, W, C)
+    return torch.cat([flat, keys[..., -1:, :, :, :]], dim=-4)
+
+
+# the background flow the pipeline runs: quarter-resolution pyramidal LK,
+# three levels, one iteration (the JAX pipeline's quality-validated
+# serving setting)
+FLOW = dict(levels=3, iters=1, flow_scale=4)
+
+
+def make_pipeline_fn(interp: MotionInterpolator, rollout: Callable,
+                     data_cfg, rate: int, keyframes: int, *,
+                     src_size: Optional[Tuple[int, int]] = None
+                     ) -> Callable:
+    """The clip-interpolation pipeline as one callable.
+
+    Returns ``fn(motion, conf, keys) -> (fused, sync)`` over clips::
+
+        motion (N, 19, 2, K)   keyframe joints, normalized units
+        conf   (N, 19, 1, K)   per-joint confidences
+        keys   (N, K, H, W, 3) keyframe RGB in [0, 1]
+
+    ``fused`` is (N, L, H, W, 3) with L = (K−1)·rate + 1 and ``sync`` a
+    scalar checksum of it.  ``src_size`` set: keyframes come at another
+    (e.g. on-disk) resolution and are resized once at ingest.
+    """
+    H, W = data_cfg.model_height, data_cfg.model_width
+    L = (keyframes - 1) * rate + 1
+    times = int(np.log2(rate))
+    interp_pad = bucket_length(L, rate)
+
+    @torch.inference_mode()
+    def pipeline(motion: torch.Tensor, conf: torch.Tensor,
+                 keys: torch.Tensor):
+        if src_size is not None:
+            keys = separable_resize(keys, H, W)
+        pred, _, dconf = interp._run(motion, conf, rate, times, interp_pad)
+        # one clip at a time, as the JAX pipeline's lax.map: the flow
+        # temporaries of one clip are live at once, not all clips'
+        backs = torch.stack([upsample_background(k, rate, **FLOW)
+                             for k in keys])
+        poses = torch.cat([pred[..., :L] * 256 + 256, dconf], dim=2)
+        poses = poses.permute(0, 3, 1, 2).float()
+        images = assemble_keyframe_stream(keys * 255.0, rate)
+        prep = prepare_batch({"images": images, "dain": backs * 255.0,
+                              "poses": poses}, data_cfg)
+        fused, _ = rollout({"label": prep["label"], "back": prep["back"],
+                            "key_img": prep["image"]})
+        return fused, fused.sum() * 1e-20
+
+    return pipeline
+
+
+def build_pipeline(mcfg, rcfg, rate: int, keyframes: int, *,
+                   m_params=None, g_params=None, g_stats=None,
+                   mean: Optional[np.ndarray] = None,
+                   std: Optional[np.ndarray] = None,
+                   src_size: Optional[Tuple[int, int]] = None,
+                   device="cuda"):
+    """Models and the pipeline callable from the two configs, on
+    ``device`` (the card unless the caller asks for the CPU; without a
+    CUDA device a CUDA request raises).
+
+    ``m_params`` / ``g_params`` + ``g_stats``: numpy flax trees of trained
+    weights (spectral norm is folded here); seeded random weights when
+    omitted (motion seed 0, generator seed 1).  Returns ``(fn, motion
+    model, generator)``; ``fn`` is :func:`make_pipeline_fn`'s callable.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_pipeline: no CUDA device; pass "
+                           "device='cpu' to run on the CPU")
+    # float32 configs mean float32: cuDNN would run the convolutions in
+    # TF32 by default, a 1e-3-level difference from the reference
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    m_model = build_motion_model(mcfg)
+    if m_params is None:
+        random_init_(m_model, 0)
+    else:
+        load_flax_params(m_model, m_params)
+    m_model = m_model.to(device).eval()
+    interp = MotionInterpolator(
+        m_model, np.zeros((19, 2), np.float32) if mean is None else mean,
+        np.ones((19, 2), np.float32) if std is None else std, device)
+
+    gen = make_inference_pair(rcfg, g_params, g_stats, device)
+    fn = make_pipeline_fn(interp, make_segment_rollout(gen, rate),
+                          rcfg.data, rate, keyframes, src_size=src_size)
+    return fn, m_model, gen

@@ -1,0 +1,118 @@
+"""Shared pieces of the PyTorch-port parity tests (``test_torch_*.py``):
+tiny configs built from either package's config module, numpy-seeded
+flax param trees, and a one-thread torch fixture.
+
+The trees are the JAX models' own structure (``jax.eval_shape`` of their
+``init``, which traces without compiling) filled from a numpy seed, so
+both sides of a test run the same weights and the port's converter
+sees exactly the tree a JAX checkpoint has.
+"""
+
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def single_thread():
+    """Small torch ops on a shared CPU run tens of times slower across
+    threads than on one."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def renderer_cfg(C, H: int, W: int):
+    """Tiny-width renderer config (tests/test_pipeline_e2e.py's widths)
+    from config module ``C``."""
+    return C.RendererConfig(
+        gen=C.GeneratorConfig(
+            num_filters=4, max_num_filters=16, num_layers=6,
+            num_downsamples=4, do_checkpoint=False,
+            mask=C.MaskNetConfig(num_filters=4, max_num_filters=16,
+                                 num_downsamples=3, num_res_blocks=2),
+            embed=C.EmbedConfig(num_filters=4, max_num_filters=16,
+                                num_downsamples=4)),
+        data=C.RendererDataConfig(model_width=W, model_height=H,
+                                  load_width=W, load_height=H))
+
+
+def motion_cfg(C):
+    return C.MotionConfig(
+        transformer=C.TransformerConfig(hidden_dim=32, nheads=4,
+                                        dim_feedforward=64, enc_layers=2,
+                                        dec_layers=2, dropout=0.0),
+        pos_encode=C.PosEncodeConfig(hidden_dim=32))
+
+
+def fill_tree(shapes, rng: np.random.Generator) -> dict:
+    """numpy values for an ``eval_shape`` tree: lecun-scaled kernels,
+    small random biases and norm scales near 1 (so the affines are not
+    the identity), normal power-iteration vectors."""
+    out = {}
+    for k, v in shapes.items():
+        if isinstance(v, dict):
+            out[k] = fill_tree(v, rng)
+            continue
+        shape = v.shape
+        if k == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            val = rng.normal(size=shape) / np.sqrt(fan_in)
+        elif k == "bias":
+            val = 0.1 * rng.normal(size=shape)
+        elif k == "scale":
+            val = 1.0 + 0.1 * rng.normal(size=shape)
+        elif k.endswith("/u"):
+            val = rng.normal(size=shape)
+        else:                                   # sn sigma: unused
+            val = np.ones(shape)
+        out[k] = val.astype(np.float32)
+    return out
+
+
+def generator_trees(jcfg, H: int, W: int, seed: int = 0):
+    """(params, batch_stats) of the JAX spectral generator of renderer
+    config ``jcfg``."""
+    from renderloom.models.renderer import Generator
+
+    label = jnp.zeros((1, H, W, 22))
+    img = jnp.zeros((1, H, W, 3))
+    shapes = jax.eval_shape(Generator(jcfg.gen).init,
+                            jax.random.PRNGKey(0), label, label, img, img)
+    rng = np.random.default_rng(seed)
+    return (fill_tree(shapes["params"], rng),
+            fill_tree(shapes["batch_stats"], rng))
+
+
+def motion_tree(jcfg, seed: int = 0) -> dict:
+    from renderloom.models.motion_transformer import build_motion_model
+
+    src = jnp.zeros((1, 17, jcfg.transformer.input_joints))
+    mask = jnp.zeros((1, 17), bool)
+    shapes = jax.eval_shape(build_motion_model(jcfg).init,
+                            jax.random.PRNGKey(0), src, mask, src, mask, 4)
+    return fill_tree(shapes["params"], np.random.default_rng(seed))
+
+
+def blobs(K, H, W, seed=0):
+    """Keyframes with a bright blob moving a few pixels per frame over a
+    textured background, so LK has structure to lock on."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+    base = 0.3 + 0.1 * np.sin(xx / 3.0)[..., None] * np.cos(yy / 5.0)[..., None]
+    frames = []
+    for k in range(K):
+        cx, cy = W / 3 + 3 * k, H / 2 + k
+        blob = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / 40.0)[..., None]
+        frames.append(base + 0.6 * blob * rng.uniform(0.8, 1.0, 3))
+    return np.stack(frames).astype(np.float32)
+
+
+def t(x) -> torch.Tensor:
+    """numpy / jax array → CPU torch tensor."""
+    return torch.from_numpy(np.array(x))

@@ -1,0 +1,70 @@
+"""The PyTorch port stands alone: importing every module of
+``renderloom_torch`` loads neither JAX nor the JAX package, and
+``chip_smoke.py`` imports neither.  Its serving entry point runs on the
+card unless told otherwise, and without a card it refuses rather than
+running on the CPU."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import renderloom_torch.core.config as TC
+from _torch_parity import motion_cfg, renderer_cfg
+from renderloom_torch.eval import pipeline
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port_modules():
+    names = []
+    pkg = os.path.join(ROOT, "renderloom_torch")
+    for dirpath, _, files in os.walk(pkg):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)
+                mod = rel[:-3].replace(os.sep, ".")
+                names.append(mod[:-len(".__init__")]
+                             if mod.endswith(".__init__") else mod)
+    return sorted(names)
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    mods = _port_modules()
+    assert "renderloom_torch.eval.pipeline" in mods
+    code = ("import importlib, json, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "print(json.dumps(sorted(sys.modules)))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "renderloom")]
+    assert not bad, bad
+
+
+def test_chip_smoke_imports_no_jax():
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "renderloom_torch" in roots
+    assert not roots & {"jax", "jaxlib", "flax", "renderloom"}, roots
+
+
+def test_build_pipeline_defaults_to_the_card_and_never_falls_back(
+        monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline.build_pipeline(motion_cfg(TC), renderer_cfg(TC, 32, 48),
+                                2, 3)
