@@ -1,4 +1,4 @@
-"""Weight bridge: flax param trees → the port's modules, spectral-norm
+"""Weight bridge: flax param trees ↔ the port's modules, spectral-norm
 folding, and seeded random weights.
 
 * :func:`fold_spectral_norm` — port of ``renderloom/train/gan.py:
@@ -11,17 +11,27 @@ folding, and seeded random weights.
   kernels go HWIO → OIHW (the inverse of
   ``renderloom/data/torch_import.py:_conv_w``), dense kernels (in, out) →
   (out, in), ``scale`` → ``weight``; ``load_state_dict(strict=True)``
-  refuses a tree that misses or adds a name.
+  refuses a tree that misses or adds a name.  With ``stats`` (the
+  ``batch_stats`` tree) the spectral-norm state loads too:
+  ``<conv>/sn/conv/kernel/u`` → ``<conv>.sn_u`` and ``…/sigma`` →
+  ``<conv>.sn_sigma``, for modules in the training form
+  (:func:`renderloom_torch.models.layers.enable_spectral_norm`).  This
+  loads the generator, the discriminator set and the VGG19 tree alike.
+* :func:`flax_trees` — the reverse direction: a module's parameters and
+  spectral-norm state as numpy flax trees, for comparing a trained
+  module with the JAX package's state.
 * :func:`random_init_` — seeded weights for runs without a checkpoint:
   lecun-normal kernels (as flax's default), zero biases, unit norm
-  scales, and spectral convs divided by their largest singular value,
-  which is what folding does to a trained spectral conv.
+  scales, and, for serving modules, spectral convs divided by their
+  largest singular value, which is what folding does to a trained
+  spectral conv (training modules keep the raw kernel, as flax's init
+  does, and divide by σ at every call).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,18 +100,72 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     return {k: torch.tensor(v) for k, v in out.items()}
 
 
-def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
-    """Load a flax param tree into ``module`` by name (strict)."""
-    module.load_state_dict(state_dict_from_flax(params), strict=True)
+def state_dict_from_flax_stats(stats: Mapping, prefix: str = ""
+                               ) -> Dict[str, torch.Tensor]:
+    """Flat torch buffers of a flax ``batch_stats`` tree of spectral-norm
+    state (``{…: {"sn": {"conv/kernel/u": (1, O), "conv/kernel/sigma":
+    ()}}}``)."""
+    out = {}
+    for k, v in stats.items():
+        if k == "sn":
+            out[prefix + "sn_u"] = torch.tensor(
+                np.asarray(v["conv/kernel/u"], np.float32))
+            out[prefix + "sn_sigma"] = torch.tensor(
+                np.asarray(v["conv/kernel/sigma"], np.float32))
+        else:
+            out.update(state_dict_from_flax_stats(v, f"{prefix}{k}."))
+    return out
+
+
+def load_flax_params(module: nn.Module, params: Mapping,
+                     stats: Optional[Mapping] = None) -> nn.Module:
+    """Load a flax param tree (and, for a training module, its
+    ``batch_stats``) into ``module`` by name (strict)."""
+    state = state_dict_from_flax(params)
+    if stats:
+        state.update(state_dict_from_flax_stats(stats))
+    module.load_state_dict(state, strict=True)
     return module
+
+
+def _set(tree: dict, path: List[str], value: np.ndarray):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def flax_trees(module: nn.Module) -> Tuple[dict, dict]:
+    """(params, batch_stats) of ``module`` as numpy flax trees: the
+    inverse of :func:`load_flax_params`."""
+    params, stats = {}, {}
+    for name, t in module.state_dict().items():
+        *path, leaf = name.split(".")
+        v = t.detach().cpu().numpy()
+        if leaf == "weight" and v.ndim == 4:           # OIHW → HWIO
+            _set(params, path + ["kernel"], v.transpose(2, 3, 1, 0))
+        elif leaf == "weight" and v.ndim == 2:         # (out, in) → (in, out)
+            _set(params, path + ["kernel"], v.T)
+        elif leaf == "weight":
+            _set(params, path + ["scale"], v)
+        elif leaf == "bias":
+            _set(params, path + ["bias"], v)
+        elif leaf == "sn_u":
+            _set(stats, path + ["sn", "conv/kernel/u"], v)
+        elif leaf == "sn_sigma":
+            _set(stats, path + ["sn", "conv/kernel/sigma"], v)
+        else:
+            raise KeyError(f"no flax counterpart for {name}")
+    return params, stats
 
 
 def random_init_(module: nn.Module, seed: int) -> nn.Module:
     """Seeded weights, drawn on the CPU in module order so every device
-    gets the same numbers."""
+    gets the same numbers; the power-iteration vectors of a training
+    module are drawn from a normal after the weights."""
     g = torch.Generator().manual_seed(seed)
     spectral = {id(m.conv) for m in module.modules()
-                if isinstance(m, SNConv) and m.spectral}
+                if isinstance(m, SNConv) and m.spectral
+                and not hasattr(m, "sn_u")}
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (Conv, nn.Linear)):
@@ -116,4 +180,8 @@ def random_init_(module: nn.Module, seed: int) -> nn.Module:
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+        for m in module.modules():
+            if isinstance(m, SNConv) and hasattr(m, "sn_u"):
+                m.sn_u.copy_(torch.randn(m.sn_u.shape, generator=g))
+                m.sn_sigma.fill_(1.0)
     return module

@@ -1,12 +1,13 @@
 """Typed configuration: the motion and renderer dataclasses and their
 yaml loaders.
 
-A copy of the serving part of the JAX package's
+A copy of the renderer and motion parts of the JAX package's
 ``renderloom/core/config.py``, kept here so the port never imports the
-JAX package: the model architectures, the renderer's data sizes and
-thresholds, and ``compute_dtype``.  The training sections (datasets,
-optimizers, discriminators, losses) are not copied yet; the loaders
-skip their keys.  Defaults equal the reference's shipped configs
+JAX package: the model architectures, the renderer's data settings,
+discriminators, optimizer, loss weights and ``compute_dtype``.  The
+motion stage's training sections (datasets, optimizer) are not copied
+yet; the motion loader skips their keys.  Defaults equal the
+reference's shipped configs
 (``Human_Motion_Modelling/configs/config.yaml``,
 ``Pose_Guided_Neural_Rendering/configs/HSM.yaml``); yaml files in
 either the nested layout or the reference's flat key layout load
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import yaml
 
@@ -26,7 +27,8 @@ def _update_dataclass(obj, data: Mapping[str, Any]):
     """Return a copy of dataclass ``obj`` updated with keys from ``data``.
 
     Unknown keys are ignored; nested dataclass fields are updated
-    recursively from nested mappings.
+    recursively from nested mappings, and sequences given for tuple
+    fields are stored as tuples.
     """
     updates = {}
     names = {f.name: f for f in dataclasses.fields(obj)}
@@ -36,6 +38,8 @@ def _update_dataclass(obj, data: Mapping[str, Any]):
         current = getattr(obj, key)
         if dataclasses.is_dataclass(current) and isinstance(value, Mapping):
             updates[key] = _update_dataclass(current, value)
+        elif isinstance(current, tuple) and isinstance(value, Sequence):
+            updates[key] = tuple(value)
         else:
             updates[key] = value
     return dataclasses.replace(obj, **updates)
@@ -133,10 +137,69 @@ class GeneratorConfig:
 
 
 @dataclass(frozen=True)
-class RendererDataConfig:
-    """HumanSloMo data settings that serving reads
-    (``configs/HSM.yaml:151-193``)."""
+class PatchDiscConfig:
+    """One multi-scale patch discriminator (``configs/HSM.yaml:78-105``)."""
 
+    num_filters: int = 32
+    max_num_filters: int = 512
+    num_discriminators: int = 2
+    num_layers: int = 4
+    kernel_size: int = 4
+    weight_norm_type: str = "spectral"
+    activation_norm_type: str = "instance"
+
+
+@dataclass(frozen=True)
+class DiscriminatorConfig:
+    """Full discriminator stack (``configs/HSM.yaml:72-105``)."""
+
+    input_image_nc: int = 3
+    input_label_nc: int = 22
+    num_frames_D: int = 2
+    image: PatchDiscConfig = field(default_factory=PatchDiscConfig)
+    face: PatchDiscConfig = field(default_factory=lambda: PatchDiscConfig(
+        num_discriminators=1, num_layers=3))
+    hand: PatchDiscConfig = field(default_factory=lambda: PatchDiscConfig(
+        num_discriminators=1, num_layers=3))
+    use_face: bool = True
+    use_hand: bool = True
+
+
+@dataclass(frozen=True)
+class GanLossWeights:
+    """Per-output GAN loss weights (``configs/HSM.yaml:114-118``)."""
+
+    fuse: float = 0.0
+    raw: float = 1.0
+    face: float = 0.1
+    hand: float = 0.1
+
+
+@dataclass(frozen=True)
+class PerceptualConfig:
+    """VGG19 perceptual loss (``configs/HSM.yaml:124-140``)."""
+
+    weight: float = 10.0
+    model: str = "vgg19"
+    layers: tuple = ("relu_1_1", "relu_2_1", "relu_3_1", "relu_4_1",
+                     "relu_5_1")
+    weights: tuple = (0.03125, 0.0625, 0.125, 0.25, 1.0)
+    criterion: str = "l1"
+    num_scales: int = 1
+
+
+@dataclass(frozen=True)
+class RendererDataConfig:
+    """HumanSloMo data settings (``configs/HSM.yaml:151-193``)."""
+
+    h5_file: str = "HumanSlomo.h5"
+    train_video_list: tuple = ()
+    test_video_list: tuple = ("test_001", "test_006", "test_011", "test_016",
+                              "test_021", "test_026")
+    max_frames: int = 4
+    update_frame_step: int = 10
+    random_drop_prob: float = 0.02
+    random_blur_rate: float = 0.06
     gauss_sigma: float = 5.0
     skeleton_thres: float = 0.001
     foot_thres: float = 0.001
@@ -144,14 +207,47 @@ class RendererDataConfig:
     load_height: int = 320
     model_width: int = 480
     model_height: int = 320
+    eval_frames: int = 40
+    num_joints: int = 19
+
+
+@dataclass(frozen=True)
+class RendererOptimConfig:
+    """TTUR Adam settings (``configs/HSM.yaml:9-17``)."""
+
+    nr_epochs: int = 200
+    lr: float = 1e-4
+    lr_d: float = 4e-4
+    beta1: float = 0.0
+    beta2: float = 0.999
+    weight_decay: float = 5e-4
+    lr_policy: str = "step"
+    gamma: float = 0.5
+    step_size: int = 20
 
 
 @dataclass(frozen=True)
 class RendererConfig:
-    """Full renderer-stage configuration."""
+    """Full renderer-stage configuration.  ``ssim_w`` and ``grad_w``
+    weight optional fg-masked SSIM and image-gradient terms of the G
+    loss; 0 is the reference's objective."""
 
     gen: GeneratorConfig = field(default_factory=GeneratorConfig)
+    dis: DiscriminatorConfig = field(default_factory=DiscriminatorConfig)
     data: RendererDataConfig = field(default_factory=RendererDataConfig)
+    optim: RendererOptimConfig = field(default_factory=RendererOptimConfig)
+
+    gan_mode: str = "hinge"
+    gan: GanLossWeights = field(default_factory=GanLossWeights)
+    fm_w: float = 1.0
+    perceptual: PerceptualConfig = field(default_factory=PerceptualConfig)
+    l1_w: float = 30.0
+    mask_w: float = 5.0
+    ssim_w: float = 0.0
+    grad_w: float = 0.0
+
+    batch_size: int = 4
+    seed: int = 0
     compute_dtype: str = "float32"
 
 
@@ -172,8 +268,23 @@ def motion_config_from_dict(raw: Mapping[str, Any]) -> MotionConfig:
 
 def renderer_config_from_dict(raw: Mapping[str, Any]) -> RendererConfig:
     cfg = _update_dataclass(RendererConfig(), raw)
-    # the reference's flat layout keeps the data keys at the top level
-    cfg = dataclasses.replace(cfg, data=_update_dataclass(cfg.data, raw))
+    # the reference's flat layout keeps the data and optimizer keys at
+    # the top level
+    cfg = dataclasses.replace(cfg, data=_update_dataclass(cfg.data, raw),
+                              optim=_update_dataclass(cfg.optim, raw))
+    gan_raw = raw.get("gan")
+    if isinstance(gan_raw, Mapping):
+        cfg = dataclasses.replace(
+            cfg, gan=_update_dataclass(GanLossWeights(), gan_raw))
+    dis_raw = raw.get("dis") or {}
+    if dis_raw:
+        add = dis_raw.get("additional_discriminators") or {}
+        dis = cfg.dis
+        for name in ("face", "hand"):
+            if name in add:
+                dis = dataclasses.replace(dis, **{name: _update_dataclass(
+                    getattr(dis, name), add[name])})
+        cfg = dataclasses.replace(cfg, dis=dis)
     norm_params = (raw.get("gen") or {}).get("activation_norm_params") or {}
     kernel = norm_params.get("kernel_size")
     if kernel is not None:

@@ -1,36 +1,85 @@
-"""Frame preparation for serving: [-1, 1] images and backgrounds, the
-22-channel pose label, and the zero frame-0 background.
+"""Frame preparation for serving and training: [-1, 1] images and
+backgrounds, the 22-channel pose label, the human mask, and the zero
+frame-0 background.
 
-Port of the deterministic (inference) branch of the JAX package's
-``renderloom/data/hsm.py:prepare_batch`` on its fused-raster route: all
-B·F frames are rasterized in one call of the label kernel
-(:mod:`renderloom_torch.ops.rasterize_kernel`), which writes the NHWC
-label directly.  The train branch (random window affine, part-mask
-blur) and the HumanSloMo reader are not ported yet.
+Port of the JAX package's ``renderloom/data/hsm.py:prepare_batch`` on
+its fused-raster route: all B·F frames are rasterized in one call of
+the label kernel (:mod:`renderloom_torch.ops.rasterize_kernel`), which
+writes the NHWC label directly.  The deterministic branch serves; the
+train branch (:func:`window_affine`, ``prepare_batch(..., draws)``, the
+ports of ``_window_affine`` and ``prepare_batch(train=True)``) warps
+each window by a random shift/scale/rotate, rasterizes with train-mode
+tables and masks, and pastes the gaussian-blurred background under the
+part mask.  Its randomness is drawn by
+:func:`draw_train_randomness` from an explicit ``torch.Generator`` and
+passed in, so the draws (small) can be made once on the CPU and shared
+by every device.  The HumanSloMo h5 reader is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from renderloom_torch.core.config import RendererDataConfig
-from renderloom_torch.ops.image import separable_resize
-from renderloom_torch.ops.rasterize_kernel import rasterize_frames_fused
+from renderloom_torch.ops.image import (affine_warp, compose_affine,
+                                        gaussian_blur, resize_matrix,
+                                        separable_resize,
+                                        shift_scale_rotate_matrix,
+                                        transform_keypoints)
+from renderloom_torch.ops.rasterize_kernel import (draw_train_tables,
+                                                   rasterize_frames_fused)
 
 
 def _to_unit(x: torch.Tensor) -> torch.Tensor:
     return x.float() / 127.5 - 1.0
 
 
-def prepare_batch(batch: Dict[str, torch.Tensor], cfg: RendererDataConfig
+def draw_train_randomness(generator: torch.Generator, B: int, F: int,
+                          cfg: RendererDataConfig) -> Dict[str, torch.Tensor]:
+    """Every random value of one train-mode preparation of B windows of
+    F frames: per window a shift in [−0.0625, 0.0625), a rotation in
+    [−10°, 10°) and a scale in [−0.1, 0.1) (the reference's
+    ShiftScaleRotate ranges, ``_window_affine``), and the rasterizer's
+    per-frame draws (:func:`draw_train_tables`, B·F frames)."""
+    dev = generator.device
+    u = lambda lo, hi: lo + (hi - lo) * torch.rand(B, generator=generator,
+                                                   device=dev)
+    draws = {"shift": u(-0.0625, 0.0625), "angle": u(-10.0, 10.0),
+             "scale": u(-0.1, 0.1)}
+    draws.update(draw_train_tables(generator, B * F, cfg.gauss_sigma,
+                                   cfg.random_drop_prob,
+                                   cfg.random_blur_rate))
+    return draws
+
+
+def window_affine(draws: Dict[str, torch.Tensor], src_h: int, src_w: int,
+                  cfg: RendererDataConfig) -> torch.Tensor:
+    """(B, 2, 3) per-window transform: resize to load size, then the
+    drawn shift (the same along x and y), scale and rotation."""
+    resize = resize_matrix(src_h, src_w, cfg.load_height, cfg.load_width,
+                           device=draws["shift"].device)
+    ssr = shift_scale_rotate_matrix(cfg.load_height, cfg.load_width,
+                                    draws["shift"], draws["shift"],
+                                    draws["scale"], draws["angle"])
+    return compose_affine(ssr, resize.expand(ssr.shape))
+
+
+def prepare_batch(batch: Dict[str, torch.Tensor], cfg: RendererDataConfig,
+                  draws: Optional[Dict[str, torch.Tensor]] = None
                   ) -> Dict[str, torch.Tensor]:
     """``batch``: images/dain (B, F, H0, W0, 3) in [0, 255] (dain already
     shifted to t−1 per frame), poses (B, F, 19, 3) xy + conf in source
     pixels.  Returns label (B, F, H, W, 22) float32 and image/back
-    (B, F, H, W, 3) in [-1, 1]."""
+    (B, F, H, W, 3) in [-1, 1].
+
+    ``draws`` (:func:`draw_train_randomness`, on the batch's device)
+    selects the train branch, which also returns ``fg_mask``
+    (B, F, H, W, 1)."""
+    if draws is not None:
+        return _prepare_train(batch, cfg, draws)
     images, dain, poses = batch["images"], batch["dain"], batch["poses"]
     B, F = images.shape[:2]
     H, W = cfg.model_height, cfg.model_width
@@ -56,9 +105,37 @@ def prepare_batch(batch: Dict[str, torch.Tensor], cfg: RendererDataConfig
         gauss_sigma=cfg.gauss_sigma, thres=cfg.skeleton_thres,
         foot_thres=cfg.foot_thres)
     label = ras["label"].reshape(B, F, H, W, 22)
+    return {"label": label, "image": images_t,
+            "back": _zero_first_back(dain_t, dain)}
 
-    # zero the frame-0 background of a clip whose host shipped zeros
+
+def _zero_first_back(back: torch.Tensor, dain: torch.Tensor) -> torch.Tensor:
+    """Zero the frame-0 background of a window whose host shipped a zero
+    dain frame."""
     zero0 = (dain[:, 0] == 0).flatten(1).all(dim=1)
-    dain_t[:, 0] = torch.where(zero0[:, None, None, None], 0.0,
-                               dain_t[:, 0])
-    return {"label": label, "image": images_t, "back": dain_t}
+    first = torch.where(zero0[:, None, None, None], 0.0, back[:, 0])
+    return torch.cat([first[:, None], back[:, 1:]], dim=1)
+
+
+def _prepare_train(batch, cfg: RendererDataConfig, draws):
+    images, dain, poses = batch["images"], batch["dain"], batch["poses"]
+    B, F, src_h, src_w = images.shape[:4]
+    H, W = cfg.model_height, cfg.model_width
+    m = window_affine(draws, src_h, src_w, cfg)                 # (B, 2, 3)
+    m_frames = m[:, None].expand(B, F, 2, 3).reshape(B * F, 2, 3)
+    warp = lambda x: affine_warp(
+        _to_unit(x).reshape(B * F, src_h, src_w, -1), m_frames, H,
+        W).reshape(B, F, H, W, -1)
+    images_t, dain_t = warp(images), warp(dain)
+    coords = transform_keypoints(poses[..., :2].float(), m[:, None])
+    conf = poses[..., 2]
+    tables = {k: draws[k] for k in ("sigma", "keep_j", "keep_e", "part")}
+    ras = rasterize_frames_fused(
+        coords.reshape(B * F, -1, 2), conf.reshape(B * F, -1), H, W,
+        gauss_sigma=cfg.gauss_sigma, thres=cfg.skeleton_thres,
+        foot_thres=cfg.foot_thres, emit_masks=True, draws=tables)
+    part = ras["part_mask"].reshape(B, F, H, W, 1)
+    back = gaussian_blur(dain_t, 10.0) * part + dain_t * (1.0 - part)
+    return {"label": ras["label"].reshape(B, F, H, W, 22),
+            "image": images_t, "back": _zero_first_back(back, dain),
+            "fg_mask": ras["mask"].reshape(B, F, H, W, 1)}

@@ -22,7 +22,8 @@ from renderloom_torch.models.motion_transformer import build_motion_model
 from renderloom_torch.ops.flow import upsample_background
 from renderloom_torch.ops.image import separable_resize
 from renderloom_torch.train.gan import (make_inference_pair,
-                                        make_segment_rollout)
+                                        make_segment_rollout,
+                                        set_float32_precision)
 
 
 def assemble_keyframe_stream(keys: torch.Tensor, rate: int) -> torch.Tensor:
@@ -103,10 +104,7 @@ def build_pipeline(mcfg, rcfg, rate: int, keyframes: int, *,
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_pipeline: no CUDA device; pass "
                            "device='cpu' to run on the CPU")
-    # float32 configs mean float32: cuDNN would run the convolutions in
-    # TF32 by default, a 1e-3-level difference from the reference
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_float32_precision()
 
     m_model = build_motion_model(mcfg)
     if m_params is None:

@@ -1,5 +1,6 @@
-"""Renderer building blocks, inference only: convolutions, instance norm,
-SPADE and the residual blocks of the generator and the mask net.
+"""Renderer building blocks: convolutions, spectral norm, instance norm,
+SPADE and the residual blocks of the generator, the mask net and the
+discriminators.
 
 Port of the JAX package's ``renderloom/models/layers.py``.  Module
 forwards take and return NHWC tensors like the JAX modules.  The
@@ -7,12 +8,20 @@ convolutions run on the NCHW view of an NHWC tensor (``permute``, which
 on the card is a channels_last tensor to cuDNN), so no copy is made on
 the way in or out.
 
-Spectral norm is folded into the weights before they are loaded
-(:func:`renderloom_torch.convert.fold_spectral_norm`), so ``SNConv`` is a
-plain convolution here; its ``spectral`` flag only tells the random
-initializer to normalize the weight.  Every instance norm goes through
-:func:`renderloom_torch.ops.norm_kernel.instance_norm`: the CUDA kernel
-for a tensor on the card, its plain twin for a tensor on the CPU.
+Spectral norm has two forms.  For serving it is folded into the weights
+before they are loaded (:func:`renderloom_torch.convert.
+fold_spectral_norm`), and ``SNConv`` is a plain convolution; its
+``spectral`` flag only tells the random initializer to normalize the
+weight.  For training, :func:`enable_spectral_norm` gives every spectral
+``SNConv`` the power-iteration state of flax's ``nn.SpectralNorm``
+(buffers ``sn_u`` (1, O) and ``sn_sigma``, the ``batch_stats`` entries
+``conv/kernel/u`` and ``conv/kernel/sigma``), and each call divides the
+kernel by σ from one power step; ``update_stats=True`` stores the new
+``u`` and σ, as flax's ``update_stats`` does.
+
+Every instance norm goes through :func:`renderloom_torch.ops.
+norm_kernel.instance_norm`: the CUDA kernels for a tensor on the card,
+their plain twins for a tensor on the CPU, with a gradient on either.
 
 Parameter names follow the flax param tree (``conv``, ``norm``,
 ``spade0``, ...), so :mod:`renderloom_torch.convert` loads a JAX tree by
@@ -26,6 +35,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from renderloom_torch.ops.norm_kernel import instance_norm
 
@@ -52,15 +62,26 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias \
             else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+    def forward(self, x: torch.Tensor,
+                weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``weight`` (default: the parameter) is the OIHW kernel to
+        convolve with, e.g. a spectral-normalized one."""
+        y = F.conv2d(x.permute(0, 3, 1, 2),
+                     self.weight if weight is None else weight, self.bias,
                      self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
 
 
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """flax's ``_l2_normalize``: ``x · rsqrt(Σx² + eps)``."""
+    return x * torch.rsqrt((x * x).sum() + eps)
+
+
 class SNConv(nn.Module):
-    """Conv whose weight was spectral-normalized when ``spectral``
-    (folded at load time; the flax module keeps ``conv`` as its child)."""
+    """Conv with optional spectral weight normalization (the flax module
+    keeps ``conv`` as its child).  Without power-iteration state (see
+    :func:`enable_spectral_norm`) it is a plain convolution whose weight
+    was folded at load time."""
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3,
                  stride: int = 1, spectral: bool = True,
@@ -69,8 +90,50 @@ class SNConv(nn.Module):
         self.spectral = spectral
         self.conv = Conv(in_ch, features, kernel, stride, use_bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+    def sn_weight(self, update_stats: bool = False) -> torch.Tensor:
+        """The kernel the convolution uses: with power-iteration state,
+        flax's ``SpectralNorm`` step on the HWIO kernel reshaped to
+        (H·W·I, O): ``v = l2n(u Wᵀ)``, ``u' = l2n(v W)`` (both without
+        gradient), ``σ = v W u'ᵀ`` (with gradient into W), the kernel
+        over σ (σ = 0 leaves it as it is).  ``update_stats`` stores u'
+        and σ."""
+        w = self.conv.weight
+        if not hasattr(self, "sn_u"):
+            return w
+        mat = w.permute(2, 3, 1, 0).reshape(-1, w.shape[0])
+        with torch.no_grad():
+            v = _l2_normalize(self.sn_u @ mat.T)
+            u = _l2_normalize(v @ mat)
+        sigma = (v @ mat @ u.T)[0, 0]
+        if update_stats:
+            with torch.no_grad():
+                self.sn_u.copy_(u)
+                self.sn_sigma.copy_(sigma)
+        return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+
+    def forward(self, x: torch.Tensor, update_stats: bool = False,
+                weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``weight``: a kernel :meth:`sn_weight` gave earlier (the
+        checkpointed branch of :class:`SpadeResBlock` normalizes outside
+        the region it recomputes)."""
+        if weight is None:
+            weight = self.sn_weight(update_stats)
+        return self.conv(x, weight)
+
+
+def enable_spectral_norm(module: nn.Module) -> nn.Module:
+    """Give every spectral :class:`SNConv` under ``module`` flax's
+    power-iteration state: buffers ``sn_u`` (1, O) and ``sn_sigma``,
+    zero here; :func:`renderloom_torch.convert.random_init_` or
+    :func:`renderloom_torch.convert.load_flax_params` fills them.
+    Training modules call this once after construction; serving modules
+    never do."""
+    for m in module.modules():
+        if isinstance(m, SNConv) and m.spectral and not hasattr(m, "sn_u"):
+            w = m.conv.weight
+            m.register_buffer("sn_u", w.new_zeros((1, w.shape[0])))
+            m.register_buffer("sn_sigma", w.new_zeros(()))
+    return module
 
 
 class InstanceNorm(nn.Module):
@@ -102,8 +165,9 @@ class ConvBlock(nn.Module):
         self.conv = SNConv(in_ch, features, kernel, stride, spectral)
         self.norm = InstanceNorm(features) if norm == "instance" else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+    def forward(self, x: torch.Tensor,
+                update_stats: bool = False) -> torch.Tensor:
+        x = self.conv(x, update_stats)
         slope = LEAKY_SLOPE if self.activation == "leaky" else None
         if self.norm is not None:
             x = self.norm(x, slope)         # the leaky rides in the store
@@ -134,13 +198,21 @@ class Spade(nn.Module):
 
 class SpadeResBlock(nn.Module):
     """Pre-act SPADE residual block 'NACNAC', hidden = min(in, out), and a
-    SPADE → 1×1 conv shortcut when the channel counts differ."""
+    SPADE → 1×1 conv shortcut when the channel counts differ.
+
+    ``remat`` (the config's ``do_checkpoint``) recomputes the branch
+    ``spade0 → conv0 → spade1 → conv1`` in the backward instead of
+    keeping its activations, as the JAX block's ``nn.remat`` does.  The
+    spectral-normalized kernels and the ``u`` update are computed before
+    the checkpointed region, so the recompute neither updates ``u`` a
+    second time nor convolves with other weights than the forward."""
 
     def __init__(self, in_ch: int, features: int, cond_ch: int,
                  kernel: int = 3, spade_kernel: int = 1,
-                 spectral: bool = True):
+                 spectral: bool = True, remat: bool = False):
         super().__init__()
         hidden = min(in_ch, features)
+        self.remat = remat
         self.spade0 = Spade(in_ch, cond_ch, spade_kernel)
         self.conv0 = SNConv(in_ch, hidden, kernel, 1, spectral)
         self.spade1 = Spade(hidden, cond_ch, spade_kernel)
@@ -150,10 +222,21 @@ class SpadeResBlock(nn.Module):
             self.spade_s = Spade(in_ch, cond_ch, spade_kernel)
             self.conv_s = SNConv(in_ch, features, 1, 1, spectral)
 
-    def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
-        h = self.conv0(leaky(self.spade0(x, cond)))
-        h = self.conv1(leaky(self.spade1(h, cond)))
-        s = self.conv_s(self.spade_s(x, cond)) if self.shortcut else x
+    def _branch(self, x, cond, w0, w1):
+        h = self.conv0(leaky(self.spade0(x, cond)), weight=w0)
+        return self.conv1(leaky(self.spade1(h, cond)), weight=w1)
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor,
+                update_stats: bool = False) -> torch.Tensor:
+        w0 = self.conv0.sn_weight(update_stats)
+        w1 = self.conv1.sn_weight(update_stats)
+        if self.remat and torch.is_grad_enabled():
+            h = checkpoint(self._branch, x, cond, w0, w1,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = self._branch(x, cond, w0, w1)
+        s = (self.conv_s(self.spade_s(x, cond), update_stats)
+             if self.shortcut else x)
         return s + h
 
 
@@ -174,17 +257,25 @@ class ResBlockCNACN(nn.Module):
             self.conv_s = SNConv(in_ch, features, 1, 1, spectral)
             self.norm_s = InstanceNorm(features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.norm0(self.conv0(x), LEAKY_SLOPE)
-        h = self.norm1(self.conv1(h))
-        s = self.norm_s(self.conv_s(x)) if self.shortcut else x
+    def forward(self, x: torch.Tensor,
+                update_stats: bool = False) -> torch.Tensor:
+        h = self.norm0(self.conv0(x, update_stats), LEAKY_SLOPE)
+        h = self.norm1(self.conv1(h, update_stats))
+        s = (self.norm_s(self.conv_s(x, update_stats)) if self.shortcut
+             else x)
         return s + h
 
 
 def avg_pool_3x3s2(x: torch.Tensor) -> torch.Tensor:
-    """3×3 average pool, stride 2, padding 1, count_include_pad=True."""
-    y = F.avg_pool2d(x.permute(0, 3, 1, 2), 3, stride=2, padding=1,
-                     count_include_pad=True)
+    """3×3 average pool, stride 2, padding 1, count_include_pad=True.
+
+    The pool runs on a contiguous NCHW copy: on the card, torch 2.11's
+    ``avg_pool2d`` backward for a channels_last input (the NCHW view of
+    an NHWC tensor) returns wrong gradients (errors the size of the
+    gradient itself), while its forward and the contiguous path agree
+    with the CPU."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2).contiguous(), 3, stride=2,
+                     padding=1, count_include_pad=True)
     return y.permute(0, 2, 3, 1)
 
 

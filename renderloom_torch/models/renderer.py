@@ -1,4 +1,4 @@
-"""Pose-conditioned SPADE generator with its blend-mask net, inference only.
+"""Pose-conditioned SPADE generator with its blend-mask net.
 
 Port of the JAX package's ``renderloom/models/renderer.py``:
 
@@ -11,7 +11,11 @@ Port of the JAX package's ``renderloom/models/renderer.py``:
   bottleneck, 'CNACN' residual blocks, conv decoder, sigmoid mask.
 
 Inputs and outputs are NHWC.  Channel counts are fixed at construction
-from the config, as flax infers them at init.
+from the config, as flax infers them at init.  Forwards take
+``update_stats`` like the flax modules: with the spectral-norm state of
+:func:`renderloom_torch.models.layers.enable_spectral_norm` it stores
+each power step's ``u`` (training); serving modules have folded weights
+and ignore it.
 """
 
 from __future__ import annotations
@@ -50,11 +54,12 @@ class LabelEmbedder(nn.Module):
                     SNConv(ch, out, e.kernel_size, 2, spectral))
             ch = out
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        h = leaky(self.conv_first(x))
+    def forward(self, x: torch.Tensor,
+                update_stats: bool = False) -> List[torch.Tensor]:
+        h = leaky(self.conv_first(x, update_stats))
         levels = [h]
         for i in range(self.num_downsamples):
-            h = leaky(getattr(self, f"down_{i}")(h))
+            h = leaky(getattr(self, f"down_{i}")(h, update_stats))
             levels.append(h)
         return levels
 
@@ -88,20 +93,21 @@ class MaskGenerator(nn.Module):
         self.conv_mask = ConvBlock(in_ch, 1, k, 1, spectral=False,
                                    norm="none", activation="sigmoid")
 
-    def _encode(self, x: torch.Tensor, prefix: str) -> torch.Tensor:
-        h = getattr(self, f"{prefix}_in")(x)
+    def _encode(self, x: torch.Tensor, prefix: str,
+                update_stats: bool) -> torch.Tensor:
+        h = getattr(self, f"{prefix}_in")(x, update_stats)
         for i in range(self.num_downsamples):
-            h = getattr(self, f"{prefix}_down{i}")(h)
+            h = getattr(self, f"{prefix}_down{i}")(h, update_stats)
         return h
 
-    def forward(self, label: torch.Tensor,
-                imgs: torch.Tensor) -> torch.Tensor:
-        h = torch.cat([self._encode(label, "lbl"),
-                       self._encode(imgs, "img")], dim=-1)
+    def forward(self, label: torch.Tensor, imgs: torch.Tensor,
+                update_stats: bool = False) -> torch.Tensor:
+        h = torch.cat([self._encode(label, "lbl", update_stats),
+                       self._encode(imgs, "img", update_stats)], dim=-1)
         for i in range(self.num_res_blocks):
-            h = getattr(self, f"res{i}")(h)
+            h = getattr(self, f"res{i}")(h, update_stats)
         for i in reversed(range(self.num_downsamples)):
-            h = getattr(self, f"up{i}")(upsample2x(h))
+            h = getattr(self, f"up{i}")(upsample2x(h), update_stats)
         return self.conv_mask(h)
 
 
@@ -122,7 +128,7 @@ class Generator(nn.Module):
                                g.embed.max_num_filters, i)
         block = lambda i_ch, o_ch, level: SpadeResBlock(
             i_ch, o_ch, e(min(self.n_embed, level)), g.kernel_size,
-            g.spade_kernel_size, spectral)
+            g.spade_kernel_size, spectral, remat=g.do_checkpoint)
 
         self.ref_embed = LabelEmbedder(g, 2 * g.input_image_nc)
         self.down_first = Conv(g.input_label_nc, g.num_filters,
@@ -141,26 +147,29 @@ class Generator(nn.Module):
                                       3 * g.input_image_nc)
 
     def forward(self, label: torch.Tensor, label_prev: torch.Tensor,
-                img_warped: torch.Tensor, img_prev: torch.Tensor
+                img_warped: torch.Tensor, img_prev: torch.Tensor,
+                update_stats: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        cond = self.ref_embed(torch.cat([img_warped, img_prev], dim=-1))
+        cond = self.ref_embed(torch.cat([img_warped, img_prev], dim=-1),
+                              update_stats)
         level = lambda i: cond[min(self.n_embed, i)]
 
         x = self.down_first(label)
         for i in range(self.n_down + 1):
-            x = getattr(self, f"down_{i}")(x, level(i))
+            x = getattr(self, f"down_{i}")(x, level(i), update_stats)
             if i != self.n_down:
                 x = avg_pool_3x3s2(x)
         for i in range(self.n_res):
-            x = getattr(self, f"res_{i}")(x, level(self.n_down + 1))
+            x = getattr(self, f"res_{i}")(x, level(self.n_down + 1),
+                                          update_stats)
         for i in range(self.n_down, -1, -1):
-            x = getattr(self, f"up_{i}")(x, level(i))
+            x = getattr(self, f"up_{i}")(x, level(i), update_stats)
             if i != 0:
                 x = upsample2x(x)
         img = torch.tanh(self.conv_img(leaky(x)))
 
         mask = self.mask_net(label, torch.cat([img_prev, img_warped, img],
-                                              dim=-1))
+                                              dim=-1), update_stats)
         return img, mask
 
 

@@ -1,13 +1,17 @@
-"""Image ops used by the serving path: separable resize, edge-clamped
-bilinear sampling, gaussian taps and the bilinear resize of
-``jax.image.resize``.
+"""Image ops of the serving and training paths: the window affine
+(ShiftScaleRotate matrices, inverse-map bilinear warp, keypoint
+transform), separable resize, bilinear sampling, gaussian blur and the
+bilinear resize of ``jax.image.resize``.
 
 Port of the parts of the JAX package's ``renderloom/ops/image.py`` that
-the clip pipeline runs.  Images are NHWC (or HWC) float32.
+the clip pipeline and the training preparation run.  Images are NHWC
+(or HWC) float32; affine matrices are (..., 2, 3) with
+``[x', y']ᵀ = M @ [x, y, 1]ᵀ``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -15,14 +19,89 @@ import torch
 import torch.nn.functional as F
 
 
+def shift_scale_rotate_matrix(height: int, width: int,
+                              shift_x: torch.Tensor, shift_y: torch.Tensor,
+                              scale: torch.Tensor,
+                              angle_deg: torch.Tensor) -> torch.Tensor:
+    """Forward (..., 2, 3) affine, albumentations ShiftScaleRotate:
+    rotate by ``angle_deg`` about the image center, scale by
+    ``1 + scale``, then translate by ``(shift_x·W, shift_y·H)``."""
+    theta = angle_deg * (math.pi / 180.0)
+    s = 1.0 + scale
+    cos, sin = torch.cos(theta) * s, torch.sin(theta) * s
+    cx, cy = width / 2.0, height / 2.0
+    tx = cx - cos * cx + sin * cy + shift_x * width
+    ty = cy - sin * cx - cos * cy + shift_y * height
+    return torch.stack([torch.stack([cos, -sin, tx], -1),
+                        torch.stack([sin, cos, ty], -1)], -2)
+
+
+def invert_affine(m: torch.Tensor) -> torch.Tensor:
+    """Invert (..., 2, 3) affine matrices."""
+    a, b, tx = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    c, d, ty = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    det = a * d - b * c
+    ia, ib = d / det, -b / det
+    ic, id_ = -c / det, a / det
+    itx = -(ia * tx + ib * ty)
+    ity = -(ic * tx + id_ * ty)
+    return torch.stack([torch.stack([ia, ib, itx], -1),
+                        torch.stack([ic, id_, ity], -1)], -2)
+
+
+def resize_matrix(src_h: int, src_w: int, dst_h: int, dst_w: int,
+                  device=None) -> torch.Tensor:
+    """Affine of a plain resize (the A.Resize stage)."""
+    return torch.tensor([[dst_w / src_w, 0.0, 0.0],
+                         [0.0, dst_h / src_h, 0.0]], dtype=torch.float32,
+                        device=device)
+
+
+def compose_affine(m2: torch.Tensor, m1: torch.Tensor) -> torch.Tensor:
+    """m2 ∘ m1 for (..., 2, 3) matrices."""
+    row = torch.zeros(m1.shape[:-2] + (1, 3), dtype=m1.dtype,
+                      device=m1.device)
+    row[..., 2] = 1.0
+    a = torch.cat([m1, row], dim=-2)
+    b = torch.cat([m2, row.expand(m2.shape[:-2] + (1, 3))], dim=-2)
+    return (b @ a)[..., :2, :]
+
+
+def transform_keypoints(kps: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """(..., J, 2) xy through the forward affine m (..., 2, 3)."""
+    e = lambda i, j: m[..., i, j, None]
+    x = e(0, 0) * kps[..., 0] + e(0, 1) * kps[..., 1] + e(0, 2)
+    y = e(1, 0) * kps[..., 0] + e(1, 1) * kps[..., 1] + e(1, 2)
+    return torch.stack([x, y], dim=-1)
+
+
+def affine_warp(img: torch.Tensor, m: torch.Tensor, height: int,
+                width: int) -> torch.Tensor:
+    """Warp (B, H, W, C) images by their forward affines m (B, 2, 3)
+    through inverse-map bilinear sampling into (B, height, width, C);
+    reads outside the source are zero (BORDER_CONSTANT 0)."""
+    inv = invert_affine(m)
+    ys = torch.arange(height, dtype=torch.float32, device=img.device)
+    xs = torch.arange(width, dtype=torch.float32, device=img.device)
+    ys, xs = ys[:, None], xs[None, :]
+    e = lambda i, j: inv[:, i, j, None, None]
+    src_x = e(0, 0) * xs + e(0, 1) * ys + e(0, 2)
+    src_y = e(1, 0) * xs + e(1, 1) * ys + e(1, 2)
+    return bilinear_sample(img, src_x, src_y, mode="constant")
+
+
 def bilinear_sample(img: torch.Tensor, sx: torch.Tensor,
-                    sy: torch.Tensor) -> torch.Tensor:
+                    sy: torch.Tensor, mode: str = "nearest") -> torch.Tensor:
     """Bilinear sample of (B, H, W, C) images at float coordinates
-    ``sx``/``sy`` (B, Ho, Wo), clamped to the image (``mode="nearest"``
-    of the JAX function: out-of-range positions read edge values)."""
+    ``sx``/``sy`` (B, Ho, Wo).  ``mode="nearest"`` clamps the
+    coordinates to the image (out-of-range positions read edge values);
+    ``"constant"`` zeroes each corner that falls outside."""
+    if mode not in ("nearest", "constant"):
+        raise ValueError(f"unknown mode {mode!r}")
     B, H, W, C = img.shape
-    sx = torch.clamp(sx, 0.0, W - 1.0)
-    sy = torch.clamp(sy, 0.0, H - 1.0)
+    if mode == "nearest":
+        sx = torch.clamp(sx, 0.0, W - 1.0)
+        sy = torch.clamp(sy, 0.0, H - 1.0)
     x0 = torch.floor(sx)
     y0 = torch.floor(sy)
     wx = (sx - x0)[..., None]
@@ -35,7 +114,11 @@ def bilinear_sample(img: torch.Tensor, sx: torch.Tensor,
         idx = (torch.clamp(yi, 0, H - 1) * W
                + torch.clamp(xi, 0, W - 1)).reshape(B, -1, 1)
         vals = torch.gather(flat, 1, idx.expand(-1, -1, C))
-        return vals.reshape(*yi.shape, C)
+        vals = vals.reshape(*yi.shape, C)
+        if mode == "constant":
+            inside = (yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)
+            vals = vals * inside[..., None]
+        return vals
 
     return ((1 - wx) * (1 - wy) * corner(y0i, x0i)
             + wx * (1 - wy) * corner(y0i, x0i + 1)
@@ -90,6 +173,23 @@ def gaussian_kernel1d(sigma: float, radius: int,
                      device=device)
     k = torch.exp(-0.5 * (x / sigma) ** 2)
     return k / k.sum()
+
+
+def gaussian_blur(img: torch.Tensor, radius: float = 10.0) -> torch.Tensor:
+    """Separable gaussian blur of (..., H, W, C) images, σ = ``radius``
+    and ``2σ`` taps each side (PIL's ``GaussianBlur(radius)``), edge
+    values repeated past the border."""
+    sigma = float(radius)
+    r = int(2 * sigma)
+    k = gaussian_kernel1d(sigma, r, device=img.device).to(img.dtype)
+    *lead, H, W, C = img.shape
+    x = img.reshape(-1, H, W, C).permute(0, 3, 1, 2).reshape(-1, 1, H, W)
+    x = F.pad(x, (0, 0, r, r), mode="replicate")
+    x = F.conv2d(x, k.reshape(1, 1, -1, 1))
+    x = F.pad(x, (r, r, 0, 0), mode="replicate")
+    x = F.conv2d(x, k.reshape(1, 1, 1, -1))
+    return x.reshape(-1, C, H, W).permute(0, 2, 3, 1).reshape(*lead, H, W,
+                                                             C)
 
 
 def resize_bilinear(img: torch.Tensor, height: int,

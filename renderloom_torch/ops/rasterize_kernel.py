@@ -2,15 +2,18 @@
 ``csrc/rasterize.cu`` and its plain PyTorch twin.
 
 Replaces the TPU kernel ``renderloom/ops/rasterize_pallas.py:
-rasterize_frames_fused`` (layout ``"nhwc"``, deterministic tables).  On
+rasterize_frames_fused`` (layout ``"nhwc"``, deterministic and
+train-mode tables).  On
 the H100 it is bound by the bytes of the label it writes (F·H·W·22
 values); each thread computes one pixel from tables held in shared
 memory, and the block stores its contiguous run of the NHWC label
 through a staging tile.  See the source for the design.
 
 The tables (:func:`build_tables`, the port of ``_build_tables``) carry
-everything data-dependent, so the kernel and the twin take the same
-inputs and the tests can inject the JAX-built tables:
+everything data-dependent, the training draws included (per-joint σ,
+joint and limb keep flags, part limbs; :func:`draw_train_tables`), so
+the kernel and the twin take the same inputs and the tests can inject
+the JAX-drawn values:
 
   joints (F, 19, 4) = x_floor, y_floor, 1/(2σ²), heat_valid
   skel   (F, 18, 8) = ax, ay, bx, by, valid, r, g, b   (unfloored)
@@ -24,7 +27,7 @@ for CUDA tensors; it never falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -36,15 +39,49 @@ E_CAPS = J + R.MASK_EDGES.shape[0]          # 39
 LABEL_C = 3 + J                             # 22
 
 
+def draw_train_tables(generator: torch.Generator, F: int,
+                      gauss_sigma: float = 5.0,
+                      random_drop_prob: float = 0.02,
+                      random_blur_rate: float = 0.06
+                      ) -> Dict[str, torch.Tensor]:
+    """The train-mode draws of ``rasterize_frames_fused`` (:313-335) for
+    F frames, from ``generator`` on its device: σ (F, 19) uniform over
+    the integers ``[g − 1, g + 1)``, joint keep (F, 19) and limb keep
+    (F, 18) where a uniform exceeds ``random_drop_prob``, part limbs
+    (F, 20) where a uniform is below ``random_blur_rate``."""
+    dev = generator.device
+    u = lambda *shape: torch.rand(shape, generator=generator, device=dev)
+    g = int(gauss_sigma)
+    return {"sigma": torch.randint(g - 1, g + 1, (F, J), generator=generator,
+                                   device=dev).float(),
+            "keep_j": u(F, J) > random_drop_prob,
+            "keep_e": u(F, E_SKEL) > random_drop_prob,
+            "part": u(F, E_CAPS - J) < random_blur_rate}
+
+
 def build_tables(coords: torch.Tensor, conf: torch.Tensor, height: int,
                  width: int, gauss_sigma: float = 5.0, thres: float = 0.001,
-                 foot_thres: float = 0.001):
-    """Deterministic per-frame tables from coords (F, J, 2), conf (F, J)."""
+                 foot_thres: float = 0.001,
+                 draws: Optional[Dict[str, torch.Tensor]] = None):
+    """Per-frame tables from coords (F, J, 2), conf (F, J).  ``draws`` are
+    the train draws as :func:`draw_train_tables` gives them, all four of
+    σ (F, 19), keep_j (F, 19), keep_e (F, 18) and part (F, 20); without
+    them the tables are the deterministic ones: σ = ``gauss_sigma``,
+    everything kept, no part limb."""
     F, dev = coords.shape[0], coords.device
     x, y = coords[..., 0], coords[..., 1]
     inb = (x >= 0) & (y >= 0) & (x < width) & (y < height)
     heat_valid = inb & (conf > thres)
-    sigma = torch.full((F, J), gauss_sigma, dtype=torch.float32, device=dev)
+    if draws is None:
+        sigma = torch.full((F, J), gauss_sigma, dtype=torch.float32,
+                           device=dev)
+        keep_e, part = None, None
+    else:
+        if draws.keys() != {"sigma", "keep_j", "keep_e", "part"}:
+            raise KeyError(f"draws must hold sigma, keep_j, keep_e and "
+                           f"part, got {sorted(draws)}")
+        sigma, keep_e, part = draws["sigma"], draws["keep_e"], draws["part"]
+        heat_valid = heat_valid & draws["keep_j"]
     joints = torch.stack([torch.floor(x), torch.floor(y),
                           1.0 / (2.0 * sigma * sigma), heat_valid.float()],
                          dim=-1)
@@ -53,6 +90,8 @@ def build_tables(coords: torch.Tensor, conf: torch.Tensor, height: int,
     safe = torch.where(valid[..., None], coords, torch.zeros_like(coords))
     edges = torch.as_tensor(R.POSE_EDGES_19, device=dev)
     e_ok = valid[:, edges[:, 0]] & valid[:, edges[:, 1]]
+    if keep_e is not None:
+        e_ok = e_ok & keep_e
     colors = (torch.as_tensor(R.POSE_COLORS_19, device=dev) / 255.0
               ).expand(F, E_SKEL, 3)
     skel = torch.cat([safe[:, edges[:, 0]], safe[:, edges[:, 1]],
@@ -67,9 +106,11 @@ def build_tables(coords: torch.Tensor, conf: torch.Tensor, height: int,
     medges = torch.as_tensor(R.MASK_EDGES, device=dev)
     EM = medges.shape[0]
     m_ok = mvalid[:, medges[:, 0]] & mvalid[:, medges[:, 1]]
+    part_col = (part.float()[..., None] if part is not None
+                else torch.zeros((F, EM, 1), device=dev))
     seg = torch.cat([pt[:, medges[:, 0]], pt[:, medges[:, 1]],
                      col(R.MASK_EDGE_RADII, EM), m_ok.float()[..., None],
-                     torch.zeros((F, EM, 1), device=dev)], dim=-1)
+                     part_col], dim=-1)
     return joints, skel, torch.cat([disk, seg], dim=1)
 
 
@@ -185,11 +226,13 @@ def rasterize_frames_fused(coords: torch.Tensor, conf: torch.Tensor,
                            gauss_sigma: float = 5.0, thres: float = 0.001,
                            foot_thres: float = 0.001,
                            out_dtype=torch.float32,
-                           emit_masks: bool = False
+                           emit_masks: bool = False,
+                           draws: Optional[Dict[str, torch.Tensor]] = None
                            ) -> Dict[str, torch.Tensor]:
     """coords (F, J, 2), conf (F, J) → the NHWC label stack of F frames
-    (``layout="nhwc"`` of the JAX function, deterministic path)."""
+    (``layout="nhwc"`` of the JAX function); ``draws`` (from
+    :func:`draw_train_tables`) makes it the train path."""
     tables = build_tables(coords.float(), conf.float(), height, width,
-                          gauss_sigma, thres, foot_thres)
+                          gauss_sigma, thres, foot_thres, draws)
     return rasterize_tables(*(t.contiguous() for t in tables), height,
                             width, out_dtype, emit_masks)

@@ -1,22 +1,359 @@
-"""Renderer inference: the spectral-norm-free generator and the
-segment-parallel autoregressive rollout.
+"""Renderer GAN training and inference.
 
-Port of the inference part of the JAX package's ``renderloom/train/gan.py``
-(``make_inference_generator``, ``make_inference_pair``,
-``make_segment_rollout``).  Training, the parity-layout fast path and
-``segment_rollout_chunked`` are not ported yet.
+Port of the JAX package's ``renderloom/train/gan.py``:
+
+* training (``make_gan_optimizers``, ``create_gan_state``, ``d_losses``,
+  ``g_gan_losses``, ``make_gan_train_step``): per frame of the window
+  one generator forward with ``update_stats``, a D update on its
+  detached outputs, then the G loss through the *updated* D (its
+  parameters and power-iteration state, without ``update_stats``)
+  backpropagated into G only; the previous fused frame is detached, so
+  no gradient crosses frames.  The JAX ``lax.scan`` over frames is a
+  Python loop.  Two AMSGrad optimizers (TTUR) wrapped like
+  ``optax.apply_if_finite``, written out in :class:`AmsgradIfFinite`;
+* inference (``make_inference_generator``, ``make_inference_pair``,
+  ``make_segment_rollout``): the spectral-norm-folded generator and
+  the segment-parallel rollout.
+
+The parity-layout fast path and ``segment_rollout_chunked`` are not
+ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from renderloom_torch.convert import (fold_spectral_norm, load_flax_params,
                                       random_init_)
 from renderloom_torch.core.config import RendererConfig
+from renderloom_torch.data.hsm import draw_train_randomness, prepare_batch
+from renderloom_torch.models.discriminator import DiscriminatorSet
+from renderloom_torch.models.layers import enable_spectral_norm
+from renderloom_torch.models.perceptual import PerceptualLoss
 from renderloom_torch.models.renderer import Generator, composite
+from renderloom_torch.train.gan_losses import (feature_matching_loss,
+                                               gan_loss,
+                                               mask_regulation_loss,
+                                               masked_l1_image)
+from renderloom_torch.train.schedules import step_schedule
+
+_INT32_MAX = 2 ** 31 - 1
+
+
+class AmsgradIfFinite:
+    """``optax.apply_if_finite(optax.amsgrad(lr_schedule, b1, b2),
+    max_consecutive_errors)`` over one flat float32 buffer that holds
+    every parameter (each parameter's ``.data`` becomes a view of it, so
+    one update is a handful of kernels and needs no host
+    synchronisation).
+
+    Per update, with g the flattened gradients:
+
+    * non-finite g: the update is skipped (parameters and the AMSGrad
+      state stay) and ``notfinite_count`` grows by one; a finite g
+      resets it to 0.  Once it exceeds ``max_consecutive_errors`` the
+      update is applied all the same, as optax gives up;
+    * otherwise, in optax's order: ``mu = (1 − b1)·g + b1·mu``,
+      ``nu = (1 − b2)·g² + b2·nu``, the bias corrections
+      ``1 − b^count`` with ``count`` the applied updates, ``nu_max =
+      max(nu_max, nu_hat)``, and ``p += −lr(count_before) ·
+      mu_hat / (√nu_max + eps)``.
+
+    ``torch.optim.Adam(amsgrad=True)`` orders the bias correction and
+    the maximum differently (it keeps the max of the uncorrected
+    ``nu``), so it is not this optimizer."""
+
+    def __init__(self, params: Sequence[torch.nn.Parameter],
+                 schedule: Callable, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, max_consecutive_errors: int = 10):
+        self.params = list(params)
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.max_consecutive_errors = max_consecutive_errors
+        self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
+        off = 0
+        for p in self.params:
+            p.data = self.flat[off:off + p.numel()].view_as(p)
+            off += p.numel()
+        dev = self.flat.device
+        zero = lambda: torch.zeros((), dtype=torch.int32, device=dev)
+        self.mu = torch.zeros_like(self.flat)
+        self.nu = torch.zeros_like(self.flat)
+        self.nu_max = torch.zeros_like(self.flat)
+        self.count = zero()
+        self.notfinite_count = zero()
+        self.total_notfinite = zero()
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[torch.Tensor]):
+        g = torch.cat([x.reshape(-1) for x in grads]).to(self.flat.dtype)
+        isfinite = torch.isfinite(g).all()
+        bump = lambda c: torch.clamp(c + 1, max=_INT32_MAX).to(torch.int32)
+        nf = torch.where(isfinite, torch.zeros_like(self.notfinite_count),
+                         bump(self.notfinite_count))
+        ok = isfinite | (nf > self.max_consecutive_errors)
+        count_inc = bump(self.count)
+        mu = (1 - self.b1) * g + self.b1 * self.mu
+        nu = (1 - self.b2) * (g * g) + self.b2 * self.nu
+        power = lambda b: torch.pow(
+            torch.tensor(b, dtype=torch.float32, device=g.device),
+            count_inc.to(torch.float32))
+        mu_hat = mu / (1 - power(self.b1))
+        nu_hat = nu / (1 - power(self.b2))
+        nu_max = torch.maximum(self.nu_max, nu_hat)
+        lr = self.schedule(self.count).to(g.dtype)
+        update = -lr * (mu_hat / (torch.sqrt(nu_max) + self.eps))
+        self.flat.add_(torch.where(ok, update, torch.zeros_like(update)))
+        for name, new in (("mu", mu), ("nu", nu), ("nu_max", nu_max),
+                          ("count", count_inc)):
+            setattr(self, name, torch.where(ok, new, getattr(self, name)))
+        self.total_notfinite = torch.where(isfinite, self.total_notfinite,
+                                           bump(self.total_notfinite))
+        self.notfinite_count = nf
+
+    def state_dict(self) -> dict:
+        return {k: getattr(self, k) for k in
+                ("flat", "mu", "nu", "nu_max", "count", "notfinite_count",
+                 "total_notfinite")}
+
+    def load_state_dict(self, state: dict):
+        with torch.no_grad():
+            self.flat.copy_(state["flat"])
+        for k in ("mu", "nu", "nu_max", "count", "notfinite_count",
+                  "total_notfinite"):
+            setattr(self, k, state[k].to(self.flat.device))
+
+
+def make_gan_optimizers(cfg: RendererConfig, gen: torch.nn.Module,
+                        dis: torch.nn.Module, steps_per_epoch: int = 1
+                        ) -> Tuple[AmsgradIfFinite, AmsgradIfFinite]:
+    """TTUR AMSGrad for G (``lr``) and D (``lr_d``), each on the
+    ``step_schedule`` of the config's policy, skipping non-finite
+    updates (10 in a row at most)."""
+    o = cfg.optim
+    opt = lambda module, lr: AmsgradIfFinite(
+        list(module.parameters()),
+        step_schedule(lr, o.lr_policy, steps_per_epoch, o.gamma,
+                      o.step_size), b1=o.beta1, b2=o.beta2,
+        max_consecutive_errors=10)
+    return opt(gen, o.lr), opt(dis, o.lr_d)
+
+
+def set_float32_precision():
+    """float32 means float32: cuDNN would run convolutions in TF32 by
+    default, a 1e-3-level difference from the reference."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@dataclasses.dataclass
+class GanTrainState:
+    """Both networks (parameters and power-iteration state live in the
+    modules), both optimizers, the step count, and the generator of the
+    train-mode preparation's draws (a CPU ``torch.Generator``, so every
+    device draws the same values)."""
+
+    gen: Generator
+    dis: DiscriminatorSet
+    opt_g: AmsgradIfFinite
+    opt_d: AmsgradIfFinite
+    step: int
+    rng: torch.Generator
+
+
+def create_gan_state(cfg: RendererConfig, device, seed: int = 0,
+                     steps_per_epoch: int = 1,
+                     trees: Optional[Dict[str, dict]] = None
+                     ) -> GanTrainState:
+    """Generator and discriminator set in their training form on
+    ``device`` with their optimizers.  Weights: the numpy flax trees
+    ``trees`` (``params_g``, ``stats_g``, ``params_d``, ``stats_d``) or,
+    without them, seeded random ones (G from ``seed``, D from
+    ``seed + 1``)."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype {cfg.compute_dtype!r}: the port trains in "
+            "float32 only")
+    set_float32_precision()
+    gen = enable_spectral_norm(Generator(cfg.gen))
+    dis = enable_spectral_norm(DiscriminatorSet(cfg.dis))
+    if trees is None:
+        random_init_(gen, seed)
+        random_init_(dis, seed + 1)
+    else:
+        load_flax_params(gen, trees["params_g"], trees["stats_g"])
+        load_flax_params(dis, trees["params_d"], trees["stats_d"])
+    gen, dis = gen.to(device).train(), dis.to(device).train()
+    opt_g, opt_d = make_gan_optimizers(cfg, gen, dis, steps_per_epoch)
+    return GanTrainState(gen, dis, opt_g, opt_d, 0,
+                         torch.Generator().manual_seed(seed + 2))
+
+
+def make_perceptual(cfg: RendererConfig, device, seed: int = 0,
+                    params: Optional[dict] = None) -> PerceptualLoss:
+    """The VGG19 perceptual loss on ``device``: the flax tree ``params``
+    (``PerceptualLoss().variables["params"]`` of the JAX package) or
+    fixed random weights from ``seed``."""
+    if cfg.perceptual.model != "vgg19":
+        raise NotImplementedError(
+            f"perceptual model {cfg.perceptual.model!r}: the port has VGG19")
+    vgg = PerceptualLoss(cfg.perceptual.layers, cfg.perceptual.weights)
+    if params is None:
+        random_init_(vgg, seed)
+    else:
+        load_flax_params(vgg.model, params)
+    for p in vgg.parameters():
+        p.requires_grad_(False)
+    return vgg.to(device).eval()
+
+
+def _weights_dict(cfg: RendererConfig) -> Dict[str, float]:
+    g = cfg.gan
+    w = {"fuse": g.fuse, "raw": g.raw}
+    if cfg.dis.use_face:
+        w["face"] = g.face
+    if cfg.dis.use_hand:
+        w["hand"] = g.hand
+    return w
+
+
+def d_losses(d_out: Dict, mode: str, weights: Dict[str, float]):
+    """Σ w_key·(loss on fakes + loss on reals), and the per-key terms."""
+    per_key = {}
+    for key, out in d_out.items():
+        wgt = out.get("weight")
+        per_key[key] = (gan_loss(out["pred_fake"]["output"], False, True,
+                                 mode, wgt)
+                        + gan_loss(out["pred_real"]["output"], True, True,
+                                   mode, wgt))
+    total = sum(per_key[k] * weights[k] for k in per_key)
+    return total, per_key
+
+
+def g_gan_losses(d_out: Dict, mode: str, weights: Dict[str, float],
+                 fm_w: float):
+    """G-side GAN and feature-matching totals."""
+    gan_total = 0.0
+    fm_total = 0.0
+    for key, out in d_out.items():
+        wgt = out.get("weight")
+        gan_total = gan_total + weights[key] * gan_loss(
+            out["pred_fake"]["output"], True, False, mode, wgt)
+        fm_total = fm_total + fm_w * feature_matching_loss(
+            out["pred_fake"]["features"], out["pred_real"]["features"], wgt)
+    return gan_total, fm_total
+
+
+def make_gan_train_step(cfg: RendererConfig, perceptual: PerceptualLoss,
+                        data_cfg=None,
+                        on_stage: Optional[Callable[[str], None]] = None
+                        ) -> Callable:
+    """The multi-frame train step ``train_step(state, batch) ->
+    metrics``.
+
+    ``batch`` (NHWC, frame axis second): label (B, L, H, W, 22), image
+    and back (B, L, H, W, 3) in [-1, 1], fg_mask (B, L, H, W, 1).  With
+    ``data_cfg`` set it instead takes raw windows (images and dain
+    (B, L, H0, W0, 3) in [0, 255], poses (B, L, 19, 3)) and runs the
+    train-mode preparation first, drawing its randomness from
+    ``state.rng``.  Metrics are device scalars: each loss averaged over
+    the L − 2 trained frames, and ``notfinite/g``/``notfinite/d``, the
+    optimizers' consecutive skipped updates.
+
+    ``on_stage(name)``, when given, is called as each stage ends:
+    ``"prep"`` once, then per frame ``"g_forward"``, ``"d_step"`` and
+    ``"g_step"`` (a profiler synchronises and reads its clock there)."""
+    stage = on_stage or (lambda name: None)
+    if cfg.ssim_w:
+        raise NotImplementedError("ssim_w: the port has no SSIM term yet")
+    mode = cfg.gan_mode
+    weights = _weights_dict(cfg)
+
+    def g_loss(dis, label, real, fg, back, img, mask):
+        fused = composite(img, mask, back)
+        d_out = dis(label, real, fused, img, fg, update_stats=False)
+        loss_gan, loss_fm = g_gan_losses(d_out, mode, weights, cfg.fm_w)
+        loss_perc = (perceptual(fused, real) + perceptual(img * fg, real * fg)
+                     ) * cfg.perceptual.weight
+        loss_l1 = ((fused - real).abs().mean()
+                   + masked_l1_image(img, fg, real)) * cfg.l1_w
+        loss_mask = mask_regulation_loss(mask) * cfg.mask_w
+        total = loss_gan + loss_fm + loss_perc + loss_l1 + loss_mask
+        metrics = {"g/gan": loss_gan, "g/fm": loss_fm, "g/perc": loss_perc,
+                   "g/l1": loss_l1, "g/mask": loss_mask}
+        if cfg.grad_w:
+            # fg-masked L1 of forward differences, composite vs truth
+            fm, rm = fused * fg, real * fg
+            diff = lambda x, d: x.diff(dim=d)
+            loss_grad = ((diff(fm, -3) - diff(rm, -3)).abs().mean()
+                         + (diff(fm, -2) - diff(rm, -2)).abs().mean()
+                         ) * cfg.grad_w
+            total = total + loss_grad
+            metrics["g/grad"] = loss_grad
+        metrics["g/total"] = total
+        return total, fused, metrics
+
+    def frame_step(state: GanTrainState, xs: Dict[str, torch.Tensor],
+                   prev_fuse: torch.Tensor):
+        gen, dis = state.gen, state.dis
+        label, back, real, fg = xs["label"], xs["back"], xs["real"], xs["fg"]
+        # one G forward with update_stats, kept for the G backward
+        img, mask = gen(label, xs["label_prev"], back, prev_fuse.detach(),
+                        update_stats=True)
+        fuse = composite(img, mask, back)
+        stage("g_forward")
+
+        # D update (old D, detached G outputs)
+        d_out = dis(label, real, fuse.detach(), img.detach(), fg,
+                    update_stats=True)
+        d_total, d_per_key = d_losses(d_out, mode, weights)
+        state.opt_d.step(torch.autograd.grad(d_total, state.opt_d.params,
+                                             materialize_grads=True))
+        stage("d_step")
+
+        # G update through the updated D, into G only
+        g_total, fused, metrics = g_loss(dis, label, real, fg, back, img,
+                                         mask)
+        state.opt_g.step(torch.autograd.grad(g_total, state.opt_g.params,
+                                             materialize_grads=True))
+        stage("g_step")
+        metrics["d/total"] = d_total
+        for k, v in d_per_key.items():
+            metrics[f"d/{k}"] = v
+        return {k: v.detach() for k, v in metrics.items()}, fused.detach()
+
+    def train_step(state: GanTrainState, batch: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        if data_cfg is not None:
+            B, F = batch["images"].shape[:2]
+            dev = batch["images"].device
+            draws = draw_train_randomness(state.rng, B, F, data_cfg)
+            batch = prepare_batch(batch, data_cfg,
+                                  {k: v.to(dev) for k, v in draws.items()})
+            stage("prep")
+        tm = lambda x: x.transpose(0, 1).float()        # (L, B, ...)
+        label, image = tm(batch["label"]), tm(batch["image"])
+        back, fg = tm(batch["back"]), tm(batch["fg_mask"])
+        L = label.shape[0]
+        prev_fuse = image[0]
+        per_frame: List[Dict[str, torch.Tensor]] = []
+        for t in range(1, L - 1):
+            metrics, prev_fuse = frame_step(
+                state, {"label": label[t], "label_prev": label[t - 1],
+                        "back": back[t], "real": image[t], "fg": fg[t]},
+                prev_fuse)
+            per_frame.append(metrics)
+        state.step += 1
+        out = {k: torch.stack([m[k] for m in per_frame]).mean()
+               for k in per_frame[0]}
+        out["notfinite/g"] = state.opt_g.notfinite_count.float()
+        out["notfinite/d"] = state.opt_d.notfinite_count.float()
+        return out
+
+    return train_step
 
 
 def make_inference_generator(cfg: RendererConfig) -> Generator:

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing every module of
-``renderloom_torch`` loads neither JAX nor the JAX package, and
-``chip_smoke.py`` imports neither.  Its serving entry point runs on the
-card unless told otherwise, and without a card it refuses rather than
-running on the CPU."""
+``renderloom_torch`` (the training CLI included) loads none of JAX,
+flax, optax or the JAX package, and ``chip_smoke.py`` imports none of
+them.  Its serving and training entry points run on the card unless
+told otherwise, and without a card they refuse rather than run on the
+CPU."""
 
 import ast
 import json
@@ -15,6 +16,7 @@ import torch
 
 import renderloom_torch.core.config as TC
 from _torch_parity import motion_cfg, renderer_cfg
+from renderloom_torch.cli import train_renderer
 from renderloom_torch.eval import pipeline
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -35,7 +37,8 @@ def _port_modules():
 
 def test_port_imports_no_jax_and_no_jax_package():
     mods = _port_modules()
-    assert "renderloom_torch.eval.pipeline" in mods
+    assert {"renderloom_torch.eval.pipeline", "renderloom_torch.train.gan",
+            "renderloom_torch.cli.train_renderer"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(sys.modules)))")
@@ -45,7 +48,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                          check=True)
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     bad = [m for m in loaded
-           if m.split(".")[0] in ("jax", "jaxlib", "flax", "renderloom")]
+           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                  "renderloom")]
     assert not bad, bad
 
 
@@ -59,7 +63,8 @@ def test_chip_smoke_imports_no_jax():
         elif isinstance(node, ast.ImportFrom) and node.module:
             roots.add(node.module.split(".")[0])
     assert "renderloom_torch" in roots
-    assert not roots & {"jax", "jaxlib", "flax", "renderloom"}, roots
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "renderloom"}, \
+        roots
 
 
 def test_build_pipeline_defaults_to_the_card_and_never_falls_back(
@@ -68,3 +73,9 @@ def test_build_pipeline_defaults_to_the_card_and_never_falls_back(
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pipeline.build_pipeline(motion_cfg(TC), renderer_cfg(TC, 32, 48),
                                 2, 3)
+
+
+def test_train_cli_defaults_to_the_card_and_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_renderer.main(["--synthetic", "--epochs", "1"])
