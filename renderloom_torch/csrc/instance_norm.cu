@@ -2,7 +2,8 @@
 // the forward (K2) and its backward (K2b).
 //
 // K2 replaces the TPU kernel renderloom/ops/norm_pallas.py:
-// instance_norm_fused (Pallas body `_kernel`), non-parity forward only.
+// instance_norm_fused (Pallas body `_kernel`), forward, parity=False and
+// parity=True.
 // K2b replaces the custom VJP renderloom/models/layers.py:_in_bwd, which
 // the JAX package wrote by hand (jnp, no Pallas kernel).
 //
@@ -31,6 +32,17 @@
 //    moments are taken of (x - s) with s = x[b, 0, 0, c], and the apply is
 //    the centered form ((x - s) - m1) * inv * gamma + beta, so a large
 //    per-channel mean (4096 with std 1e-2) keeps its variance.
+//  * Parity (space-to-depth input, channel (p*2+q)*Cg + c, the layout of
+//    renderloom/models/fastpath.py): the statistics are the full-resolution
+//    ones, the average over the four parity groups of each group's moments
+//    (fastpath.py:instance_norm_p4).  A pre-pass (parity_shift_kernel)
+//    takes one shift per (b, c) shared by the four groups, the parity
+//    average of the means of packed row 0, so the combined shifted
+//    moments stay exact algebra; the moments pass subtracts it, and the
+//    apply pass reduces the partials of channels c, Cg+c, 2Cg+c, 3Cg+c
+//    (each in split order, then the groups in order) before it writes
+//    (d - m1) * (inv * gamma) + beta.  Still no float atomics.  Parity has
+//    no backward: the JAX kernel is inference-only.
 //  * Backward pass 1 (bwd_partial_kernel): the forward's grid; each block
 //    sums dz and dz * xhat over its pixel range into scratch, where xhat
 //    is recomputed from x and the residuals and dz is dy through the fused
@@ -62,8 +74,49 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
 
 // grid (n_split, ceil(C / ct), B), block (ct, kThreads / ct); ct is a
 // power of two <= 32, so blockDim.y is a power of two too.
+// Parity pre-pass: shift[b, c] = mean over the four groups g of the mean
+// of packed row 0 (w pixels) of channel g * Cg + c.  grid (ceil(Cg / ct),
+// B), block (ct, kThreads / ct); a fixed-order tree over the row.
+template <typename T>
+__global__ void parity_shift_kernel(const T* __restrict__ x,
+                                    float* __restrict__ shift, int n_px,
+                                    int C, int w) {
+  __shared__ float sh[4][kThreads];
+  const int ct = blockDim.x;
+  const int Cg = C / 4;
+  const int c = blockIdx.x * ct + threadIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.y * ct + threadIdx.x;
+  const T* row = x + (size_t)b * n_px * C;
+  for (int g = 0; g < 4; ++g) {
+    float s = 0.f;
+    if (c < Cg)
+      for (int j = threadIdx.y; j < w; j += blockDim.y)
+        s += load_f(row + (size_t)j * C + g * Cg + c);
+    sh[g][tid] = s;
+  }
+  __syncthreads();
+  for (int stride = blockDim.y / 2; stride > 0; stride >>= 1) {
+    if (threadIdx.y < stride)
+      for (int g = 0; g < 4; ++g) sh[g][tid] += sh[g][tid + stride * ct];
+    __syncthreads();
+  }
+  if (threadIdx.y == 0 && c < Cg) {
+    float acc = 0.f;
+    for (int g = 0; g < 4; ++g) acc += sh[g][threadIdx.x] / (float)w;
+    shift[(size_t)b * Cg + c] = acc / 4.f;
+  }
+}
+
+// shift_tab (parity only): the (B, C / 4) shifts of parity_shift_kernel;
+// null takes s = x[b, 0, 0, c].
+__device__ __forceinline__ int group_channel(int c, int C) {
+  return c % (C / 4);
+}
+
 template <typename T>
 __global__ void moments_kernel(const T* __restrict__ x,
+                               const float* __restrict__ shift_tab,
                                float* __restrict__ partial, int n_px, int C,
                                int rows_per_split) {
   __shared__ float sh1[kThreads];
@@ -78,7 +131,9 @@ __global__ void moments_kernel(const T* __restrict__ x,
 
   float s1 = 0.f, s2 = 0.f;
   if (c < C) {
-    const float shift = load_f(xb + c);
+    const float shift =
+        shift_tab ? shift_tab[(size_t)b * (C / 4) + group_channel(c, C)]
+                  : load_f(xb + c);
     for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
       const float d = load_f(xb + (size_t)r * C + c) - shift;
       s1 += d;
@@ -105,6 +160,7 @@ __global__ void moments_kernel(const T* __restrict__ x,
 
 template <typename T>
 __global__ void apply_kernel(const T* __restrict__ x, T* __restrict__ out,
+                             const float* __restrict__ shift_tab,
                              const float* __restrict__ partial,
                              const float* __restrict__ scale,
                              const float* __restrict__ bias,
@@ -120,13 +176,32 @@ __global__ void apply_kernel(const T* __restrict__ x, T* __restrict__ out,
 
   if (threadIdx.y == 0 && c < C) {
     const float* p = partial + (size_t)b * n_split * 2 * C;
-    float s1 = 0.f, s2 = 0.f;
-    for (int k = 0; k < n_split; ++k) {  // fixed order: deterministic
-      s1 += p[(size_t)k * 2 * C + c];
-      s2 += p[(size_t)k * 2 * C + C + c];
+    float m1, m2;
+    if (shift_tab) {  // parity: average the four groups' moments
+      const int Cg = C / 4;
+      const int cg = group_channel(c, C);
+      float a1 = 0.f, a2 = 0.f;
+      for (int g = 0; g < 4; ++g) {
+        const int ch = g * Cg + cg;
+        float s1 = 0.f, s2 = 0.f;
+        for (int k = 0; k < n_split; ++k) {  // fixed order: deterministic
+          s1 += p[(size_t)k * 2 * C + ch];
+          s2 += p[(size_t)k * 2 * C + C + ch];
+        }
+        a1 += s1 / (float)n_px;
+        a2 += s2 / (float)n_px;
+      }
+      m1 = a1 / 4.f;
+      m2 = a2 / 4.f;
+    } else {
+      float s1 = 0.f, s2 = 0.f;
+      for (int k = 0; k < n_split; ++k) {  // fixed order: deterministic
+        s1 += p[(size_t)k * 2 * C + c];
+        s2 += p[(size_t)k * 2 * C + C + c];
+      }
+      m1 = s1 / (float)n_px;
+      m2 = s2 / (float)n_px;
     }
-    const float m1 = s1 / (float)n_px;
-    const float m2 = s2 / (float)n_px;
     const float var = fmaxf(m2 - m1 * m1, 0.f);
     const float inv = rsqrtf(var + eps);
     s_m1[threadIdx.x] = m1;
@@ -147,9 +222,22 @@ __global__ void apply_kernel(const T* __restrict__ x, T* __restrict__ out,
   const float be = bias ? bias[c] : 0.f;
   const T* xb = x + (size_t)b * n_px * C;
   T* ob = out + (size_t)b * n_px * C;
-  const float shift = load_f(xb + c);
   const int r0 = blockIdx.x * rows_per_split;
   const int r1 = min(n_px, r0 + rows_per_split);
+  if (shift_tab) {
+    // instance_norm_p4's order: (d - m1) * a with a = inv * gamma, + beta
+    const float shift = shift_tab[(size_t)b * (C / 4) + group_channel(c, C)];
+    const float a = scale ? inv * g : inv;
+    for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
+      const size_t i = (size_t)r * C + c;
+      float y = ((load_f(xb + i) - shift) - m1) * a;
+      if (bias) y = y + be;
+      if (leaky) y = y >= 0.f ? y : y * slope;
+      store_f(ob + i, y);
+    }
+    return;
+  }
+  const float shift = load_f(xb + c);
   for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
     const size_t i = (size_t)r * C + c;
     float y = ((load_f(xb + i) - shift) - m1) * inv;
@@ -306,18 +394,29 @@ __global__ void bwd_param_kernel(const float* __restrict__ partial,
   dscale[c] = sg;
 }
 
+// shift (parity only): (B, C / 4) scratch for the pre-pass, which reads
+// the first `width` pixels (packed row 0); null for the standard norm.
 template <typename T>
 void launch(const void* x, void* out, const float* scale, const float* bias,
-            float* partial, float* stats, int B, int n_px, int C, int leaky,
-            float slope, float eps, int n_split, int rows_per_split, int ct,
-            cudaStream_t stream) {
+            float* partial, float* stats, float* shift, int width, int B,
+            int n_px, int C, int leaky, float slope, float eps, int n_split,
+            int rows_per_split, int ct, cudaStream_t stream) {
   const dim3 grid(n_split, (C + ct - 1) / ct, B);
   const dim3 block(ct, kThreads / ct);
-  moments_kernel<T><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), partial, n_px, C, rows_per_split);
+  const T* xt = static_cast<const T*>(x);
+  if (shift) {
+    const int Cg = C / 4;
+    int sct = 1;
+    while (sct < Cg && sct < 32) sct <<= 1;
+    parity_shift_kernel<T><<<dim3((Cg + sct - 1) / sct, B),
+                             dim3(sct, kThreads / sct), 0, stream>>>(
+        xt, shift, n_px, C, width);
+  }
+  moments_kernel<T><<<grid, block, 0, stream>>>(xt, shift, partial, n_px, C,
+                                                rows_per_split);
   apply_kernel<T><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), partial, scale, bias,
-      stats, n_px, C, rows_per_split, leaky, slope, eps);
+      xt, static_cast<T*>(out), shift, partial, scale, bias, stats, n_px, C,
+      rows_per_split, leaky, slope, eps);
 }
 
 template <typename T>
@@ -343,23 +442,26 @@ void launch_bwd(const void* x, const void* dy, const float* stats,
 
 }  // namespace
 
+// shift non-null selects the parity norm (C divisible by 4, `width` the
+// packed tensor's W); stats must then be null.
 extern "C" int rl_instance_norm(const void* x, void* out, const void* scale,
                                 const void* bias, void* partial, void* stats,
-                                int B, int n_px, int C, int is_bf16,
-                                int leaky, float slope, float eps,
-                                int n_split, int rows_per_split, int ct,
-                                void* stream) {
+                                void* shift, int width, int B, int n_px,
+                                int C, int is_bf16, int leaky, float slope,
+                                float eps, int n_split, int rows_per_split,
+                                int ct, void* stream) {
   const float* s = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
   float* part = static_cast<float*>(partial);
   float* st = static_cast<float*>(stats);
+  float* sh = static_cast<float*>(shift);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    launch<__nv_bfloat16>(x, out, s, bi, part, st, B, n_px, C, leaky, slope,
-                          eps, n_split, rows_per_split, ct, cs);
+    launch<__nv_bfloat16>(x, out, s, bi, part, st, sh, width, B, n_px, C,
+                          leaky, slope, eps, n_split, rows_per_split, ct, cs);
   } else {
-    launch<float>(x, out, s, bi, part, st, B, n_px, C, leaky, slope, eps,
-                  n_split, rows_per_split, ct, cs);
+    launch<float>(x, out, s, bi, part, st, sh, width, B, n_px, C, leaky,
+                  slope, eps, n_split, rows_per_split, ct, cs);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,15 @@
 // and optionally the human mask and the part mask.
 //
 // Replaces the TPU kernel renderloom/ops/rasterize_pallas.py:
-// rasterize_frames_fused (Pallas bodies `_kernel_nhwc` / `_kernel_cmaj`
-// with the tables of `_build_tables`), layout "nhwc".
+// rasterize_frames_fused with the tables of `_build_tables`, in its three
+// layouts:
+//   nhwc   label (F, H, W, 22)               Pallas `_kernel_nhwc`;
+//   packed label (F, H/2, W/2, 88), channel   Pallas `_kernel_packed`;
+//          (row_parity * 2 + col_parity) * 22 + c: space_to_depth of nhwc;
+//   cfhw   heatmaps (F, 19, H, W) and skeleton (F, 3, H, W) in [0, 1],
+//          masks always                       Pallas `_kernel`.
+// `_kernel_cmaj` plus the wrapper's relayout computes the nhwc and packed
+// labels; here they are written in the consumer layout directly.
 //
 // Bound on the H100: device-memory bytes of the label write.  Each pixel
 // costs about 19 exponentials and 18 capsule distances (plus 39 more
@@ -19,6 +26,16 @@
 // consecutive threads on consecutive addresses.  (The Pallas version
 // emits channel-major and transposes afterwards because the TPU compiler
 // spills channel-last stores; nothing of that applies here.)
+//
+// The layouts differ only in which full-resolution pixel a thread takes
+// and where it stores.  Packed: the label's element (q, par, c) sits at
+// (q * 4 + par) * 22 + c, so with thread index p = q * 4 + par (packed
+// pixel q, parity par) the staging tile and its contiguous store are the
+// nhwc ones; only the pixel's coordinates change (y = 2 * (q / (W/2)) +
+// par / 2, x = 2 * (q % (W/2)) + par % 2), and the full-resolution masks
+// are stored at (y, x).  Cfhw: each thread stores its 22 values straight
+// to 22 channel planes, consecutive threads on consecutive addresses, no
+// staging.
 //
 // Numerics mirror the plain version operation by operation: squared
 // distances compared against squared radii (the masks are bit-exact),
@@ -39,6 +56,8 @@ constexpr int kCaps = 39;
 constexpr int kC = 22;
 constexpr int kPix = 128;
 
+enum Layout { kNhwc = 0, kPacked = 1, kCfhw = 2 };
+
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -58,11 +77,14 @@ __device__ __forceinline__ float seg_dist2(float xs, float ys, float ax,
   return ex * ex + ey * ey;
 }
 
-template <typename T>
+// label: the nhwc/packed label, or for cfhw the heatmaps (F, 19, H, W);
+// skel_img: cfhw only, the skeleton (F, 3, H, W).
+template <typename T, int kLayout>
 __global__ void raster_kernel(const float* __restrict__ joints,
                               const float* __restrict__ skel,
                               const float* __restrict__ caps,
-                              T* __restrict__ label, float* __restrict__ mask,
+                              T* __restrict__ label, T* __restrict__ skel_img,
+                              float* __restrict__ mask,
                               float* __restrict__ part, int H, int W,
                               float brush) {
   __shared__ float s_j[kJ * 4];
@@ -84,8 +106,14 @@ __global__ void raster_kernel(const float* __restrict__ joints,
   const int p0 = blockIdx.x * kPix;
   const int p = p0 + threadIdx.x;
   if (p < hw) {
-    const float ys = (float)(p / W);
-    const float xs = (float)(p % W);
+    int yi = p / W, xi = p % W;
+    if (kLayout == kPacked) {
+      const int q = p >> 2, wp = W >> 1;
+      yi = 2 * (q / wp) + ((p >> 1) & 1);
+      xi = 2 * (q % wp) + (p & 1);
+    }
+    const float ys = (float)yi;
+    const float xs = (float)xi;
     const float r_dot = brush * brush;
     const float r_end = (2.f * brush) * (2.f * brush);
 
@@ -106,16 +134,29 @@ __global__ void raster_kernel(const float* __restrict__ joints,
       cnt = cnt + cover;
     }
     const float denom = fmaxf(cnt, 1.f);
-    float* o = s_out + threadIdx.x * kC;
-    o[0] = (racc / denom) * 2.f - 1.f;
-    o[1] = (gacc / denom) * 2.f - 1.f;
-    o[2] = (bacc / denom) * 2.f - 1.f;
-
-    for (int j = 0; j < kJ; ++j) {
-      const float* q = s_j + j * 4;
-      const float dx = xs - q[0], dy = ys - q[1];
-      const float d2 = dx * dx + dy * dy;
-      o[3 + j] = expf(-d2 * q[2]) * q[3];
+    if (kLayout == kCfhw) {
+      T* sk = skel_img + (size_t)f * 3 * hw + p;
+      store_f(sk, racc / denom);
+      store_f(sk + hw, gacc / denom);
+      store_f(sk + 2 * hw, bacc / denom);
+      for (int j = 0; j < kJ; ++j) {
+        const float* q = s_j + j * 4;
+        const float dx = xs - q[0], dy = ys - q[1];
+        const float d2 = dx * dx + dy * dy;
+        store_f(label + ((size_t)f * kJ + j) * hw + p,
+                expf(-d2 * q[2]) * q[3]);
+      }
+    } else {
+      float* o = s_out + threadIdx.x * kC;
+      o[0] = (racc / denom) * 2.f - 1.f;
+      o[1] = (gacc / denom) * 2.f - 1.f;
+      o[2] = (bacc / denom) * 2.f - 1.f;
+      for (int j = 0; j < kJ; ++j) {
+        const float* q = s_j + j * 4;
+        const float dx = xs - q[0], dy = ys - q[1];
+        const float d2 = dx * dx + dy * dy;
+        o[3 + j] = expf(-d2 * q[2]) * q[3];
+      }
     }
 
     if (mask != nullptr) {
@@ -127,10 +168,12 @@ __global__ void raster_kernel(const float* __restrict__ joints,
         macc = fmaxf(macc, cover);
         pacc = fmaxf(pacc, cover * c[6]);
       }
-      mask[(size_t)f * hw + p] = macc;
-      part[(size_t)f * hw + p] = pacc;
+      const size_t m = (size_t)f * hw + (size_t)yi * W + xi;
+      mask[m] = macc;
+      part[m] = pacc;
     }
   }
+  if (kLayout == kCfhw) return;
   __syncthreads();
 
   const int n = min(kPix, hw - p0) * kC;
@@ -138,12 +181,33 @@ __global__ void raster_kernel(const float* __restrict__ joints,
   for (int i = threadIdx.x; i < n; i += blockDim.x) store_f(dst + i, s_out[i]);
 }
 
+template <typename T>
+void launch(const dim3 grid, cudaStream_t st, int layout, const float* j,
+            const float* s, const float* c, void* label, void* skel_img,
+            float* m, float* pm, int H, int W, float brush) {
+  T* lb = static_cast<T*>(label);
+  T* sk = static_cast<T*>(skel_img);
+  if (layout == kPacked) {
+    raster_kernel<T, kPacked><<<grid, kPix, 0, st>>>(j, s, c, lb, sk, m, pm,
+                                                     H, W, brush);
+  } else if (layout == kCfhw) {
+    raster_kernel<T, kCfhw><<<grid, kPix, 0, st>>>(j, s, c, lb, sk, m, pm, H,
+                                                   W, brush);
+  } else {
+    raster_kernel<T, kNhwc><<<grid, kPix, 0, st>>>(j, s, c, lb, sk, m, pm, H,
+                                                   W, brush);
+  }
+}
+
 }  // namespace
 
+// layout: 0 nhwc, 1 packed (H, W even), 2 cfhw (label = heatmaps,
+// skel_img = skeleton, masks non-null).  skel_img is null but for cfhw.
 extern "C" int rl_rasterize(const void* joints, const void* skel,
-                            const void* caps, void* label, void* mask,
-                            void* part, int F, int H, int W, int label_bf16,
-                            float brush, void* stream) {
+                            const void* caps, void* label, void* skel_img,
+                            void* mask, void* part, int F, int H, int W,
+                            int label_bf16, int layout, float brush,
+                            void* stream) {
   const dim3 grid((H * W + kPix - 1) / kPix, F);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* j = static_cast<const float*>(joints);
@@ -152,11 +216,11 @@ extern "C" int rl_rasterize(const void* joints, const void* skel,
   float* m = static_cast<float*>(mask);
   float* pm = static_cast<float*>(part);
   if (label_bf16) {
-    raster_kernel<__nv_bfloat16><<<grid, kPix, 0, st>>>(
-        j, s, c, static_cast<__nv_bfloat16*>(label), m, pm, H, W, brush);
+    launch<__nv_bfloat16>(grid, st, layout, j, s, c, label, skel_img, m, pm,
+                          H, W, brush);
   } else {
-    raster_kernel<float><<<grid, kPix, 0, st>>>(
-        j, s, c, static_cast<float*>(label), m, pm, H, W, brush);
+    launch<float>(grid, st, layout, j, s, c, label, skel_img, m, pm, H, W,
+                  brush);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -67,9 +67,16 @@ def window_affine(draws: Dict[str, torch.Tensor], src_h: int, src_w: int,
     return compose_affine(ssr, resize.expand(ssr.shape))
 
 
+def _label_layout(ras, B, F, H, W, packed_label):
+    if packed_label:
+        return ras["label"].reshape(B, F, H // 2, W // 2, 88)
+    return ras["label"].reshape(B, F, H, W, 22)
+
+
 def prepare_batch(batch: Dict[str, torch.Tensor], cfg: RendererDataConfig,
-                  draws: Optional[Dict[str, torch.Tensor]] = None
-                  ) -> Dict[str, torch.Tensor]:
+                  draws: Optional[Dict[str, torch.Tensor]] = None,
+                  label_dtype: Optional[torch.dtype] = None,
+                  packed_label: bool = False) -> Dict[str, torch.Tensor]:
     """``batch``: images/dain (B, F, H0, W0, 3) in [0, 255] (dain already
     shifted to t−1 per frame), poses (B, F, 19, 3) xy + conf in source
     pixels.  Returns label (B, F, H, W, 22) float32 and image/back
@@ -77,9 +84,16 @@ def prepare_batch(batch: Dict[str, torch.Tensor], cfg: RendererDataConfig,
 
     ``draws`` (:func:`draw_train_randomness`, on the batch's device)
     selects the train branch, which also returns ``fg_mask``
-    (B, F, H, W, 1)."""
+    (B, F, H, W, 1).  ``label_dtype`` (default float32) is the label
+    stream's type, which the kernel casts to at the store (bf16 halves
+    the label's bytes); ``packed_label`` emits it parity-packed,
+    (B, F, H/2, W/2, 88) = space_to_depth of each frame's label, which
+    the parity-layout generator (``models/fastpath.py``) takes as it is
+    (the JAX ``prepare_batch``'s ``label_dtype``/``packed_label``)."""
+    layout = dict(out_dtype=label_dtype or torch.float32,
+                  layout="packed" if packed_label else "nhwc")
     if draws is not None:
-        return _prepare_train(batch, cfg, draws)
+        return _prepare_train(batch, cfg, draws, layout, packed_label)
     images, dain, poses = batch["images"], batch["dain"], batch["poses"]
     B, F = images.shape[:2]
     H, W = cfg.model_height, cfg.model_width
@@ -103,10 +117,9 @@ def prepare_batch(batch: Dict[str, torch.Tensor], cfg: RendererDataConfig,
     ras = rasterize_frames_fused(
         coords.reshape(B * F, -1, 2), conf.reshape(B * F, -1), H, W,
         gauss_sigma=cfg.gauss_sigma, thres=cfg.skeleton_thres,
-        foot_thres=cfg.foot_thres)
-    label = ras["label"].reshape(B, F, H, W, 22)
-    return {"label": label, "image": images_t,
-            "back": _zero_first_back(dain_t, dain)}
+        foot_thres=cfg.foot_thres, **layout)
+    return {"label": _label_layout(ras, B, F, H, W, packed_label),
+            "image": images_t, "back": _zero_first_back(dain_t, dain)}
 
 
 def _zero_first_back(back: torch.Tensor, dain: torch.Tensor) -> torch.Tensor:
@@ -117,7 +130,8 @@ def _zero_first_back(back: torch.Tensor, dain: torch.Tensor) -> torch.Tensor:
     return torch.cat([first[:, None], back[:, 1:]], dim=1)
 
 
-def _prepare_train(batch, cfg: RendererDataConfig, draws):
+def _prepare_train(batch, cfg: RendererDataConfig, draws, layout,
+                   packed_label):
     images, dain, poses = batch["images"], batch["dain"], batch["poses"]
     B, F, src_h, src_w = images.shape[:4]
     H, W = cfg.model_height, cfg.model_width
@@ -133,9 +147,9 @@ def _prepare_train(batch, cfg: RendererDataConfig, draws):
     ras = rasterize_frames_fused(
         coords.reshape(B * F, -1, 2), conf.reshape(B * F, -1), H, W,
         gauss_sigma=cfg.gauss_sigma, thres=cfg.skeleton_thres,
-        foot_thres=cfg.foot_thres, emit_masks=True, draws=tables)
+        foot_thres=cfg.foot_thres, emit_masks=True, draws=tables, **layout)
     part = ras["part_mask"].reshape(B, F, H, W, 1)
     back = gaussian_blur(dain_t, 10.0) * part + dain_t * (1.0 - part)
-    return {"label": ras["label"].reshape(B, F, H, W, 22),
+    return {"label": _label_layout(ras, B, F, H, W, packed_label),
             "image": images_t, "back": _zero_first_back(back, dain),
             "fg_mask": ras["mask"].reshape(B, F, H, W, 1)}

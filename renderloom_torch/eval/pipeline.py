@@ -44,6 +44,7 @@ FLOW = dict(levels=3, iters=1, flow_scale=4)
 
 def make_pipeline_fn(interp: MotionInterpolator, rollout: Callable,
                      data_cfg, rate: int, keyframes: int, *,
+                     packed_label: bool = False, label_bf16: bool = False,
                      src_size: Optional[Tuple[int, int]] = None
                      ) -> Callable:
     """The clip-interpolation pipeline as one callable.
@@ -57,6 +58,9 @@ def make_pipeline_fn(interp: MotionInterpolator, rollout: Callable,
     ``fused`` is (N, L, H, W, 3) with L = (K−1)·rate + 1 and ``sync`` a
     scalar checksum of it.  ``src_size`` set: keyframes come at another
     (e.g. on-disk) resolution and are resized once at ingest.
+    ``packed_label`` / ``label_bf16``: the label stream parity-packed
+    (B, L, H/2, W/2, 88) / stored in bf16, for a rollout over the
+    parity-layout generator (:func:`build_pipeline` ``fastpath``).
     """
     H, W = data_cfg.model_height, data_cfg.model_width
     L = (keyframes - 1) * rate + 1
@@ -77,7 +81,9 @@ def make_pipeline_fn(interp: MotionInterpolator, rollout: Callable,
         poses = poses.permute(0, 3, 1, 2).float()
         images = assemble_keyframe_stream(keys * 255.0, rate)
         prep = prepare_batch({"images": images, "dain": backs * 255.0,
-                              "poses": poses}, data_cfg)
+                              "poses": poses}, data_cfg,
+                             label_dtype=torch.bfloat16 if label_bf16
+                             else None, packed_label=packed_label)
         fused, _ = rollout({"label": prep["label"], "back": prep["back"],
                             "key_img": prep["image"]})
         return fused, fused.sum() * 1e-20
@@ -90,10 +96,17 @@ def build_pipeline(mcfg, rcfg, rate: int, keyframes: int, *,
                    mean: Optional[np.ndarray] = None,
                    std: Optional[np.ndarray] = None,
                    src_size: Optional[Tuple[int, int]] = None,
-                   device="cuda"):
+                   device="cuda", fastpath: bool = False):
     """Models and the pipeline callable from the two configs, on
     ``device`` (the card unless the caller asks for the CPU; without a
     CUDA device a CUDA request raises).
+
+    ``fastpath``: the JAX ``build_pipeline(platform="tpu")``
+    configuration: the parity-layout generator
+    (:class:`renderloom_torch.models.fastpath.FastInferenceGen`) over
+    the same folded weights, and the label stream parity-packed and
+    stored in bf16.  The default is the standard generator on an NHWC
+    float32 label.
 
     ``m_params`` / ``g_params`` + ``g_stats``: numpy flax trees of trained
     weights (spectral norm is folded here); seeded random weights when
@@ -116,7 +129,8 @@ def build_pipeline(mcfg, rcfg, rate: int, keyframes: int, *,
         m_model, np.zeros((19, 2), np.float32) if mean is None else mean,
         np.ones((19, 2), np.float32) if std is None else std, device)
 
-    gen = make_inference_pair(rcfg, g_params, g_stats, device)
+    gen = make_inference_pair(rcfg, g_params, g_stats, device, fastpath)
     fn = make_pipeline_fn(interp, make_segment_rollout(gen, rate),
-                          rcfg.data, rate, keyframes, src_size=src_size)
+                          rcfg.data, rate, keyframes, packed_label=fastpath,
+                          label_bf16=fastpath, src_size=src_size)
     return fn, m_model, gen

@@ -152,8 +152,16 @@ class Generator(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cond = self.ref_embed(torch.cat([img_warped, img_prev], dim=-1),
                               update_stats)
-        level = lambda i: cond[min(self.n_embed, i)]
+        img = self.trunk(label, cond, update_stats)
+        mask = self.mask_net(label, torch.cat([img_prev, img_warped, img],
+                                              dim=-1), update_stats)
+        return img, mask
 
+    def trunk(self, label: torch.Tensor, cond: List[torch.Tensor],
+              update_stats: bool = False) -> torch.Tensor:
+        """The SPADE trunk: the tanh image from ``label`` and the
+        embedder's level maps ``cond``."""
+        level = lambda i: cond[min(self.n_embed, i)]
         x = self.down_first(label)
         for i in range(self.n_down + 1):
             x = getattr(self, f"down_{i}")(x, level(i), update_stats)
@@ -166,11 +174,7 @@ class Generator(nn.Module):
             x = getattr(self, f"up_{i}")(x, level(i), update_stats)
             if i != 0:
                 x = upsample2x(x)
-        img = torch.tanh(self.conv_img(leaky(x)))
-
-        mask = self.mask_net(label, torch.cat([img_prev, img_warped, img],
-                                              dim=-1), update_stats)
-        return img, mask
+        return torch.tanh(self.conv_img(leaky(x)))
 
 
 def composite(img_gen: torch.Tensor, mask: torch.Tensor,

@@ -3,12 +3,13 @@ kernels ``csrc/instance_norm.cu`` (forward K2, backward K2b), their
 plain PyTorch twins, and the ``autograd.Function`` that joins them.
 
 K2 replaces the TPU kernel ``renderloom/ops/norm_pallas.py:
-instance_norm_fused`` (non-parity, forward).  K2b is the backward the
-JAX package wrote as a custom VJP (``renderloom/models/layers.py:
-_in_bwd``).  On the H100 both are bound by device-memory bytes; each
-makes two passes over its inputs, with partial sums per pixel range in
-a scratch buffer and a fixed-order reduction, so results do not depend
-on block scheduling.  See the source for the design.
+instance_norm_fused`` (forward, ``parity=False`` and ``parity=True``).
+K2b is the backward the JAX package wrote as a custom VJP
+(``renderloom/models/layers.py:_in_bwd``).  On the H100 both are bound
+by device-memory bytes; each makes two passes over its inputs, with
+partial sums per pixel range in a scratch buffer and a fixed-order
+reduction, so results do not depend on block scheduling.  See the
+source for the design.
 
 Numerics are the fp32 contract of the JAX package's
 ``models/layers.py:_in_moments``/``_in_apply``/``_in_bwd``: moments of
@@ -18,6 +19,15 @@ apply ``((x - s) - m1) · rsqrt(var + eps) · γ + β``, and the backward
 per-(B, C) residuals ``(s, m1, inv)``.  A fused leaky takes its
 derivative from the sign of the recomputed pre-leaky value (1 at 0, as
 ``jnp.where(x >= 0, ...)`` gives).
+
+``parity=True`` takes a space-to-depth tensor (B, H/2, W/2, 4C) with
+channel ``(p·2+q)·C + c`` and normalizes with the full-resolution
+statistics, line for line ``renderloom/models/fastpath.py:
+instance_norm_p4``: one shift per (B, C) shared by the four parity
+groups (the parity average of the means of packed row 0), per-group
+moments of ``x − s`` averaged over the groups, ``(d − m1)·(inv·γ) + β``
+with γ, β already parity-tiled (4C,).  It is inference-only, as the JAX
+kernel is: a call that autograd would record raises.
 
 :func:`instance_norm` runs the kernels for a CUDA tensor and the twins
 for a CPU tensor, through :class:`InstanceNormFunction` whenever a
@@ -64,11 +74,36 @@ def _plain_forward(x, scale, bias, slope, eps):
     return out.to(x.dtype), stats
 
 
+def _plain_parity(x, scale, bias, slope, eps):
+    """``fastpath.instance_norm_p4`` (+ the fused leaky) on x (B, h, w, 4C)."""
+    B, C = x.shape[0], x.shape[-1] // 4
+    tile = lambda v: v.repeat(1, 4)[:, None, None, :]
+    group_mean = lambda v: v.mean(dim=(1, 2)).reshape(B, 4, C).mean(dim=1)
+    xf = x.to(_compute_dtype(x.dtype))
+    s = group_mean(xf[:, :1])
+    d = xf - tile(s)
+    m1 = group_mean(d)
+    m2 = group_mean(d * d)
+    var = torch.clamp(m2 - m1 * m1, min=0.0)
+    a = tile(torch.rsqrt(var + eps))
+    if scale is not None:
+        a = a * scale
+    out = (d - tile(m1)) * a
+    if bias is not None:
+        out = out + bias
+    if slope is not None:
+        out = torch.where(out >= 0, out, out * slope)
+    return out.to(x.dtype)
+
+
 def instance_norm_plain(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                         bias: Optional[torch.Tensor] = None,
                         slope: Optional[float] = None,
-                        eps: float = EPS) -> torch.Tensor:
+                        eps: float = EPS,
+                        parity: bool = False) -> torch.Tensor:
     """The forward kernel's arithmetic in plain PyTorch, x (B, H, W, C)."""
+    if parity:
+        return _plain_parity(x, scale, bias, slope, eps)
     return _plain_forward(x, scale, bias, slope, eps)[0]
 
 
@@ -148,13 +183,20 @@ def instance_norm_cuda(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                        bias: Optional[torch.Tensor] = None,
                        slope: Optional[float] = None,
                        eps: float = EPS,
-                       stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       stats: Optional[torch.Tensor] = None,
+                       parity: bool = False) -> torch.Tensor:
     """Launch ``rl_instance_norm`` on the current stream.  With
     ``stats`` (a contiguous (B, C, 3) float32 CUDA tensor) the kernel
-    also writes the residuals ``s, m1, inv`` that the backward reads."""
+    also writes the residuals ``s, m1, inv`` that the backward reads.
+    ``parity`` runs the parity pre-pass and reduction (counted in
+    ``instance_norm_cuda.parity_launches``, the standard norm in
+    ``.launches``)."""
     _check_input(x, "instance_norm_cuda")
     _check_affine(x, scale, bias)
     B, H, W, C = x.shape
+    if parity and (C % 4 or stats is not None):
+        raise ValueError("the parity norm needs C divisible by 4 and "
+                         "writes no residuals")
     if stats is not None and (stats.shape != (B, C, 3)
                               or stats.dtype != torch.float32
                               or stats.device != x.device
@@ -164,7 +206,7 @@ def instance_norm_cuda(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
 
     fn = _build.load("instance_norm").rl_instance_norm
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                    + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     n_px = H * W
@@ -172,19 +214,26 @@ def instance_norm_cuda(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
     out = torch.empty_like(x)
     partial = torch.empty((B, n_split, 2, C), dtype=torch.float32,
                           device=x.device)
+    shift = (torch.empty((B, C // 4), dtype=torch.float32, device=x.device)
+             if parity else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), out.data_ptr(), _ptr(scale), _ptr(bias),
-             partial.data_ptr(), _ptr(stats), B, n_px, C,
+             partial.data_ptr(), _ptr(stats), _ptr(shift), W, B, n_px, C,
              int(x.dtype == torch.bfloat16), int(slope is not None),
              float(slope or 0.0), float(eps), n_split, rows_per_split, ct,
              stream)
     if err != 0:
         raise RuntimeError(f"rl_instance_norm launch failed: CUDA error {err}")
-    instance_norm_cuda.launches += 1
+    if parity:
+        instance_norm_cuda.parity_launches += 1
+    else:
+        instance_norm_cuda.launches += 1
     return out
 
 
-instance_norm_cuda.launches = 0     # kernel launches since the last reset
+# kernel launches since the last reset: standard and parity norms
+instance_norm_cuda.launches = 0
+instance_norm_cuda.parity_launches = 0
 
 
 def instance_norm_bwd_cuda(x: torch.Tensor, dy: torch.Tensor,
@@ -264,18 +313,22 @@ class InstanceNormFunction(torch.autograd.Function):
 def instance_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                   bias: Optional[torch.Tensor] = None,
                   slope: Optional[float] = None,
-                  eps: float = EPS) -> torch.Tensor:
+                  eps: float = EPS, parity: bool = False) -> torch.Tensor:
     """Instance norm of NHWC ``x``: the CUDA kernels for a CUDA tensor,
     the plain twins for a CPU tensor.  When autograd records, the call
     goes through :class:`InstanceNormFunction`, so the gradient reaches
-    x, γ and β on either device."""
+    x, γ and β on either device.  ``parity``: the space-to-depth norm,
+    inference only (a call autograd would record raises)."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {x.device}")
     wants_grad = torch.is_grad_enabled() and (
         x.requires_grad or (scale is not None and scale.requires_grad)
         or (bias is not None and bias.requires_grad))
     if wants_grad:
+        if parity:
+            raise RuntimeError("the parity instance norm is inference-only: "
+                               "it has no backward")
         return InstanceNormFunction.apply(x, scale, bias, slope, eps)
     if x.is_cuda:
-        return instance_norm_cuda(x, scale, bias, slope, eps)
-    return instance_norm_plain(x, scale, bias, slope, eps)
+        return instance_norm_cuda(x, scale, bias, slope, eps, parity=parity)
+    return instance_norm_plain(x, scale, bias, slope, eps, parity)

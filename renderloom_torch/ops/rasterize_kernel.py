@@ -2,12 +2,22 @@
 ``csrc/rasterize.cu`` and its plain PyTorch twin.
 
 Replaces the TPU kernel ``renderloom/ops/rasterize_pallas.py:
-rasterize_frames_fused`` (layout ``"nhwc"``, deterministic and
-train-mode tables).  On
-the H100 it is bound by the bytes of the label it writes (F·H·W·22
-values); each thread computes one pixel from tables held in shared
-memory, and the block stores its contiguous run of the NHWC label
-through a staging tile.  See the source for the design.
+rasterize_frames_fused`` (layouts ``"nhwc"``, ``"packed"`` and
+``"cfhw"``, deterministic and train-mode tables).  On the H100 it is
+bound by the bytes of the label it writes (F·H·W·22 values); each
+thread computes one pixel from tables held in shared memory, and the
+block stores its contiguous run of the NHWC (or packed) label through a
+staging tile, or each channel plane directly (cfhw).  See the source
+for the design.
+
+Layouts, as the JAX wrapper gives them (:278-293):
+
+  nhwc    label (F, H, W, 22) = [skeleton·2 − 1, heatmaps];
+  packed  label (F, H/2, W/2, 88), channel (row_parity·2 + col_parity)·22
+          + c, exactly ``space_to_depth`` of the nhwc label (H, W even);
+          the masks stay full-resolution;
+  cfhw    heatmaps (F, 19, H, W) and skeleton (F, 3, H, W) in [0, 1]
+          (not scaled), masks always (the JAX wrapper asserts it).
 
 The tables (:func:`build_tables`, the port of ``_build_tables``) carry
 everything data-dependent, the training draws included (per-joint σ,
@@ -37,6 +47,7 @@ J = 19
 E_SKEL = R.POSE_EDGES_19.shape[0]           # 18
 E_CAPS = J + R.MASK_EDGES.shape[0]          # 39
 LABEL_C = 3 + J                             # 22
+LAYOUTS = ("nhwc", "packed", "cfhw")        # csrc/rasterize.cu's Layout
 
 
 def draw_train_tables(generator: torch.Generator, F: int,
@@ -114,12 +125,25 @@ def build_tables(coords: torch.Tensor, conf: torch.Tensor, height: int,
     return joints, skel, torch.cat([disk, seg], dim=1)
 
 
+def _check_layout(layout: str, height: int, width: int, emit_masks: bool):
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown layout {layout!r}")
+    if layout == "packed" and (height % 2 or width % 2):
+        raise ValueError(f"the packed label needs an even size, got "
+                         f"{height}x{width}")
+    if layout == "cfhw" and not emit_masks:
+        raise ValueError("cfhw is the rasterize.py-compatible form; masks "
+                         "are part of it")
+
+
 def rasterize_tables_plain(joints, skel, caps, height: int, width: int,
                            out_dtype=torch.float32,
                            emit_masks: bool = False,
-                           brush: float = R.SKELETON_BRUSH
+                           brush: float = R.SKELETON_BRUSH,
+                           layout: str = "nhwc"
                            ) -> Dict[str, torch.Tensor]:
     """The kernel's arithmetic in plain PyTorch, element by element."""
+    _check_layout(layout, height, width, emit_masks)
     F, dev = joints.shape[0], joints.device
     ys = torch.arange(height, dtype=torch.float32, device=dev)[:, None]
     xs = torch.arange(width, dtype=torch.float32, device=dev)[None, :]
@@ -140,11 +164,21 @@ def rasterize_tables_plain(joints, skel, caps, height: int, width: int,
         bacc = bacc + cover * at(skel, e, 7)
         cnt = cnt + cover
     denom = torch.clamp(cnt, min=1.0)
-    chans = [acc / denom * 2.0 - 1.0 for acc in (racc, gacc, bacc)]
+    colors = [acc / denom for acc in (racc, gacc, bacc)]
+    heat = []
     for j in range(J):
         d2 = (xs - at(joints, j, 0)) ** 2 + (ys - at(joints, j, 1)) ** 2
-        chans.append(torch.exp(-d2 * at(joints, j, 2)) * at(joints, j, 3))
-    out = {"label": torch.stack(chans, dim=-1).to(out_dtype)}
+        heat.append(torch.exp(-d2 * at(joints, j, 2)) * at(joints, j, 3))
+    if layout == "cfhw":
+        out = {"heatmaps": torch.stack(heat, dim=1).to(out_dtype),
+               "skeleton": torch.stack(colors, dim=1).to(out_dtype)}
+    else:
+        label = torch.stack([c * 2.0 - 1.0 for c in colors] + heat, dim=-1)
+        if layout == "packed":
+            label = label.reshape(F, height // 2, 2, width // 2, 2, LABEL_C
+                                  ).permute(0, 1, 3, 2, 4, 5).reshape(
+                F, height // 2, width // 2, 4 * LABEL_C)
+        out = {"label": label.to(out_dtype)}
     if emit_masks:
         macc, pacc = zeros, zeros
         for c in range(E_CAPS):
@@ -160,9 +194,12 @@ def rasterize_tables_plain(joints, skel, caps, height: int, width: int,
 def rasterize_tables_cuda(joints, skel, caps, height: int, width: int,
                           out_dtype=torch.float32,
                           emit_masks: bool = False,
-                          brush: float = R.SKELETON_BRUSH
+                          brush: float = R.SKELETON_BRUSH,
+                          layout: str = "nhwc"
                           ) -> Dict[str, torch.Tensor]:
-    """Launch ``rl_rasterize`` on the current stream."""
+    """Launch ``rl_rasterize`` on the current stream; counted by layout in
+    ``rasterize_tables_cuda.layout_launches``."""
+    _check_layout(layout, height, width, emit_masks)
     F = joints.shape[0]
     for name, t, shape in (("joints", joints, (F, J, 4)),
                            ("skel", skel, (F, E_SKEL, 8)),
@@ -182,43 +219,53 @@ def rasterize_tables_cuda(joints, skel, caps, height: int, width: int,
 
     fn = _build.load("rasterize").rl_rasterize
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_void_p])
     dev = joints.device
-    label = torch.empty((F, height, width, LABEL_C), dtype=out_dtype,
-                        device=dev)
-    out = {"label": label}
+    empty = lambda *shape, dtype=out_dtype: torch.empty(shape, dtype=dtype,
+                                                        device=dev)
+    if layout == "cfhw":
+        out = {"heatmaps": empty(F, J, height, width),
+               "skeleton": empty(F, 3, height, width)}
+        first, second = out["heatmaps"], out["skeleton"].data_ptr()
+    else:
+        shape = ((F, height, width, LABEL_C) if layout == "nhwc" else
+                 (F, height // 2, width // 2, 4 * LABEL_C))
+        out = {"label": empty(*shape)}
+        first, second = out["label"], None
     if emit_masks:
-        out["mask"] = torch.empty((F, height, width), dtype=torch.float32,
-                                  device=dev)
+        out["mask"] = empty(F, height, width, dtype=torch.float32)
         out["part_mask"] = torch.empty_like(out["mask"])
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda k: out[k].data_ptr() if emit_masks else None
     err = fn(joints.data_ptr(), skel.data_ptr(), caps.data_ptr(),
-             label.data_ptr(), ptr("mask"), ptr("part_mask"), F, height,
-             width, int(out_dtype == torch.bfloat16), float(brush), stream)
+             first.data_ptr(), second, ptr("mask"), ptr("part_mask"), F,
+             height, width, int(out_dtype == torch.bfloat16),
+             LAYOUTS.index(layout), float(brush), stream)
     if err != 0:
         raise RuntimeError(f"rl_rasterize launch failed: CUDA error {err}")
-    rasterize_tables_cuda.launches += 1
+    rasterize_tables_cuda.layout_launches[layout] += 1
     return out
 
 
-rasterize_tables_cuda.launches = 0   # kernel launches since the last reset
+# kernel launches since the last reset, by layout
+rasterize_tables_cuda.layout_launches = dict.fromkeys(LAYOUTS, 0)
 
 
 def rasterize_tables(joints, skel, caps, height: int, width: int,
-                     out_dtype=torch.float32, emit_masks: bool = False
-                     ) -> Dict[str, torch.Tensor]:
-    """NHWC label (F, H, W, 22) in ``out_dtype`` plus, with
-    ``emit_masks``, the human and part masks (F, H, W) f32 0/1: the CUDA
-    kernel for CUDA tables, the plain twin for CPU tables."""
+                     out_dtype=torch.float32, emit_masks: bool = False,
+                     layout: str = "nhwc") -> Dict[str, torch.Tensor]:
+    """The label in ``layout`` and ``out_dtype`` (see the module
+    docstring) plus, with ``emit_masks``, the human and part masks
+    (F, H, W) f32 0/1: the CUDA kernel for CUDA tables, the plain twin
+    for CPU tables."""
     if joints.is_cuda:
         return rasterize_tables_cuda(joints, skel, caps, height, width,
-                                     out_dtype, emit_masks)
+                                     out_dtype, emit_masks, layout=layout)
     if joints.device.type != "cpu":
         raise ValueError(f"unsupported device {joints.device}")
     return rasterize_tables_plain(joints, skel, caps, height, width,
-                                  out_dtype, emit_masks)
+                                  out_dtype, emit_masks, layout=layout)
 
 
 def rasterize_frames_fused(coords: torch.Tensor, conf: torch.Tensor,
@@ -227,12 +274,13 @@ def rasterize_frames_fused(coords: torch.Tensor, conf: torch.Tensor,
                            foot_thres: float = 0.001,
                            out_dtype=torch.float32,
                            emit_masks: bool = False,
-                           draws: Optional[Dict[str, torch.Tensor]] = None
+                           draws: Optional[Dict[str, torch.Tensor]] = None,
+                           layout: str = "nhwc"
                            ) -> Dict[str, torch.Tensor]:
-    """coords (F, J, 2), conf (F, J) → the NHWC label stack of F frames
-    (``layout="nhwc"`` of the JAX function); ``draws`` (from
+    """coords (F, J, 2), conf (F, J) → the label stack of F frames in
+    ``layout`` (the JAX function's ``layout``); ``draws`` (from
     :func:`draw_train_tables`) makes it the train path."""
     tables = build_tables(coords.float(), conf.float(), height, width,
                           gauss_sigma, thres, foot_thres, draws)
     return rasterize_tables(*(t.contiguous() for t in tables), height,
-                            width, out_dtype, emit_masks)
+                            width, out_dtype, emit_masks, layout)

@@ -25,12 +25,14 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn as nn
 
 from renderloom_torch.convert import (fold_spectral_norm, load_flax_params,
                                       random_init_)
 from renderloom_torch.core.config import RendererConfig
 from renderloom_torch.data.hsm import draw_train_randomness, prepare_batch
 from renderloom_torch.models.discriminator import DiscriminatorSet
+from renderloom_torch.models.fastpath import FastInferenceGen
 from renderloom_torch.models.layers import enable_spectral_norm
 from renderloom_torch.models.perceptual import PerceptualLoss
 from renderloom_torch.models.renderer import Generator, composite
@@ -368,16 +370,23 @@ def make_inference_generator(cfg: RendererConfig) -> Generator:
 
 
 def make_inference_pair(cfg: RendererConfig, params_g: Optional[dict],
-                        stats_g: Optional[dict], device) -> Generator:
+                        stats_g: Optional[dict], device,
+                        fastpath: bool = False) -> nn.Module:
     """The inference generator on ``device`` with its weights: the numpy
     flax trees ``params_g``/``stats_g`` folded and converted, or, when
-    ``params_g`` is None, random weights from seed 1."""
+    ``params_g`` is None, random weights from seed 1.  ``fastpath``
+    returns the parity-layout :class:`FastInferenceGen` over those folded
+    weights (the JAX ``make_inference_pair`` with ``fold_fast_params``),
+    the same function as the standard generator."""
     gen = make_inference_generator(cfg)
     if params_g is None:
         random_init_(gen, 1)
     else:
         load_flax_params(gen, fold_spectral_norm(params_g, stats_g or {}))
-    return gen.to(device).eval()
+    gen = gen.to(device).eval()
+    if fastpath:
+        return FastInferenceGen(gen, cfg.gen).eval()
+    return gen
 
 
 def make_segment_rollout(gen: Generator, rate: int) -> Callable:
@@ -386,7 +395,8 @@ def make_segment_rollout(gen: Generator, rate: int) -> Callable:
     segments run as one batch through ``rate − 1`` sequential generator
     steps (the JAX ``lax.scan`` becomes a Python loop).
 
-    ``batch``: label (B, L, H, W, 22), back (B, L, H, W, 3),
+    ``batch``: label (B, L, H, W, 22) (or, for the parity-layout
+    generator, packed (B, L, H/2, W/2, 88)), back (B, L, H, W, 3),
     key_img (B, L, H, W, 3) with L = S·rate + 1.  Returns fused
     (B, L, H, W, 3) and masks (B, L, H, W, 1); keyframes pass through
     with a zero mask.

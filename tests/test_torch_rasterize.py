@@ -121,7 +121,7 @@ def test_plain_rasterizer_matches_jax_rasterize_frames():
 def test_cuda_wrapper_refuses_cpu_tables():
     coords, conf = _frames(1)
     tables = K.build_tables(t(coords), t(conf), H, W)
-    before = K.rasterize_tables_cuda.launches
+    before = dict(K.rasterize_tables_cuda.layout_launches)
     with pytest.raises(ValueError):
         K.rasterize_tables_cuda(*tables, H, W)
-    assert K.rasterize_tables_cuda.launches == before
+    assert K.rasterize_tables_cuda.layout_launches == before
