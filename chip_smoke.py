@@ -9,7 +9,10 @@ CUDA device and the CUDA toolkit (``nvcc``); it builds the kernels from
    builds every kernel (build time printed);
 2. holds the instance-norm kernel (K2) against its plain twin at the
    generator's full-width shapes, and times kernel, twin and
-   ``F.instance_norm``;
+   ``F.instance_norm``; checks that two calls at the largest shape give
+   the same bits, holds a streaming shape (one slab larger than the
+   grid's shared memory) against the twin, and prints the wrapper's host
+   time per call at a tiny shape;
 3. holds the rasterizer kernel (K1) against its plain twin at 29 frames
    of 320×480, f32 and bf16 labels, masks on and off, and times both;
 4. runs the serving pipeline at full width (configs/hsm.yaml +
@@ -38,7 +41,8 @@ F. runs the fastpath pipeline at full width on the same weights as
 N. holds K2 parity against its twin at every parity shape the fastpath
    run gave it (recorded by a call hook), one bf16 shape and one
    mean-4096 input, and times kernel, twin and the library composition
-   depth_to_space → ``F.instance_norm`` → space_to_depth;
+   depth_to_space → ``F.instance_norm`` → space_to_depth; determinism,
+   a streaming shape and the host time as in phase 2;
 S. holds the card's fastpath pipeline with an f32 label against the
    card's standard pipeline on the same weights at full width;
 
@@ -59,13 +63,22 @@ B. holds the instance-norm backward K2b against its twin at every shape
    the warm-up step gave it (and K2's training forward, residuals
    included), plus small shapes through the ``autograd.Function``
    against a float64 gradient, and times kernel, twin and
-   ``F.instance_norm``'s backward;
+   ``F.instance_norm``'s backward; determinism, a streaming shape and the
+   host time as in phase 2;
 D. holds one card training step against the same step on the CPU at
    64×96, B = 2, L = 3, tiny widths, identical weights and shared draws:
    every metric and the first frame's G and D gradients;
 
 and last prints the ``{"kernels": [...]}`` line, the card line, and the
 ``{"ok": true, "device": {...}}`` line.
+
+Each kernel time is given twice: **call ms** (CUDA events over
+back-to-back calls: the device time, or the host's time per call
+wherever the host is the slower) and **device ms** (CUDA events over
+calls queued behind a spin kernel, so the host is out of it; the
+profiler's per-call kernel records proved unreliable after a large
+profile).  The norm phases also check in a profile that each K2,
+K2-parity and K2b call makes one launch and runs no other kernel.
 
 Any failed check raises, so the script exits non-zero.  Long outputs
 (compiler reports, the profile tables, ``profile_fastpath.txt``) go to
@@ -118,6 +131,79 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``fn()``: ``iters`` calls queued behind a
+    ~10 ms spin kernel, so the host has enqueued them all before the
+    first runs, timed by CUDA events; the host's share that ``cuda_ms``
+    includes is left out (the gaps between kernels on the device stay).
+    Raises if the host took nearly as long to enqueue as the spin."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)          # ~10 ms at the H100's 1.98 GHz
+    tic = time.perf_counter()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    host = (time.perf_counter() - tic) * 1e3
+    torch.cuda.synchronize()
+    if host >= 8.0:
+        raise AssertionError(f"device_ms: enqueueing took {host:.2f} ms, "
+                             f"about as long as the spin kernel")
+    return start.elapsed_time(end) / iters
+
+
+def launches_per_call(fn, iters: int = 3):
+    """(launches per call, kernel names) of ``fn()`` from
+    ``torch.profiler``: the runtime's launch calls (the CPU side, which
+    the profiler keeps), and the names of the kernels the device ran,
+    where the profiler kept their records (it may drop them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    n = sum(e.device_type == DeviceType.CPU
+            and e.name.startswith(("cudaLaunch", "cuLaunch", "cudaMemset",
+                                   "cudaMemcpy")) for e in evs)
+    names = sorted({e.name for e in evs if e.device_type == DeviceType.CUDA
+                    and not e.name.startswith(("Activity Buffer",
+                                               "Buffer Flush"))})
+    return n / iters, names
+
+
+def one_kernel(what: str, fn, want: str):
+    """Raise unless each call of ``fn()`` makes one launch (the runtime's
+    launch calls in the profile) and the device runs no kernel but
+    ``want`` (where the profile kept the kernel records)."""
+    per_call, names = launches_per_call(fn)
+    if per_call != 1 or any(want not in n for n in names):
+        raise AssertionError(f"{what}: {per_call} launches per call, "
+                             f"kernels {names}; expected one {want}")
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host time per call of ``fn()`` in µs: ``n`` calls enqueued back to
+    back (fewer than the launch queue holds), timed before the
+    synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - tic) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -219,11 +305,14 @@ def _norm_check(name, x, s, b, slope):
 
 
 def _norm_times(x, s, b, slope, iters=20):
-    """(kernel, twin, F.instance_norm, bound) in ms for one call."""
+    """(call, device, twin, F.instance_norm, bound) ms of one call, and
+    what bounds it; raises unless the call is one kernel."""
     from renderloom_torch.ops import norm_kernel as NK
 
     n = x.numel()
-    ms = cuda_ms(lambda: NK.instance_norm_cuda(x, s, b, slope), iters)
+    f = lambda: NK.instance_norm_cuda(x, s, b, slope)
+    ms, dev = cuda_ms(f, iters), device_ms(f)
+    one_kernel(f"K2 {tuple(x.shape)}", f, "norm_fwd_kernel")
     plain = cuda_ms(lambda: NK.instance_norm_plain(x, s, b, slope),
                     max(2, iters // 4), 1)
     xn = x.permute(0, 3, 1, 2)              # NCHW view, channels_last
@@ -233,31 +322,69 @@ def _norm_times(x, s, b, slope, iters=20):
     # operations per element (shifted moments 4, apply 4, affine and
     # leaky 2)
     bnd, by = bound_ms(2 * n * x.element_size(), 10 * n)
-    return ms, plain, lib, bnd, by
+    return ms, dev, plain, lib, bnd, by
+
+
+def _times_line(ms, dev, plain, lib, bnd, by,
+                lib_name="F.instance_norm") -> str:
+    return (f"    call {ms:.4f} ms, device {dev:.4f} ms ({100 * bnd / dev:.1f}"
+            f"% of bound), twin {plain:.4f} ms, {lib_name} {lib:.4f} ms, "
+            f"bound {bnd:.4f} ms ({by})")
+
+
+# past the grid's shared memory (about 26 MB on an H100): the plan
+# streams what does not fit and reads it again
+STREAM_SHAPE = (1, 1080, 1920, 32)
+
+
+def _plan_of(x, n_inputs, parity=False) -> dict:
+    from renderloom_torch.ops import norm_kernel as NK
+
+    B, H, W, C = x.shape
+    return NK._plan(B, H * W, C, x.element_size(), n_inputs,
+                    *NK._device(x.device.index), parity=parity)
 
 
 def phase_norm():
+    from renderloom_torch.ops import norm_kernel as NK
+
     print("K2 instance norm, kernel vs plain twin:")
     for i, (shape, dtype, affine, leaky) in enumerate(K2_CASES):
         x, s, b = _norm_inputs(shape, dtype, affine, seed=i)
         slope = LEAKY if leaky else None
         _norm_check(f"{shape} {str(dtype)[6:]} affine={affine} "
                     f"leaky={leaky}", x, s, b, slope)
-        ms, plain, lib, bnd, _ = _norm_times(x, s, b, slope)
-        print(f"    kernel {ms:.4f} ms, twin {plain:.4f} ms, "
-              f"F.instance_norm {lib:.4f} ms, bound {bnd:.4f} ms")
+        print(_times_line(*_norm_times(x, s, b, slope))
+              + f"; plan {_plan_of(x, 1)}")
     # the reference's fp32 contract: mean 4096, std 1e-2 keeps its variance
     x, _, _ = _norm_inputs((7, 40, 60, 256), torch.float32, False, 9,
                            loc=4096.0, scale=1e-2)
     _norm_check("(7, 40, 60, 256) float32 mean 4096 std 1e-2", x, None,
                 None, None)
-    from renderloom_torch.ops import norm_kernel as NK
-
     x64 = x.double()
     ref = (x64 - x64.mean((1, 2), keepdim=True)) / torch.sqrt(
         x64.var((1, 2), unbiased=False, keepdim=True) + 1e-5)
     compare("  the same against the float64 reference",
             NK.instance_norm_cuda(x).double(), ref, 2e-3)
+    # two calls at the largest shape give the same bits
+    x, s, b = _norm_inputs((7, 320, 480, 32), torch.float32, True, 1)
+    st1, st2 = (torch.empty((7, 32, 3), device="cuda") for _ in range(2))
+    y1 = NK.instance_norm_cuda(x, s, b, LEAKY, 1e-5, st1)
+    y2 = NK.instance_norm_cuda(x, s, b, LEAKY, 1e-5, st2)
+    if not (torch.equal(y1, y2) and torch.equal(st1, st2)):
+        raise AssertionError("K2: two calls differ")
+    print("  determinism: two calls at (7, 320, 480, 32) equal bit for bit "
+          "(output and residuals) ok")
+    # a shape whose slab exceeds the grid's shared memory
+    x, s, b = _norm_inputs(STREAM_SHAPE, torch.float32, True, 11)
+    plan = _plan_of(x, 1)
+    if not plan["streaming"]:
+        raise AssertionError(f"{STREAM_SHAPE} does not stream: {plan}")
+    _norm_check(f"streaming {STREAM_SHAPE} float32 affine=True leaky=True "
+                f"(plan {plan})", x, s, b, LEAKY)
+    x, _, _ = _norm_inputs((1, 4, 4, 32), torch.float32, False, 12)
+    print(f"  host time per call at (1, 4, 4, 32): "
+          f"{host_us(lambda: NK.instance_norm_cuda(x)):.1f} us")
 
 
 # ---------------------------------------------------------------------------
@@ -307,17 +434,18 @@ def phase_raster():
             if masks:
                 for k in ("mask", "part_mask"):
                     compare(f"  {k} (exact)", got[k], want[k], 0.0)
-            ms = cuda_ms(lambda: RK.rasterize_tables_cuda(
-                *tables, H_FULL, W_FULL, dtype, masks))
+            f = lambda: RK.rasterize_tables_cuda(*tables, H_FULL, W_FULL,
+                                                 dtype, masks)
+            ms, dev = cuda_ms(f), device_ms(f)
             plain = cuda_ms(lambda: RK.rasterize_tables_plain(
                 *tables, H_FULL, W_FULL, dtype, masks), 3, 1)
             bnd, by = raster_bound(F_RASTER, H_FULL, W_FULL,
                                    got["label"].element_size(), masks)
-            print(f"    kernel {ms:.4f} ms, twin {plain:.4f} ms, "
-                  f"bound {bnd:.4f} ms ({by})")
+            print(f"    call {ms:.4f} ms, device {dev:.4f} ms, twin "
+                  f"{plain:.4f} ms, bound {bnd:.4f} ms ({by})")
             if dtype == torch.float32 and not masks:    # the serving call
-                result = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                              bound_ms=bnd, bound_by=by)
+                result = dict(max_abs_err=err, ms=ms, device_ms=dev,
+                              plain_ms=plain, bound_ms=bnd, bound_by=by)
     return result
 
 
@@ -498,6 +626,38 @@ def _serve_launches() -> dict:
             "instance_norm_parity": NK.instance_norm_cuda.parity_launches}
 
 
+def _sum_shapes(kernel, per, shapes, inputs, check, times,
+                lib_name="F.instance_norm") -> dict:
+    """Hold a norm kernel against its twin at each (key, calls) of
+    ``shapes`` and sum call, device, twin, library and bound ms over the
+    calls.  ``inputs(i, key)`` gives the call's arguments, ``check`` the
+    max |err| and ``times`` :func:`_norm_times`'s tuple; the first key is
+    the largest call."""
+    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
+               bound_ms=0.0)
+    err, bound_by, largest = 0.0, Counter(), None
+    for i, (key, n) in enumerate(shapes):
+        args = inputs(i, key)
+        print(f"   {n:3d}x {key}:")
+        err = max(err, check(*args))
+        ms, dev, plain, lib, bnd, by = times(*args)
+        print(_times_line(ms, dev, plain, lib, bnd, by, lib_name))
+        if largest is None:
+            largest = dict(shape=str(key), ms=ms, device_ms=dev,
+                           plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                           bound_by=by, calls=n)
+        bound_by[by] += n * bnd
+        for k, v in zip(tot, (ms, dev, plain, lib, bnd)):
+            tot[k] += n * v
+    print(f"  {kernel} per {per}: call {tot['ms']:.3f} ms, device "
+          f"{tot['device_ms']:.3f} ms ({100 * tot['bound_ms'] / tot['device_ms']:.1f}"
+          f"% of bound), twin {tot['plain_ms']:.3f} ms, {lib_name} "
+          f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms")
+    # bound_by: what bounds the shapes that carry most of the summed bound
+    return dict(max_abs_err=err, bound_by=bound_by.most_common(1)[0][0],
+                **tot, largest=largest)
+
+
 def phase_pipeline():
     from renderloom_torch.core.config import (load_motion_config,
                                               load_renderer_config)
@@ -581,28 +741,15 @@ def phase_pipeline():
     print("  " + "\n  ".join(prof.splitlines()))
 
     # K2 at every shape the run gave it: hold against the twin, and sum
-    # kernel, twin, library and bound times over the run's launches
+    # call, device, twin, library and bound times over the run's launches
     print(f"  K2 at the run's {len(seen)} distinct shapes:")
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    err, bound_by = 0.0, Counter()
-    for i, ((shape, dtype, affine, slope), n) in enumerate(sorted(
-            seen.items(), key=lambda kv: -np.prod(kv[0][0]))):
-        x, s, b = _norm_inputs(shape, dtype, affine, seed=100 + i)
-        err = max(err, _norm_check(f"{n:3d}x {shape} affine={affine} "
-                                   f"leaky={slope is not None}", x, s, b,
-                                   slope))
-        ms, plain, lib, bnd, by = _norm_times(x, s, b, slope, iters=10)
-        bound_by[by] += n * bnd
-        for k, v in zip(tot, (ms, plain, lib, bnd)):
-            tot[k] += n * v
-    print(f"  K2 per clip: kernel {tot['ms']:.3f} ms, twin "
-          f"{tot['plain_ms']:.3f} ms, F.instance_norm "
-          f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms")
-    # bound_by: what bounds the shapes that carry most of the summed bound
-    norm_entry = dict(max_abs_err=err, bound_by=bound_by.most_common(1)[0][0],
-                      **tot,
-                      shape=f"{want_norms} launches over {len(seen)} "
-                            f"shapes, B=7, C 16-512, summed per clip")
+    norm_entry = _sum_shapes(
+        "K2", "clip", sorted(seen.items(), key=lambda kv: -np.prod(kv[0][0])),
+        lambda i, key: _norm_inputs(*key[:3], seed=100 + i) + (key[3],),
+        lambda x, s, b, slope: _norm_check("vs twin", x, s, b, slope),
+        lambda x, s, b, slope: _norm_times(x, s, b, slope, iters=10))
+    norm_entry["shape"] = (f"{want_norms} launches over {len(seen)} shapes, "
+                           f"B=7, C 16-512, summed per clip")
     return launches, fps, norm_entry, serve
 
 
@@ -710,7 +857,8 @@ def _conv_report(gen, fast_gen, B, H, W) -> list:
             tot[k] += v
         lines.append(f"  {name} level {lvl} {w.shape[1]}->{w.shape[0]}: "
                      f"standard {ms_std:.3f}, s2d {ms_s2d:.3f} (benchmark "
-                     f"{ms_bench:.3f}); s2d kernel {names[0]}")
+                     f"{ms_bench:.3f}); s2d kernel "
+                     f"{names[0] if names else '(no kernel record)'}")
     lines.append(f"  sum over one generator step: standard {tot[0]:.3f} ms, "
                  f"s2d {tot[1]:.3f} ms (benchmark {tot[2]:.3f})")
     return lines
@@ -867,12 +1015,14 @@ def _parity_check(name, x, s, b, slope):
 
 
 def _parity_times(x, s, b, slope, iters=10):
-    """(kernel, twin, library composition, bound) ms of one call."""
+    """(call, device, twin, library composition, bound) ms of one call,
+    and what bounds it; raises unless the call is one kernel."""
     from renderloom_torch.ops import norm_kernel as NK
 
     n = x.numel()
-    ms = cuda_ms(lambda: NK.instance_norm_cuda(x, s, b, slope, parity=True),
-                 iters)
+    f = lambda: NK.instance_norm_cuda(x, s, b, slope, parity=True)
+    ms, dev = cuda_ms(f, iters), device_ms(f)
+    one_kernel(f"K2 parity {tuple(x.shape)}", f, "norm_fwd_kernel")
     plain = cuda_ms(lambda: NK.instance_norm_plain(x, s, b, slope,
                                                    parity=True),
                     max(2, iters // 4), 1)
@@ -880,7 +1030,7 @@ def _parity_times(x, s, b, slope, iters=10):
     # x read once, the output written once; ~10 fp32 operations per
     # element, as the standard norm
     bnd, by = bound_ms(2 * n * x.element_size(), 10 * n)
-    return ms, plain, lib, bnd, by
+    return ms, dev, plain, lib, bnd, by
 
 
 def phase_norm_parity(fast):
@@ -891,28 +1041,11 @@ def phase_norm_parity(fast):
                     key=lambda kv: -np.prod(kv[0][0]))
     print(f"N. K2 parity, kernel vs plain twin, at the fastpath run's "
           f"{len(shapes)} parity shapes:")
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    err, bound_by, largest = 0.0, Counter(), None
-    for i, ((shape, dtype, affine, slope, _), n) in enumerate(shapes):
-        x, s, b = _norm_inputs(shape, dtype, affine, seed=500 + i)
-        err = max(err, _parity_check(f"{n:3d}x {shape} affine={affine} "
-                                     f"leaky={slope is not None}", x, s, b,
-                                     slope))
-        ms, plain, lib, bnd, by = _parity_times(x, s, b, slope)
-        if largest is None:
-            largest = dict(shape=str(shape), affine=affine,
-                           leaky=slope is not None, ms=ms, plain_ms=plain,
-                           library_ms=lib, bound_ms=bnd, bound_by=by,
-                           calls_per_clip=n)
-            print(f"    largest call: kernel {ms:.4f} ms, twin {plain:.4f} "
-                  f"ms, library composition {lib:.4f} ms, bound {bnd:.4f} "
-                  f"ms ({by})")
-        bound_by[by] += n * bnd
-        for k, v in zip(tot, (ms, plain, lib, bnd)):
-            tot[k] += n * v
-    print(f"  K2 parity per clip: kernel {tot['ms']:.3f} ms, twin "
-          f"{tot['plain_ms']:.3f} ms, library composition "
-          f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms")
+    entry = _sum_shapes(
+        "K2 parity", "clip", shapes,
+        lambda i, key: _norm_inputs(*key[:3], seed=500 + i) + (key[3],),
+        lambda x, s, b, slope: _parity_check("vs twin", x, s, b, slope),
+        _parity_times, "library composition")
     x, s, b = _norm_inputs((7, 160, 240, 128), torch.bfloat16, True, 590)
     _parity_check("(7, 160, 240, 128) bfloat16 affine=True leaky=True", x, s,
                   b, LEAKY)
@@ -932,9 +1065,26 @@ def phase_norm_parity(fast):
     compare("  library composition vs kernel (tiled affine)",
             _parity_library(x, s, b, LEAKY),
             NK.instance_norm_cuda(x, s, b, LEAKY, parity=True), 1e-4, 1e-4)
+    # two calls at the largest shape give the same bits
+    x, s, b = _norm_inputs((7, 160, 240, 128), torch.float32, True, 593)
+    if not torch.equal(NK.instance_norm_cuda(x, s, b, LEAKY, parity=True),
+                       NK.instance_norm_cuda(x, s, b, LEAKY, parity=True)):
+        raise AssertionError("K2 parity: two calls differ")
+    print("  determinism: two calls at (7, 160, 240, 128) equal bit for bit "
+          "ok")
+    # the parity norm keeps a whole batch element per slab: this one
+    # exceeds the grid's shared memory
+    x, s, b = _norm_inputs((1, 540, 960, 128), torch.float32, True, 594)
+    plan = _plan_of(x, 1, parity=True)
+    if not plan["streaming"]:
+        raise AssertionError(f"(1, 540, 960, 128) does not stream: {plan}")
+    _parity_check(f"streaming (1, 540, 960, 128) float32 affine=True "
+                  f"leaky=True (plan {plan})", x, s, b, LEAKY)
+    x, _, _ = _norm_inputs((1, 4, 4, 32), torch.float32, False, 595)
+    print(f"  host time per call at (1, 4, 4, 32): "
+          f"{host_us(lambda: NK.instance_norm_cuda(x, parity=True)):.1f} us")
     n_calls = sum(n for _, n in shapes)
-    return dict(max_abs_err=err, bound_by=bound_by.most_common(1)[0][0],
-                **tot, largest=largest,
+    return dict(**entry,
                 library="depth_to_space -> F.instance_norm -> leaky -> "
                         "space_to_depth (a composition; no single call)",
                 shape=f"{n_calls} launches over {len(shapes)} shapes, B=7, "
@@ -1083,16 +1233,18 @@ def phase_raster_layouts():
         want = RK.rasterize_tables_plain(*args, layout=layout)
         err = max(compare(f"{layout} {str(dtype)[6:]} masks={masks} {k}",
                           got[k], want[k], 0.0) for k in want)
-        ms = cuda_ms(lambda: RK.rasterize_tables_cuda(*args, layout=layout))
+        f = lambda: RK.rasterize_tables_cuda(*args, layout=layout)
+        ms, dev = cuda_ms(f), device_ms(f)
         plain = cuda_ms(lambda: RK.rasterize_tables_plain(*args,
                                                           layout=layout),
                         3, 1)
         bnd, by = raster_bound(F_RASTER, H_FULL, W_FULL,
                                torch.finfo(dtype).bits // 8, masks)
-        print(f"    kernel {ms:.4f} ms, twin {plain:.4f} ms, bound "
-              f"{bnd:.4f} ms ({by})")
+        print(f"    call {ms:.4f} ms, device {dev:.4f} ms, twin "
+              f"{plain:.4f} ms, bound {bnd:.4f} ms ({by})")
         results[(layout, dtype, masks)] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+            max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain,
+            bound_ms=bnd,
             bound_by=by, library_ms=None)
     draws = RK.draw_train_tables(torch.Generator().manual_seed(1), F_RASTER,
                                  5.0, 0.02, 0.06)
@@ -1189,12 +1341,14 @@ def phase_raster_train():
         compare(f"{k} (exact)", got[k], want[k], 0.0)
     if not bool(got["part_mask"].any()):
         raise AssertionError("no part limb reached the part mask")
-    ms = cuda_ms(lambda: RK.rasterize_tables_cuda(*args))
+    f = lambda: RK.rasterize_tables_cuda(*args)
+    ms, dev = cuda_ms(f), device_ms(f)
     plain = cuda_ms(lambda: RK.rasterize_tables_plain(*args), 3, 1)
     bnd, by = raster_bound(F_TRAIN, H_FULL, W_FULL, 4, True)
-    print(f"    kernel {ms:.4f} ms, twin {plain:.4f} ms, bound {bnd:.4f} ms "
-          f"({by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+    print(f"    call {ms:.4f} ms, device {dev:.4f} ms, twin {plain:.4f} ms, "
+          f"bound {bnd:.4f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain,
+                bound_ms=bnd,
                 bound_by=by, library_ms=None,
                 shape=f"{F_TRAIN}x{H_FULL}x{W_FULL}x22 f32 label + masks, "
                       f"train tables")
@@ -1438,14 +1592,16 @@ def _bwd_check(name, x, dy, s, b, slope):
 
 
 def _bwd_times(x, dy, s, b, slope, iters=10):
-    """(kernel, twin, library, bound) ms of one backward call."""
+    """(call, device, twin, library, bound) ms of one backward call, and
+    what bounds it; raises unless the call is one kernel."""
     from renderloom_torch.ops import norm_kernel as NK
 
     B, C = x.shape[0], x.shape[-1]
     stats = torch.empty((B, C, 3), device="cuda")
     NK.instance_norm_cuda(x, s, b, slope, 1e-5, stats)
-    ms = cuda_ms(lambda: NK.instance_norm_bwd_cuda(x, dy, stats, s, b,
-                                                   slope), iters)
+    f = lambda: NK.instance_norm_bwd_cuda(x, dy, stats, s, b, slope)
+    ms, dev = cuda_ms(f, iters), device_ms(f)
+    one_kernel(f"K2b {tuple(x.shape)}", f, "norm_bwd_kernel")
     plain = cuda_ms(lambda: NK.instance_norm_bwd_plain(x, dy, stats, s, b,
                                                        slope),
                     max(2, iters // 4), 1)
@@ -1464,7 +1620,7 @@ def _bwd_times(x, dy, s, b, slope, iters=10):
     # x and dy read once, dx written once; ~14 fp32 operations per
     # element (x̂ 3, leaky 3, two sums 3, dx 5)
     bnd, by = bound_ms(3 * n * 4, 14 * n)
-    return ms, plain, max(fb - fo, 0.0), bnd, by
+    return ms, dev, plain, max(fb - fo, 0.0), bnd, by
 
 
 def phase_norm_bwd(train):
@@ -1472,29 +1628,35 @@ def phase_norm_bwd(train):
 
     print(f"B. K2b instance-norm backward, kernel vs plain twin, at the "
           f"{len(train['bwd'])} shapes of one full-width training step:")
-    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    err, bound_by, largest = 0.0, Counter(), None
-    for i, ((shape, affine, slope), n) in enumerate(sorted(
-            train["bwd"].items(), key=lambda kv: -np.prod(kv[0][0]))):
-        x, dy, s, b = _bwd_inputs(shape, affine, 200 + i)
-        err = max(err, _bwd_check(f"{n:3d}x {shape} affine={affine} "
-                                  f"leaky={slope is not None}", x, dy, s, b,
-                                  slope))
-        ms, plain, lib, bnd, by = _bwd_times(x, dy, s, b, slope)
-        if largest is None:
-            largest = dict(shape=str(shape), affine=affine,
-                           leaky=slope is not None, ms=ms, plain_ms=plain,
-                           library_ms=lib, bound_ms=bnd, bound_by=by,
-                           calls_per_step=n)
-            print(f"    largest call: kernel {ms:.4f} ms, twin "
-                  f"{plain:.4f} ms, F.instance_norm backward {lib:.4f} ms, "
-                  f"bound {bnd:.4f} ms ({by})")
-        bound_by[by] += n * bnd
-        for k, v in zip(tot, (ms, plain, lib, bnd)):
-            tot[k] += n * v
-    print(f"  K2b per step: kernel {tot['ms']:.3f} ms, twin "
-          f"{tot['plain_ms']:.3f} ms, F.instance_norm backward "
-          f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms")
+    bwd_entry = _sum_shapes(
+        "K2b", "step",
+        sorted(train["bwd"].items(), key=lambda kv: -np.prod(kv[0][0])),
+        lambda i, key: _bwd_inputs(key[0], key[1], 200 + i) + (key[2],),
+        lambda x, dy, s, b, slope: _bwd_check("vs twin", x, dy, s, b, slope),
+        _bwd_times, "F.instance_norm backward")
+    bwd_entry["shape"] = (f"{sum(train['bwd'].values())} calls over "
+                          f"{len(train['bwd'])} shapes, summed per step")
+    # two calls at the largest shape give the same bits
+    x, dy, s, b = _bwd_inputs((4, 320, 480, 32), True, 250)
+    stats = torch.empty((4, 32, 3), device="cuda")
+    NK.instance_norm_cuda(x, s, b, LEAKY, 1e-5, stats)
+    one, two = (NK.instance_norm_bwd_cuda(x, dy, stats, s, b, LEAKY)
+                for _ in range(2))
+    if not all(torch.equal(u, v) for u, v in zip(one, two)):
+        raise AssertionError("K2b: two calls differ")
+    print("  determinism: two calls at (4, 320, 480, 32) equal bit for bit "
+          "(dx, dgamma, dbeta) ok")
+    x, dy, s, b = _bwd_inputs(STREAM_SHAPE, True, 251)
+    plan = _plan_of(x, 2)
+    if not plan["streaming"]:
+        raise AssertionError(f"{STREAM_SHAPE} does not stream: {plan}")
+    _bwd_check(f"streaming {STREAM_SHAPE} affine=True leaky=True (plan "
+               f"{plan})", x, dy, s, b, LEAKY)
+    x, dy, s, b = _bwd_inputs((1, 4, 4, 32), False, 252)
+    stats = torch.empty((1, 32, 3), device="cuda")
+    NK.instance_norm_cuda(x, None, None, None, 1e-5, stats)
+    print(f"  host time per call at (1, 4, 4, 32): "
+          f"{host_us(lambda: NK.instance_norm_bwd_cuda(x, dy, stats)):.1f} us")
 
     # small shapes through the autograd.Function against float64
     print("  through InstanceNormFunction vs the twin's float64 gradient "
@@ -1519,29 +1681,15 @@ def phase_norm_bwd(train):
     # the forward's training variant at the step's forward shapes
     print(f"  K2 forward at the step's {len(train['fwd'])} shapes (kernel "
           f"vs twin, residuals included):")
-    ftot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    ferr, fby = 0.0, Counter()
-    for i, ((shape, affine, slope), n) in enumerate(sorted(
-            train["fwd"].items(), key=lambda kv: -np.prod(kv[0][0]))):
-        x, s, b = _norm_inputs(shape, torch.float32, affine, seed=400 + i)
-        ferr = max(ferr, _norm_check(f"{n:3d}x {shape} affine={affine} "
-                                     f"leaky={slope is not None}", x, s, b,
-                                     slope))
-        ms, plain, lib, bnd, by = _norm_times(x, s, b, slope, iters=10)
-        fby[by] += n * bnd
-        for k, v in zip(ftot, (ms, plain, lib, bnd)):
-            ftot[k] += n * v
-    print(f"  K2 per step: kernel {ftot['ms']:.3f} ms, twin "
-          f"{ftot['plain_ms']:.3f} ms, F.instance_norm "
-          f"{ftot['library_ms']:.3f} ms, bound {ftot['bound_ms']:.3f} ms")
-    bwd_entry = dict(max_abs_err=err, bound_by=bound_by.most_common(1)[0][0],
-                     **tot, largest=largest,
-                     shape=f"{sum(train['bwd'].values())} calls over "
-                           f"{len(train['bwd'])} shapes, summed per step")
-    fwd_entry = dict(max_abs_err=ferr, bound_by=fby.most_common(1)[0][0],
-                     **ftot,
-                     shape=f"{sum(train['fwd'].values())} calls over "
-                           f"{len(train['fwd'])} shapes, summed per step")
+    fwd_entry = _sum_shapes(
+        "K2", "step",
+        sorted(train["fwd"].items(), key=lambda kv: -np.prod(kv[0][0])),
+        lambda i, key: _norm_inputs(key[0], torch.float32, key[1],
+                                    seed=400 + i) + (key[2],),
+        lambda x, s, b, slope: _norm_check("vs twin", x, s, b, slope),
+        lambda x, s, b, slope: _norm_times(x, s, b, slope, iters=10))
+    fwd_entry["shape"] = (f"{sum(train['fwd'].values())} calls over "
+                          f"{len(train['fwd'])} shapes, summed per step")
     return fwd_entry, bwd_entry
 
 

@@ -1,5 +1,5 @@
 // Instance norm (+ per-channel affine, + leaky) over NHWC, for Hopper:
-// the forward (K2) and its backward (K2b).
+// the forward (K2: standard, with residuals, parity) and its backward (K2b).
 //
 // K2 replaces the TPU kernel renderloom/ops/norm_pallas.py:
 // instance_norm_fused (Pallas body `_kernel`), forward, parity=False and
@@ -10,484 +10,819 @@
 // Bound on the H100: device-memory bytes.  A global normalization has to
 // see all of x before it can write anything, so the floor is one read and
 // one write of x (forward), one read of x and dy and one write of dx
-// (backward); each design here reads its inputs twice, about 3 passes
-// (forward) and 5 (backward) where 2 and 3 would do.  The arithmetic is a
-// few operations per byte, far below the card's ratio.
+// (backward).  The arithmetic is a few operations per byte, far below the
+// card's ratio.
 //
-// Design:
-//  * Forward pass 1 (moments_kernel): grid (splits, C-tiles, B).  Threads
-//    run along C, so a warp reads consecutive channels of consecutive
-//    pixels (coalesced in NHWC).  Each block sums one contiguous range of
-//    pixels in fp32 and writes its partial sums to scratch: no float
-//    atomics, because blocks run in no order and the result must not
-//    depend on it.
-//  * Forward pass 2 (apply_kernel): same grid.  Every block reduces the
-//    partials of its channels in split order (the same fixed order in
-//    every block and on every run), then normalizes its pixel range.  For
-//    training, the blocks of split 0 also write the per-(B, C) residuals
-//    (s, m1, inv) that the backward reads, so it never recomputes the
-//    moments (which would be a third read of x).
+// Each call is ONE cooperative launch of a persistent grid (every SM,
+// one 512-thread block with 200 KB of shared memory on each), and each
+// input byte is read from device memory once:
+//
+//  * Work unit and chunks.  The work unit is a slab: one batch element b
+//    and a group of G channels (all C where a batch element fits), so a
+//    block's share of a slab (a range of its pixels) is one contiguous
+//    run of bytes, else runs of G * itemsize bytes (64 or more where
+//    that avoids streaming, else 32).  The host plan
+//    (ops/norm_kernel.py:_plan) groups slabs into chunks that fit in the
+//    grid's shared memory and cuts each slab of a chunk into `parts`
+//    pixel ranges, one per block.  Per chunk, each block
+//      1. copies its range into shared memory with 16-byte cp.async;
+//      2. sums the shifted fp32 moments from shared memory (rows inside a
+//         warp by shuffles, then the warps in order) and writes them to
+//         its own row of the partial table;
+//      3. grid barrier;
+//      4. reduces the partial rows of its slab in a fixed order (each
+//         thread a strided set of parts, then the sets in order), so every
+//         block of the slab gets the same bits, from L2; where that would
+//         make one thread add more than ~40 values (wide slabs cut into
+//         many parts: the parity norm's largest calls), one warp per
+//         (b, c) reduces the pair once for the grid instead, behind a
+//         second barrier (the plan's grid_reduce);
+//      5. turns the sums into (m1, inv) and normalizes its range from
+//         shared memory, with 16-byte stores.
+//    No float atomics: every sum has one fixed order.  The order depends
+//    on the grid (the SM count and the blocks per SM), so two calls on one
+//    card give identical bits; another card model may round differently.
+//
+// The earlier design (a moments kernel, an apply kernel, a parity shift
+// pre-pass; for the backward a partial, an apply and a dgamma/dbeta
+// kernel) was held back by four limits; what this one does about each:
+//  1. Passes over device memory: it read x twice (3 passes of bytes
+//     where 2 do) and x and dy twice in the backward (5 where 3 do).
+//     Here the chunk stays on chip between the moments and the apply.
+//  2. Bytes in flight: one 4-byte load per thread per iteration, about
+//     0.5 MB over the card where HBM3 needs about 2 MB.  Here a block's
+//     whole range (up to 200 KB per SM, ~26 MB over the card) is in
+//     flight as 16-byte copies at once.
+//  3. Redundant reductions: every apply block re-reduced all partials of
+//     its channels, and parity added a launch.  Here each (b, c) is
+//     reduced by the blocks of its own slab only, from a few KB of
+//     partial rows in L2, or once for the grid (step 4), and the parity
+//     shift is one warp per (b, c) before the first chunk.
+//  4. Host cost per call: two or three launches and a ctypes binding
+//     per call.  Here one launch, bound once at load (ops/norm_kernel.py).
+//
+//  * A range that does not fit in shared memory (a slab larger than the
+//    grid's whole shared memory) keeps what fits there and reads the rest
+//    from device memory again in step 5 (L2 where it fits); the plan marks
+//    such calls as streaming.  Where G * itemsize or a base address does
+//    not allow 16-byte accesses, a scalar path runs the same steps.
+//  * The shift.  Standard: s = x[b, 0, 0, c], read directly.  Parity
+//    (space-to-depth input, channel (p*2+q)*Cg + c, the layout of
+//    renderloom/models/fastpath.py): one shift per (b, c) shared by the
+//    four parity groups, the parity average of the means of packed row 0,
+//    taken by one warp per (b, c) in a fixed order before the first chunk
+//    (one more grid barrier in place of the old pre-pass launch).  After
+//    step 4 each block averages the four groups' moments of channels c,
+//    Cg+c, 2Cg+c, 3Cg+c.  Parity has no backward: the JAX kernel is
+//    inference-only.
+//  * Residuals (training): the block holding part 0 of a slab writes the
+//    per-(b, c) (s, m1, inv) that the backward reads, so the backward
+//    never recomputes the moments.
+//  * Backward: the same chunks with x and dy on chip; the partials are of
+//    dz and dz * xhat, with xhat recomputed from x and the residuals and
+//    dz = dy through the fused leaky; dx = ((g - E[g]) - xhat * E[g*xhat])
+//    * inv with g = dz * gamma from shared memory; after a last barrier the
+//    grid sums dgamma and dbeta over b in a fixed order.
 //  * Numerics follow the fp32 contract of renderloom/models/layers.py
-//    (_in_moments / _in_apply), not the Pallas kernel's unshifted sums:
-//    moments are taken of (x - s) with s = x[b, 0, 0, c], and the apply is
-//    the centered form ((x - s) - m1) * inv * gamma + beta, so a large
-//    per-channel mean (4096 with std 1e-2) keeps its variance.
-//  * Parity (space-to-depth input, channel (p*2+q)*Cg + c, the layout of
-//    renderloom/models/fastpath.py): the statistics are the full-resolution
-//    ones, the average over the four parity groups of each group's moments
-//    (fastpath.py:instance_norm_p4).  A pre-pass (parity_shift_kernel)
-//    takes one shift per (b, c) shared by the four groups, the parity
-//    average of the means of packed row 0, so the combined shifted
-//    moments stay exact algebra; the moments pass subtracts it, and the
-//    apply pass reduces the partials of channels c, Cg+c, 2Cg+c, 3Cg+c
-//    (each in split order, then the groups in order) before it writes
-//    (d - m1) * (inv * gamma) + beta.  Still no float atomics.  Parity has
-//    no backward: the JAX kernel is inference-only.
-//  * Backward pass 1 (bwd_partial_kernel): the forward's grid; each block
-//    sums dz and dz * xhat over its pixel range into scratch, where xhat
-//    is recomputed from x and the residuals and dz is dy through the fused
-//    leaky (slope where the recomputed pre-leaky value is negative).
-//  * Backward pass 2 (bwd_apply_kernel): each block reduces the partials
-//    of its channels in split order, forms E[g] and E[g * xhat] with
-//    g = dz * gamma, and writes dx = ((g - E[g]) - xhat * E[g * xhat]) *
-//    inv over its range.  dgamma and dbeta (bwd_param_kernel) sum the
-//    same partials over B and the splits in a fixed order.
+//    (_in_moments / _in_apply / _in_bwd), not the Pallas kernel's
+//    unshifted sums: moments of (x - s) in fp32, the centered apply
+//    ((x - s) - m1) * inv * gamma + beta (parity: (d - m1) * (inv * gamma)
+//    + beta, instance_norm_p4's order), leaky from the sign of the
+//    pre-leaky value.  Only the order of the sums differs from the twins.
 //
-// C interface for ctypes; each entry returns cudaGetLastError() after its
-// launches.
+// C interface for ctypes; each entry returns the CUDA error of its launch
+// (a refused cooperative launch included).  rl_norm_device sets the
+// kernels' shared-memory limit and reports the grid the plan sizes for.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
+// A call's scalars, packed once per shape by ops/norm_kernel.py
+// (_Config): width > 0 selects the parity norm (C divisible by 4, `width`
+// the packed tensor's W, G = C, no residuals); the plan's split; the
+// leaky's slope and eps.
+struct Config {
+  int width, B, n_px, C, G, is_bf16, vec, leaky, grid, parts, rows_per_part,
+      rows_cap, slabs_per_chunk, n_chunks, grid_reduce;
+  float slope, eps;
+};
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kDynSmem = 200 * 1024;  // per block; rl_norm_device reports it
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ float load_f(float v) { return v; }
+__device__ __forceinline__ float load_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
 }
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);  // round to nearest even, as torch's cast
+__device__ __forceinline__ void store_f(float& p, float v) { p = v; }
+__device__ __forceinline__ void store_f(__nv_bfloat16& p, float v) {
+  p = __float2bfloat16(v);  // round to nearest even, as torch's cast
 }
 
-// grid (n_split, ceil(C / ct), B), block (ct, kThreads / ct); ct is a
-// power of two <= 32, so blockDim.y is a power of two too.
-// Parity pre-pass: shift[b, c] = mean over the four groups g of the mean
-// of packed row 0 (w pixels) of channel g * Cg + c.  grid (ceil(Cg / ct),
-// B), block (ct, kThreads / ct); a fixed-order tree over the row.
-template <typename T>
-__global__ void parity_shift_kernel(const T* __restrict__ x,
-                                    float* __restrict__ shift, int n_px,
-                                    int C, int w) {
-  __shared__ float sh[4][kThreads];
-  const int ct = blockDim.x;
-  const int Cg = C / 4;
-  const int c = blockIdx.x * ct + threadIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.y * ct + threadIdx.x;
-  const T* row = x + (size_t)b * n_px * C;
-  for (int g = 0; g < 4; ++g) {
-    float s = 0.f;
-    if (c < Cg)
-      for (int j = threadIdx.y; j < w; j += blockDim.y)
-        s += load_f(row + (size_t)j * C + g * Cg + c);
-    sh[g][tid] = s;
+// V consecutive elements: 16 bytes on the vector path, one on the scalar.
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+struct Args {
+  const void* x;
+  const void* dy;        // backward
+  void* out;             // forward: y; backward: dx
+  const float* scale;    // null: no affine
+  const float* bias;
+  float* stats;          // (B, C, 3) s, m1, inv: written (fwd) or read (bwd)
+  float* scratch;        // partial (B, parts, 2, C), sums (B, 2, C), and
+                         // for parity the shifts (B, C / 4)
+  float* dscale;         // backward, with affine
+  float* dbias;
+  int B, n_px, C;
+  int G;                 // channels per slab (a divisor of C)
+  int width;             // parity: packed W; 0: the standard norm
+  int leaky;
+  float slope, eps;
+  int parts, rows_per_part, rows_cap, slabs_per_chunk, n_chunks;
+  int grid_reduce;       // 1: reduce_pairs and a second barrier
+};
+
+// Block-wide geometry of the column mapping: thread t owns vector column
+// j = pass * cols + t % cols and rows t / cols, t / cols + rows_par, ...
+struct Cols {
+  int Cv, cols, rows_par, col, rowi, pow2;
+  __device__ Cols(int C, int V) {
+    Cv = C / V;
+    cols = Cv < kThreads ? Cv : kThreads;
+    rows_par = kThreads / cols;
+    col = threadIdx.x % cols;
+    rowi = threadIdx.x / cols;
+    pow2 = 1;
+    while (pow2 < rows_par) pow2 <<= 1;
   }
-  __syncthreads();
-  for (int stride = blockDim.y / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.y < stride)
-      for (int g = 0; g < 4; ++g) sh[g][tid] += sh[g][tid + stride * ct];
-    __syncthreads();
-  }
-  if (threadIdx.y == 0 && c < Cg) {
-    float acc = 0.f;
-    for (int g = 0; g < 4; ++g) acc += sh[g][threadIdx.x] / (float)w;
-    shift[(size_t)b * Cg + c] = acc / 4.f;
-  }
-}
+};
 
-// shift_tab (parity only): the (B, C / 4) shifts of parity_shift_kernel;
-// null takes s = x[b, 0, 0, c].
-__device__ __forceinline__ int group_channel(int c, int C) {
-  return c % (C / 4);
-}
-
-template <typename T>
-__global__ void moments_kernel(const T* __restrict__ x,
-                               const float* __restrict__ shift_tab,
-                               float* __restrict__ partial, int n_px, int C,
-                               int rows_per_split) {
-  __shared__ float sh1[kThreads];
-  __shared__ float sh2[kThreads];
-  const int ct = blockDim.x;
-  const int c = blockIdx.y * ct + threadIdx.x;
-  const int b = blockIdx.z;
-  const int split = blockIdx.x;
-  const int r0 = split * rows_per_split;
-  const int r1 = min(n_px, r0 + rows_per_split);
-  const T* xb = x + (size_t)b * n_px * C;
-
-  float s1 = 0.f, s2 = 0.f;
-  if (c < C) {
-    const float shift =
-        shift_tab ? shift_tab[(size_t)b * (C / 4) + group_channel(c, C)]
-                  : load_f(xb + c);
-    for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-      const float d = load_f(xb + (size_t)r * C + c) - shift;
-      s1 += d;
-      s2 += d * d;
+// Sum a1/a2 over the row threads of each column of pass j0 and write
+// the column's V channel sums to dst1/dst2 (indexed by channel), in a
+// fixed order.  Narrow slabs (cols a power of two, V * cols <= 32): the
+// rows inside a warp by shuffles, then the 16 warps in order, two block
+// barriers in all; else a tree over the rows in shared memory.
+template <int V>
+__device__ void column_sums(const Cols& g, bool active, int j0,
+                            const float (&a1)[V], const float (&a2)[V],
+                            float* red1, float* red2, float* dst1,
+                            float* dst2) {
+  const int t = threadIdx.x;
+  if (g.cols * g.rows_par == kThreads && 32 % g.cols == 0 &&
+      V * g.cols <= 32) {
+    float b1[V], b2[V];
+    for (int k = 0; k < V; ++k) {
+      b1[k] = active ? a1[k] : 0.f;
+      b2[k] = active ? a2[k] : 0.f;
     }
-  }
-  const int tid = threadIdx.y * ct + threadIdx.x;
-  sh1[tid] = s1;
-  sh2[tid] = s2;
-  __syncthreads();
-  for (int stride = blockDim.y / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.y < stride) {
-      sh1[tid] += sh1[tid + stride * ct];
-      sh2[tid] += sh2[tid + stride * ct];
-    }
-    __syncthreads();
-  }
-  if (threadIdx.y == 0 && c < C) {
-    float* p = partial + ((size_t)b * gridDim.x + split) * 2 * C;
-    p[c] = sh1[threadIdx.x];
-    p[C + c] = sh2[threadIdx.x];
-  }
-}
-
-template <typename T>
-__global__ void apply_kernel(const T* __restrict__ x, T* __restrict__ out,
-                             const float* __restrict__ shift_tab,
-                             const float* __restrict__ partial,
-                             const float* __restrict__ scale,
-                             const float* __restrict__ bias,
-                             float* __restrict__ stats, int n_px, int C,
-                             int rows_per_split, int leaky, float slope,
-                             float eps) {
-  __shared__ float s_m1[32];
-  __shared__ float s_inv[32];
-  const int ct = blockDim.x;
-  const int c = blockIdx.y * ct + threadIdx.x;
-  const int b = blockIdx.z;
-  const int n_split = gridDim.x;
-
-  if (threadIdx.y == 0 && c < C) {
-    const float* p = partial + (size_t)b * n_split * 2 * C;
-    float m1, m2;
-    if (shift_tab) {  // parity: average the four groups' moments
-      const int Cg = C / 4;
-      const int cg = group_channel(c, C);
-      float a1 = 0.f, a2 = 0.f;
-      for (int g = 0; g < 4; ++g) {
-        const int ch = g * Cg + cg;
-        float s1 = 0.f, s2 = 0.f;
-        for (int k = 0; k < n_split; ++k) {  // fixed order: deterministic
-          s1 += p[(size_t)k * 2 * C + ch];
-          s2 += p[(size_t)k * 2 * C + C + ch];
-        }
-        a1 += s1 / (float)n_px;
-        a2 += s2 / (float)n_px;
+    for (int off = g.cols; off < 32; off <<= 1)
+      for (int k = 0; k < V; ++k) {
+        b1[k] += __shfl_xor_sync(0xffffffffu, b1[k], off);
+        b2[k] += __shfl_xor_sync(0xffffffffu, b2[k], off);
       }
-      m1 = a1 / 4.f;
-      m2 = a2 / 4.f;
-    } else {
+    const int lane = t & 31, warp = t >> 5;
+    if (lane < g.cols)  // the warp's first row: one fixed order
+      for (int k = 0; k < V; ++k) {
+        red1[(k * kWarps + warp) * g.cols + lane] = b1[k];
+        red2[(k * kWarps + warp) * g.cols + lane] = b2[k];
+      }
+    __syncthreads();
+    if (t < V * g.cols) {
+      const int k = t / g.cols, col = t % g.cols;
       float s1 = 0.f, s2 = 0.f;
-      for (int k = 0; k < n_split; ++k) {  // fixed order: deterministic
-        s1 += p[(size_t)k * 2 * C + c];
-        s2 += p[(size_t)k * 2 * C + C + c];
+      for (int w = 0; w < kWarps; ++w) {
+        s1 += red1[(k * kWarps + w) * g.cols + col];
+        s2 += red2[(k * kWarps + w) * g.cols + col];
       }
-      m1 = s1 / (float)n_px;
-      m2 = s2 / (float)n_px;
+      dst1[(j0 + col) * V + k] = s1;
+      dst2[(j0 + col) * V + k] = s2;
     }
-    const float var = fmaxf(m2 - m1 * m1, 0.f);
-    const float inv = rsqrtf(var + eps);
-    s_m1[threadIdx.x] = m1;
-    s_inv[threadIdx.x] = inv;
-    if (stats && blockIdx.x == 0) {  // residuals for the backward
-      float* st = stats + ((size_t)b * C + c) * 3;
-      st[0] = load_f(x + (size_t)b * n_px * C + c);
-      st[1] = m1;
-      st[2] = inv;
-    }
-  }
-  __syncthreads();
-  if (c >= C) return;
-
-  const float m1 = s_m1[threadIdx.x];
-  const float inv = s_inv[threadIdx.x];
-  const float g = scale ? scale[c] : 1.f;
-  const float be = bias ? bias[c] : 0.f;
-  const T* xb = x + (size_t)b * n_px * C;
-  T* ob = out + (size_t)b * n_px * C;
-  const int r0 = blockIdx.x * rows_per_split;
-  const int r1 = min(n_px, r0 + rows_per_split);
-  if (shift_tab) {
-    // instance_norm_p4's order: (d - m1) * a with a = inv * gamma, + beta
-    const float shift = shift_tab[(size_t)b * (C / 4) + group_channel(c, C)];
-    const float a = scale ? inv * g : inv;
-    for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-      const size_t i = (size_t)r * C + c;
-      float y = ((load_f(xb + i) - shift) - m1) * a;
-      if (bias) y = y + be;
-      if (leaky) y = y >= 0.f ? y : y * slope;
-      store_f(ob + i, y);
-    }
+    __syncthreads();
     return;
   }
-  const float shift = load_f(xb + c);
-  for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-    const size_t i = (size_t)r * C + c;
-    float y = ((load_f(xb + i) - shift) - m1) * inv;
-    if (scale) {
-      y = y * g;
-      y = y + be;
-    }
-    if (leaky) y = y >= 0.f ? y : y * slope;
-    store_f(ob + i, y);
-  }
-}
-
-// Backward pass 1: per (split, C-tile, b), partial sums of dz and
-// dz * xhat over the split's pixels.
-template <typename T>
-__global__ void bwd_partial_kernel(const T* __restrict__ x,
-                                   const T* __restrict__ dy,
-                                   const float* __restrict__ stats,
-                                   const float* __restrict__ scale,
-                                   const float* __restrict__ bias,
-                                   float* __restrict__ partial, int n_px,
-                                   int C, int rows_per_split, int leaky,
-                                   float slope) {
-  __shared__ float sh1[kThreads];
-  __shared__ float sh2[kThreads];
-  const int ct = blockDim.x;
-  const int c = blockIdx.y * ct + threadIdx.x;
-  const int b = blockIdx.z;
-  const int split = blockIdx.x;
-  const int r0 = split * rows_per_split;
-  const int r1 = min(n_px, r0 + rows_per_split);
-
-  float s1 = 0.f, s2 = 0.f;
-  if (c < C) {
-    const float* st = stats + ((size_t)b * C + c) * 3;
-    const float shift = st[0], m1 = st[1], inv = st[2];
-    const float g = scale ? scale[c] : 1.f;
-    const float be = bias ? bias[c] : 0.f;
-    const T* xb = x + (size_t)b * n_px * C;
-    const T* db = dy + (size_t)b * n_px * C;
-    for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-      const size_t i = (size_t)r * C + c;
-      const float xhat = ((load_f(xb + i) - shift) - m1) * inv;
-      float d = load_f(db + i);
-      if (leaky) {
-        float z = xhat;  // the forward's pre-leaky value, bit for bit
-        if (scale) {
-          z = z * g;
-          z = z + be;
-        }
-        if (!(z >= 0.f)) d = d * slope;
+  for (int k = 0; k < V; ++k) {
+    red1[t] = active ? a1[k] : 0.f;
+    red2[t] = active ? a2[k] : 0.f;
+    __syncthreads();
+    for (int s = g.pow2 >> 1; s > 0; s >>= 1) {
+      if (active && g.rowi < s && g.rowi + s < g.rows_par) {
+        red1[t] += red1[t + s * g.cols];
+        red2[t] += red2[t + s * g.cols];
       }
-      s1 += d;
-      s2 += d * xhat;
+      __syncthreads();
     }
-  }
-  const int tid = threadIdx.y * ct + threadIdx.x;
-  sh1[tid] = s1;
-  sh2[tid] = s2;
-  __syncthreads();
-  for (int stride = blockDim.y / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.y < stride) {
-      sh1[tid] += sh1[tid + stride * ct];
-      sh2[tid] += sh2[tid + stride * ct];
+    if (active && g.rowi == 0) {
+      dst1[(j0 + g.col) * V + k] = red1[t];
+      dst2[(j0 + g.col) * V + k] = red2[t];
     }
     __syncthreads();
   }
-  if (threadIdx.y == 0 && c < C) {
-    float* p = partial + ((size_t)b * gridDim.x + split) * 2 * C;
-    p[c] = sh1[threadIdx.x];
-    p[C + c] = sh2[threadIdx.x];
+}
+
+// Start copying `rows` rows of G elements (global row stride C) into
+// shared memory as rows of G: 16-byte cp.async on the vector path (every
+// address 16-byte aligned, G * sizeof(T) a multiple of 16), element by
+// element on the scalar path.  copy_wait() ends every copy the block
+// started.
+template <typename T, bool kVec>
+__device__ void copy_in(T* dst, const T* src, int rows, int G, int C) {
+  if (kVec) {
+    const int per_row = G * (int)sizeof(T) / 16;
+    const int n = rows * per_row;
+    const char* s = reinterpret_cast<const char*>(src);
+    char* d = reinterpret_cast<char*>(dst);
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const int r = i / per_row, q = i % per_row;
+      const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(
+          d + ((size_t)r * G * sizeof(T) + q * 16)));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa),
+                   "l"(s + ((size_t)r * C * sizeof(T) + q * 16))
+                   : "memory");
+    }
+  } else {
+    const int n = rows * G;
+    for (int i = threadIdx.x; i < n; i += kThreads)
+      dst[i] = src[(size_t)(i / G) * C + i % G];
   }
 }
 
-// Backward pass 2: dx over the block's pixel range.
-template <typename T>
-__global__ void bwd_apply_kernel(const T* __restrict__ x,
-                                 const T* __restrict__ dy,
-                                 const float* __restrict__ stats,
-                                 const float* __restrict__ scale,
-                                 const float* __restrict__ bias,
-                                 const float* __restrict__ partial,
-                                 T* __restrict__ dx, int n_px, int C,
-                                 int rows_per_split, int leaky, float slope) {
-  __shared__ float s_mg[32];
-  __shared__ float s_mgx[32];
-  const int ct = blockDim.x;
-  const int c = blockIdx.y * ct + threadIdx.x;
-  const int b = blockIdx.z;
-  const int n_split = gridDim.x;
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
 
-  if (threadIdx.y == 0 && c < C) {
-    const float* p = partial + (size_t)b * n_split * 2 * C;
+// A block's share of one chunk: pixels [p0, p0 + nr) of slab (b, channels
+// [c0, c0 + G)), the first nr_s of them on chip.  `mine` is block-uniform.
+struct Work {
+  bool mine;
+  int b, c0, p0, nr, nr_s;
+  size_t off;  // element offset of (b, p0, c0)
+  __device__ Work(const Args& a, int chunk) {
+    const int ng = a.C / a.G;
+    const int sl = blockIdx.x / a.parts, part = blockIdx.x % a.parts;
+    const int s = chunk * a.slabs_per_chunk + sl;
+    mine = sl < a.slabs_per_chunk && s < a.B * ng;
+    b = s / ng;
+    c0 = (s % ng) * a.G;
+    p0 = part * a.rows_per_part;
+    nr = min(a.n_px, p0 + a.rows_per_part) - p0;
+    nr_s = min(nr, a.rows_cap);
+    off = ((size_t)b * a.n_px + p0) * a.C + c0;
+  }
+  __device__ int part(const Args& a) const { return blockIdx.x % a.parts; }
+};
+
+// Grid reduction, after the chunk's barrier: the chunk's (b, c) pairs,
+// one warp each, lanes over the parts in stride, then a fixed shuffle
+// tree; lane 0's value is the sum.
+__device__ void reduce_pairs(const Args& a, const float* partial,
+                             float* sums, int chunk) {
+  const int C = a.C, G = a.G, ng = C / G;
+  const int s0 = chunk * a.slabs_per_chunk;
+  const int ns = min(a.slabs_per_chunk, a.B * ng - s0);
+  const int lane = threadIdx.x & 31;
+  const int n_warps = gridDim.x * kWarps;
+  for (int pair = blockIdx.x * kWarps + (threadIdx.x >> 5); pair < ns * G;
+       pair += n_warps) {
+    const int s = s0 + pair / G;
+    const int b = s / ng, c = (s % ng) * G + pair % G;
+    const float* p = partial + (size_t)b * a.parts * 2 * C + c;
     float s1 = 0.f, s2 = 0.f;
-    for (int k = 0; k < n_split; ++k) {  // fixed order: deterministic
-      s1 += p[(size_t)k * 2 * C + c];
-      s2 += p[(size_t)k * 2 * C + C + c];
+    for (int k = lane; k < a.parts; k += 32) {
+      s1 += p[(size_t)k * 2 * C];
+      s2 += p[(size_t)k * 2 * C + C];
     }
-    const float g = scale ? scale[c] : 1.f;
-    s_mg[threadIdx.x] = (g * s1) / (float)n_px;   // E[g]
-    s_mgx[threadIdx.x] = (g * s2) / (float)n_px;  // E[g * xhat]
+    for (int off = 16; off > 0; off >>= 1) {
+      s1 += __shfl_down_sync(0xffffffffu, s1, off);
+      s2 += __shfl_down_sync(0xffffffffu, s2, off);
+    }
+    if (lane == 0) {
+      sums[(size_t)b * 2 * C + c] = s1;
+      sums[(size_t)b * 2 * C + C + c] = s2;
+    }
+  }
+}
+
+// Block reduction, after the chunk's barrier: the per-channel sums of a
+// slab over its parts, into S[0, G) (first moment) and S[G, 2G)
+// (second), from the
+// slab's partial rows (row stride 2C).  Every block of the slab computes
+// them the same way, so they agree bit for bit: each thread sums the
+// parts of its group in order, then the groups are summed in order.
+__device__ void block_sums(const float* partial, int parts, int C, int G,
+                           float* red, float* S) {
+  const int n = 2 * G, t = threadIdx.x;
+  auto at = [&](int p, int q) {
+    return partial[(size_t)p * 2 * C + (q / G) * C + q % G];
+  };
+  if (n >= kThreads) {
+    for (int q = t; q < n; q += kThreads) {
+      float acc = 0.f;
+      for (int p = 0; p < parts; ++p) acc += at(p, q);
+      S[q] = acc;
+    }
+  } else {
+    const int groups = kThreads / n, q = t % n, grp = t / n;
+    if (grp < groups) {
+      float acc = 0.f;
+      for (int p = grp; p < parts; p += groups) acc += at(p, q);
+      red[grp * n + q] = acc;
+    }
+    __syncthreads();
+    if (t < n) {
+      float acc = 0.f;
+      for (int k = 0; k < groups; ++k) acc += red[k * n + t];
+      S[t] = acc;
+    }
   }
   __syncthreads();
-  if (c >= C) return;
+}
 
-  const float* st = stats + ((size_t)b * C + c) * 3;
-  const float shift = st[0], m1 = st[1], inv = st[2];
-  const float g = scale ? scale[c] : 1.f;
-  const float be = bias ? bias[c] : 0.f;
-  const float mg = s_mg[threadIdx.x];
-  const float mgx = s_mgx[threadIdx.x];
-  const T* xb = x + (size_t)b * n_px * C;
-  const T* db = dy + (size_t)b * n_px * C;
-  T* ob = dx + (size_t)b * n_px * C;
-  const int r0 = blockIdx.x * rows_per_split;
-  const int r1 = min(n_px, r0 + rows_per_split);
-  for (int r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-    const size_t i = (size_t)r * C + c;
-    const float xhat = ((load_f(xb + i) - shift) - m1) * inv;
-    float d = load_f(db + i);
-    if (leaky) {
-      float z = xhat;
-      if (scale) {
-        z = z * g;
-        z = z + be;
+// The sums of the block's slab into S (2G floats of shared memory): from
+// the grid's sum table, or reduced by the block itself.
+__device__ void slab_sums(const Args& a, const float* partial,
+                          const float* sums, const Work& w, float* red,
+                          float* S) {
+  const int C = a.C, G = a.G;
+  if (a.grid_reduce) {
+    const float* sb = sums + (size_t)w.b * 2 * C + w.c0;
+    for (int k = threadIdx.x; k < G; k += kThreads) {
+      S[k] = sb[k];
+      S[G + k] = sb[C + k];
+    }
+    __syncthreads();
+  } else {
+    block_sums(partial + (size_t)w.b * a.parts * 2 * C + w.c0, a.parts, C,
+               G, red, S);
+  }
+}
+
+
+// Parity shift: shift[b, c] = mean over the four groups g of the mean of
+// packed row 0 (`width` pixels) of channel g * Cg + c.  One warp per
+// (b, c), a fixed order.
+template <typename T>
+__device__ void parity_shifts(const T* x, float* shift, int B, int n_px,
+                              int C, int width) {
+  const int Cg = C / 4;
+  const int lane = threadIdx.x & 31;
+  const int n_warps = gridDim.x * kWarps;
+  for (int pair = blockIdx.x * kWarps + (threadIdx.x >> 5); pair < B * Cg;
+       pair += n_warps) {
+    const int b = pair / Cg, c = pair % Cg;
+    const T* row = x + (size_t)b * n_px * C;
+    float acc = 0.f;
+    for (int g = 0; g < 4; ++g) {
+      float s = 0.f;
+      for (int j = lane; j < width; j += 32)
+        s += load_f(row[(size_t)j * C + g * Cg + c]);
+      for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_down_sync(0xffffffffu, s, off);
+      acc += s / (float)width;
+    }
+    if (lane == 0) shift[(size_t)b * Cg + c] = acc / 4.f;
+  }
+}
+
+// The forward.  Shared memory: the block's rows of x (G channels each),
+// then seven (G,) tables: shift, m1, inv (parity: inv * gamma), gamma,
+// beta, and the slab's two sums.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1) norm_fwd_kernel(Args a) {
+  constexpr int V = kVec ? 16 / sizeof(T) : 1;
+  using P = Pack<T, V>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red1[kThreads], red2[kThreads];
+  cg::grid_group grid = cg::this_grid();
+
+  const int B = a.B, n_px = a.n_px, C = a.C, G = a.G;
+  const bool parity = a.width > 0;  // the plan gives G = C
+  const T* x = static_cast<const T*>(a.x);
+  T* out = static_cast<T*>(a.out);
+  float* partial = a.scratch;
+  float* sums = partial + (size_t)B * a.parts * 2 * C;
+  float* shift = sums + (size_t)B * 2 * C;
+
+  T* xs = reinterpret_cast<T*>(smem);
+  float* t_s = reinterpret_cast<float*>(
+      smem + ((size_t)a.rows_cap * G * sizeof(T) + 15) / 16 * 16);
+  float* t_m1 = t_s + G;
+  float* t_a = t_m1 + G;
+  float* t_g = t_a + G;
+  float* t_b = t_g + G;
+  float* t_S = t_b + G;  // 2G: the slab's sums
+  const Cols g(G, V);
+  const int Cv = C / V;  // packs per global row
+
+  if (parity) {
+    parity_shifts(x, shift, B, n_px, C, a.width);
+    grid.sync();
+  }
+  for (int chunk = 0; chunk < a.n_chunks; ++chunk) {
+    const Work w(a, chunk);
+    const T* xg = x + w.off;
+    if (w.mine) {
+      copy_in<T, kVec>(xs, xg, w.nr_s, G, C);
+      for (int k = threadIdx.x; k < G; k += kThreads) {
+        const int c = w.c0 + k;
+        t_s[k] = parity ? shift[(size_t)w.b * (C / 4) + c % (C / 4)]
+                        : load_f(x[(size_t)w.b * n_px * C + c]);
+        t_g[k] = a.scale ? a.scale[c] : 1.f;
+        t_b[k] = a.bias ? a.bias[c] : 0.f;
       }
-      if (!(z >= 0.f)) d = d * slope;
+      copy_wait();
+      float* dst = partial + ((size_t)w.b * a.parts + w.part(a)) * 2 * C +
+                   w.c0;
+      for (int j0 = 0; j0 < g.Cv; j0 += g.cols) {
+        const int j = j0 + g.col;
+        const bool active = g.rowi < g.rows_par && j < g.Cv;
+        float s1[V], s2[V], sh[V];
+        for (int k = 0; k < V; ++k) {
+          s1[k] = s2[k] = 0.f;
+          sh[k] = active ? t_s[j * V + k] : 0.f;
+        }
+        if (active) {
+          for (int r = g.rowi; r < w.nr; r += g.rows_par) {
+            const P p = r < w.nr_s
+                ? reinterpret_cast<const P*>(xs)[(size_t)r * g.Cv + j]
+                : reinterpret_cast<const P*>(xg)[(size_t)r * Cv + j];
+            for (int k = 0; k < V; ++k) {
+              const float d = load_f(p.v[k]) - sh[k];
+              s1[k] += d;
+              s2[k] += d * d;
+            }
+          }
+        }
+        column_sums<V>(g, active, j0, s1, s2, red1, red2, dst, dst + C);
+      }
     }
-    const float gg = scale ? d * g : d;
-    store_f(ob + i, ((gg - mg) - xhat * mgx) * inv);
-  }
-}
-
-// dgamma = sum over (b, pixels) of dz * xhat, dbeta = sum of dz: one
-// thread per channel, batch then split in a fixed order.
-__global__ void bwd_param_kernel(const float* __restrict__ partial,
-                                 float* __restrict__ dscale,
-                                 float* __restrict__ dbias, int B,
-                                 int n_split, int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float sb = 0.f, sg = 0.f;
-  for (int b = 0; b < B; ++b) {
-    const float* p = partial + (size_t)b * n_split * 2 * C;
-    float pb = 0.f, pg = 0.f;
-    for (int k = 0; k < n_split; ++k) {
-      pb += p[(size_t)k * 2 * C + c];
-      pg += p[(size_t)k * 2 * C + C + c];
+    grid.sync();
+    if (a.grid_reduce) {
+      reduce_pairs(a, partial, sums, chunk);
+      grid.sync();
     }
-    sb += pb;
-    sg += pg;
+    if (!w.mine) continue;
+
+    slab_sums(a, partial, sums, w, red1, t_S);
+    for (int k = threadIdx.x; k < G; k += kThreads) {
+      const int c = w.c0 + k;
+      float m1, m2;
+      if (parity) {  // average the four groups' moments (G = C)
+        const int Cg = C / 4, cg_ = c % Cg;
+        float a1 = 0.f, a2 = 0.f;
+        for (int q = 0; q < 4; ++q) {
+          a1 += t_S[q * Cg + cg_] / (float)n_px;
+          a2 += t_S[G + q * Cg + cg_] / (float)n_px;
+        }
+        m1 = a1 / 4.f;
+        m2 = a2 / 4.f;
+      } else {
+        m1 = t_S[k] / (float)n_px;
+        m2 = t_S[G + k] / (float)n_px;
+      }
+      const float var = fmaxf(m2 - m1 * m1, 0.f);
+      const float inv = rsqrtf(var + a.eps);
+      t_m1[k] = m1;
+      t_a[k] = parity && a.scale ? inv * t_g[k] : inv;
+      if (a.stats && w.part(a) == 0) {  // residuals for the backward
+        float* st = a.stats + ((size_t)w.b * C + c) * 3;
+        st[0] = t_s[k];
+        st[1] = m1;
+        st[2] = inv;
+      }
+    }
+    __syncthreads();
+    // standard: y * gamma, + beta after the normalization; parity: gamma
+    // is folded into t_a, + beta
+    const bool mul_g = a.scale && !parity;
+    const bool add_b = a.bias != nullptr;
+    P* og = reinterpret_cast<P*>(out + w.off);
+    for (int j0 = 0; j0 < g.Cv; j0 += g.cols) {
+      const int j = j0 + g.col;
+      if (g.rowi >= g.rows_par || j >= g.Cv) continue;
+      float cs[V], cm[V], ca[V], cgm[V], cb[V];
+      for (int k = 0; k < V; ++k) {
+        cs[k] = t_s[j * V + k];
+        cm[k] = t_m1[j * V + k];
+        ca[k] = t_a[j * V + k];
+        cgm[k] = t_g[j * V + k];
+        cb[k] = t_b[j * V + k];
+      }
+      for (int r = g.rowi; r < w.nr; r += g.rows_par) {
+        const P p = r < w.nr_s
+            ? reinterpret_cast<const P*>(xs)[(size_t)r * g.Cv + j]
+            : reinterpret_cast<const P*>(xg)[(size_t)r * Cv + j];
+        P o;
+        for (int k = 0; k < V; ++k) {
+          float y = ((load_f(p.v[k]) - cs[k]) - cm[k]) * ca[k];
+          if (mul_g) y = y * cgm[k];
+          if (add_b) y = y + cb[k];
+          if (a.leaky) y = y >= 0.f ? y : y * a.slope;
+          store_f(o.v[k], y);
+        }
+        og[(size_t)r * Cv + j] = o;
+      }
+    }
+    __syncthreads();  // shared memory is refilled by the next chunk
   }
-  dbias[c] = sb;
-  dscale[c] = sg;
 }
 
-// shift (parity only): (B, C / 4) scratch for the pre-pass, which reads
-// the first `width` pixels (packed row 0); null for the standard norm.
-template <typename T>
-void launch(const void* x, void* out, const float* scale, const float* bias,
-            float* partial, float* stats, float* shift, int width, int B,
-            int n_px, int C, int leaky, float slope, float eps, int n_split,
-            int rows_per_split, int ct, cudaStream_t stream) {
-  const dim3 grid(n_split, (C + ct - 1) / ct, B);
-  const dim3 block(ct, kThreads / ct);
-  const T* xt = static_cast<const T*>(x);
-  if (shift) {
-    const int Cg = C / 4;
-    int sct = 1;
-    while (sct < Cg && sct < 32) sct <<= 1;
-    parity_shift_kernel<T><<<dim3((Cg + sct - 1) / sct, B),
-                             dim3(sct, kThreads / sct), 0, stream>>>(
-        xt, shift, n_px, C, width);
+// dz: dy through the fused leaky, whose sign is the forward's pre-leaky
+// value recomputed bit for bit.
+__device__ __forceinline__ float leaky_grad(float d, float xhat, bool leaky,
+                                            bool affine, float gm, float be,
+                                            float slope) {
+  if (leaky) {
+    float z = xhat;
+    if (affine) {
+      z = z * gm;
+      z = z + be;
+    }
+    if (!(z >= 0.f)) d = d * slope;
   }
-  moments_kernel<T><<<grid, block, 0, stream>>>(xt, shift, partial, n_px, C,
-                                                rows_per_split);
-  apply_kernel<T><<<grid, block, 0, stream>>>(
-      xt, static_cast<T*>(out), shift, partial, scale, bias, stats, n_px, C,
-      rows_per_split, leaky, slope, eps);
+  return d;
 }
 
-template <typename T>
-void launch_bwd(const void* x, const void* dy, const float* stats,
-                const float* scale, const float* bias, void* dx,
-                float* dscale, float* dbias, float* partial, int B, int n_px,
-                int C, int leaky, float slope, int n_split,
-                int rows_per_split, int ct, cudaStream_t stream) {
-  const dim3 grid(n_split, (C + ct - 1) / ct, B);
-  const dim3 block(ct, kThreads / ct);
-  bwd_partial_kernel<T><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), stats, scale,
-      bias, partial, n_px, C, rows_per_split, leaky, slope);
-  bwd_apply_kernel<T><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), stats, scale,
-      bias, partial, static_cast<T*>(dx), n_px, C, rows_per_split, leaky,
-      slope);
-  if (dscale) {
-    bwd_param_kernel<<<(C + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-        partial, dscale, dbias, B, n_split, C);
+// The backward.  Shared memory: the block's rows of x, then of dy, then
+// nine (G,) tables: s, m1, inv, gamma, beta, E[g], E[g * xhat] and the
+// slab's two sums.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1) norm_bwd_kernel(Args a) {
+  constexpr int V = kVec ? 16 / sizeof(T) : 1;
+  using P = Pack<T, V>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red1[kThreads], red2[kThreads];
+  cg::grid_group grid = cg::this_grid();
+
+  const int B = a.B, n_px = a.n_px, C = a.C, G = a.G;
+  const T* x = static_cast<const T*>(a.x);
+  const T* dy = static_cast<const T*>(a.dy);
+  T* dx = static_cast<T*>(a.out);
+  float* partial = a.scratch;
+  float* sums = partial + (size_t)B * a.parts * 2 * C;
+
+  const size_t rows_bytes = (size_t)a.rows_cap * G * sizeof(T);
+  T* xs = reinterpret_cast<T*>(smem);
+  T* ds = reinterpret_cast<T*>(smem + rows_bytes);
+  float* t_s =
+      reinterpret_cast<float*>(smem + (2 * rows_bytes + 15) / 16 * 16);
+  float* t_m1 = t_s + G;
+  float* t_inv = t_m1 + G;
+  float* t_g = t_inv + G;
+  float* t_b = t_g + G;
+  float* t_mg = t_b + G;
+  float* t_mgx = t_mg + G;
+  float* t_S = t_mgx + G;  // 2G: the slab's sums
+  const Cols g(G, V);
+  const int Cv = C / V;  // packs per global row
+  const bool affine = a.scale != nullptr;
+  const bool leaky = a.leaky != 0;
+
+  for (int chunk = 0; chunk < a.n_chunks; ++chunk) {
+    const Work w(a, chunk);
+    const T* xg = x + w.off;
+    const T* dg = dy + w.off;
+    if (w.mine) {
+      copy_in<T, kVec>(xs, xg, w.nr_s, G, C);
+      copy_in<T, kVec>(ds, dg, w.nr_s, G, C);
+      for (int k = threadIdx.x; k < G; k += kThreads) {
+        const int c = w.c0 + k;
+        const float* st = a.stats + ((size_t)w.b * C + c) * 3;
+        t_s[k] = st[0];
+        t_m1[k] = st[1];
+        t_inv[k] = st[2];
+        t_g[k] = affine ? a.scale[c] : 1.f;
+        t_b[k] = affine ? a.bias[c] : 0.f;
+      }
+      copy_wait();
+      float* dst = partial + ((size_t)w.b * a.parts + w.part(a)) * 2 * C +
+                   w.c0;
+      for (int j0 = 0; j0 < g.Cv; j0 += g.cols) {
+        const int j = j0 + g.col;
+        const bool active = g.rowi < g.rows_par && j < g.Cv;
+        float s1[V], s2[V], cs[V], cm[V], ci[V], cgm[V], cb[V];
+        for (int k = 0; k < V; ++k) {
+          const int c = active ? j * V + k : 0;
+          s1[k] = s2[k] = 0.f;
+          cs[k] = t_s[c];
+          cm[k] = t_m1[c];
+          ci[k] = t_inv[c];
+          cgm[k] = t_g[c];
+          cb[k] = t_b[c];
+        }
+        if (active) {
+          for (int r = g.rowi; r < w.nr; r += g.rows_par) {
+            const bool on_chip = r < w.nr_s;
+            const size_t i = on_chip ? (size_t)r * g.Cv + j : (size_t)r * Cv + j;
+            const P px = reinterpret_cast<const P*>(on_chip ? xs : xg)[i];
+            const P pd = reinterpret_cast<const P*>(on_chip ? ds : dg)[i];
+            for (int k = 0; k < V; ++k) {
+              const float xhat = ((load_f(px.v[k]) - cs[k]) - cm[k]) * ci[k];
+              const float d = leaky_grad(load_f(pd.v[k]), xhat, leaky,
+                                         affine, cgm[k], cb[k], a.slope);
+              s1[k] += d;
+              s2[k] += d * xhat;
+            }
+          }
+        }
+        column_sums<V>(g, active, j0, s1, s2, red1, red2, dst, dst + C);
+      }
+    }
+    grid.sync();
+    if (a.grid_reduce) {
+      reduce_pairs(a, partial, sums, chunk);
+      grid.sync();
+    }
+    if (!w.mine) continue;
+
+    slab_sums(a, partial, sums, w, red1, t_S);
+    for (int k = threadIdx.x; k < G; k += kThreads) {
+      t_mg[k] = (t_g[k] * t_S[k]) / (float)n_px;        // E[g]
+      t_mgx[k] = (t_g[k] * t_S[G + k]) / (float)n_px;   // E[g * xhat]
+      if (!a.grid_reduce && w.part(a) == 0) {  // for dgamma and dbeta
+        sums[(size_t)w.b * 2 * C + w.c0 + k] = t_S[k];
+        sums[(size_t)w.b * 2 * C + C + w.c0 + k] = t_S[G + k];
+      }
+    }
+    __syncthreads();
+    P* og = reinterpret_cast<P*>(dx + w.off);
+    for (int j0 = 0; j0 < g.Cv; j0 += g.cols) {
+      const int j = j0 + g.col;
+      if (g.rowi >= g.rows_par || j >= g.Cv) continue;
+      float cs[V], cm[V], ci[V], cgm[V], cb[V], mg[V], mgx[V];
+      for (int k = 0; k < V; ++k) {
+        const int c = j * V + k;
+        cs[k] = t_s[c];
+        cm[k] = t_m1[c];
+        ci[k] = t_inv[c];
+        cgm[k] = t_g[c];
+        cb[k] = t_b[c];
+        mg[k] = t_mg[c];
+        mgx[k] = t_mgx[c];
+      }
+      for (int r = g.rowi; r < w.nr; r += g.rows_par) {
+        const bool on_chip = r < w.nr_s;
+        const size_t i = on_chip ? (size_t)r * g.Cv + j : (size_t)r * Cv + j;
+        const P px = reinterpret_cast<const P*>(on_chip ? xs : xg)[i];
+        const P pd = reinterpret_cast<const P*>(on_chip ? ds : dg)[i];
+        P o;
+        for (int k = 0; k < V; ++k) {
+          const float xhat = ((load_f(px.v[k]) - cs[k]) - cm[k]) * ci[k];
+          const float d = leaky_grad(load_f(pd.v[k]), xhat, leaky, affine,
+                                     cgm[k], cb[k], a.slope);
+          const float gg = affine ? d * cgm[k] : d;
+          store_f(o.v[k], ((gg - mg[k]) - xhat * mgx[k]) * ci[k]);
+        }
+        og[(size_t)r * Cv + j] = o;
+      }
+    }
+    __syncthreads();  // shared memory is refilled by the next chunk
   }
+
+  if (a.dscale) {
+    // dgamma = sum over (b, pixels) of dz * xhat, dbeta = sum of dz: the
+    // per-(b, c) sums in batch order, one thread per channel
+    grid.sync();
+    for (int c = blockIdx.x * kThreads + threadIdx.x; c < C;
+         c += gridDim.x * kThreads) {
+      float sdb = 0.f, sdg = 0.f;
+      for (int bb = 0; bb < B; ++bb) {
+        sdb += sums[(size_t)bb * 2 * C + c];
+        sdg += sums[(size_t)bb * 2 * C + C + c];
+      }
+      a.dbias[c] = sdb;
+      a.dscale[c] = sdg;
+    }
+  }
+}
+
+void* const kKernels[8] = {
+    (void*)norm_fwd_kernel<float, true>,
+    (void*)norm_fwd_kernel<float, false>,
+    (void*)norm_fwd_kernel<__nv_bfloat16, true>,
+    (void*)norm_fwd_kernel<__nv_bfloat16, false>,
+    (void*)norm_bwd_kernel<float, true>,
+    (void*)norm_bwd_kernel<float, false>,
+    (void*)norm_bwd_kernel<__nv_bfloat16, true>,
+    (void*)norm_bwd_kernel<__nv_bfloat16, false>,
+};
+
+// The plan's invariants (ops/norm_kernel.py:_plan), checked before the
+// launch: a plan that breaks one would index outside its buffers.
+bool plan_ok(const Args& a, int bwd, int itemsize, int vec, int grid) {
+  const int n_in = bwd ? 2 : 1, n_tables = bwd ? 9 : 7;
+  const long long rows =
+      ((long long)a.rows_cap * a.G * itemsize * n_in + 15) / 16 * 16;
+  return a.G > 0 && a.C % a.G == 0 && (a.width == 0 || a.G == a.C) &&
+         (!vec || (a.G * itemsize) % 16 == 0) && a.rows_cap > 0 &&
+         rows + 4LL * n_tables * a.G <= kDynSmem &&
+         (long long)a.slabs_per_chunk * a.parts <= grid &&
+         (long long)a.parts * a.rows_per_part >= a.n_px &&
+         (long long)a.slabs_per_chunk * a.n_chunks * a.G >= (long long)a.B * a.C;
+}
+
+int launch(int bwd, int is_bf16, int vec, int grid, Args& a,
+           cudaStream_t stream) {
+  if (!plan_ok(a, bwd, is_bf16 ? 2 : 4, vec, grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* fn = kKernels[bwd * 4 + is_bf16 * 2 + (vec ? 0 : 1)];
+  void* params[] = {&a};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      fn, dim3(grid), dim3(kThreads), params, kDynSmem, stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: the wrapper raises
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+Args args(const Config& k) {
+  Args a{};
+  a.B = k.B;
+  a.n_px = k.n_px;
+  a.C = k.C;
+  a.G = k.G;
+  a.width = k.width;
+  a.leaky = k.leaky;
+  a.slope = k.slope;
+  a.eps = k.eps;
+  a.parts = k.parts;
+  a.rows_per_part = k.rows_per_part;
+  a.rows_cap = k.rows_cap;
+  a.slabs_per_chunk = k.slabs_per_chunk;
+  a.n_chunks = k.n_chunks;
+  a.grid_reduce = k.grid_reduce;
+  return a;
 }
 
 }  // namespace
 
-// shift non-null selects the parity norm (C divisible by 4, `width` the
-// packed tensor's W); stats must then be null.
-extern "C" int rl_instance_norm(const void* x, void* out, const void* scale,
-                                const void* bias, void* partial, void* stats,
-                                void* shift, int width, int B, int n_px,
-                                int C, int is_bf16, int leaky, float slope,
-                                float eps, int n_split, int rows_per_split,
-                                int ct, void* stream) {
-  const float* s = static_cast<const float*>(scale);
-  const float* bi = static_cast<const float*>(bias);
-  float* part = static_cast<float*>(partial);
-  float* st = static_cast<float*>(stats);
-  float* sh = static_cast<float*>(shift);
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    launch<__nv_bfloat16>(x, out, s, bi, part, st, sh, width, B, n_px, C,
-                          leaky, slope, eps, n_split, rows_per_split, ct, cs);
-  } else {
-    launch<float>(x, out, s, bi, part, st, sh, width, B, n_px, C, leaky,
-                  slope, eps, n_split, rows_per_split, ct, cs);
+// Once per device: raise every kernel's dynamic shared memory to
+// kDynSmem, and report the SM count, the blocks per SM that fit (the
+// least over the kernels) and the shared memory per block.
+extern "C" int rl_norm_device(int* n_sms, int* blocks_per_sm,
+                              int* smem_bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(n_sms, cudaDevAttrMultiProcessorCount, dev);
+  int least = 1 << 30;
+  for (void* fn : kKernels) {
+    if (err != cudaSuccess) break;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kDynSmem);
+    int n = 0;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads,
+                                                          kDynSmem);
+    least = n < least ? n : least;
   }
-  return static_cast<int>(cudaGetLastError());
+  *blocks_per_sm = least;
+  *smem_bytes = kDynSmem;
+  return static_cast<int>(err);
 }
 
+// scratch: B * parts * 2 * C + B * 2 * C floats, plus B * C / 4 for
+// parity.
+extern "C" int rl_instance_norm(const void* x, void* out, const void* scale,
+                                const void* bias, void* stats, void* scratch,
+                                const Config* k, void* stream) {
+  Args a = args(*k);
+  a.x = x;
+  a.out = out;
+  a.scale = static_cast<const float*>(scale);
+  a.bias = static_cast<const float*>(bias);
+  a.stats = static_cast<float*>(stats);
+  a.scratch = static_cast<float*>(scratch);
+  return launch(0, k->is_bf16, k->vec, k->grid, a,
+                static_cast<cudaStream_t>(stream));
+}
+
+// scratch: B * parts * 2 * C + B * 2 * C floats.
 extern "C" int rl_instance_norm_bwd(const void* x, const void* dy,
                                     const void* stats, const void* scale,
                                     const void* bias, void* dx, void* dscale,
-                                    void* dbias, void* partial, int B,
-                                    int n_px, int C, int is_bf16, int leaky,
-                                    float slope, int n_split,
-                                    int rows_per_split, int ct,
-                                    void* stream) {
-  const float* st = static_cast<const float*>(stats);
-  const float* s = static_cast<const float*>(scale);
-  const float* bi = static_cast<const float*>(bias);
-  float* ds = static_cast<float*>(dscale);
-  float* db = static_cast<float*>(dbias);
-  float* part = static_cast<float*>(partial);
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    launch_bwd<__nv_bfloat16>(x, dy, st, s, bi, dx, ds, db, part, B, n_px,
-                              C, leaky, slope, n_split, rows_per_split, ct,
-                              cs);
-  } else {
-    launch_bwd<float>(x, dy, st, s, bi, dx, ds, db, part, B, n_px, C, leaky,
-                      slope, n_split, rows_per_split, ct, cs);
-  }
-  return static_cast<int>(cudaGetLastError());
+                                    void* dbias, void* scratch,
+                                    const Config* k, void* stream) {
+  Args a = args(*k);
+  a.x = x;
+  a.dy = dy;
+  a.out = dx;
+  a.scale = static_cast<const float*>(scale);
+  a.bias = static_cast<const float*>(bias);
+  a.stats = const_cast<float*>(static_cast<const float*>(stats));
+  a.scratch = static_cast<float*>(scratch);
+  a.dscale = static_cast<float*>(dscale);
+  a.dbias = static_cast<float*>(dbias);
+  return launch(1, k->is_bf16, k->vec, k->grid, a,
+                static_cast<cudaStream_t>(stream));
 }

@@ -6,10 +6,12 @@ K2 replaces the TPU kernel ``renderloom/ops/norm_pallas.py:
 instance_norm_fused`` (forward, ``parity=False`` and ``parity=True``).
 K2b is the backward the JAX package wrote as a custom VJP
 (``renderloom/models/layers.py:_in_bwd``).  On the H100 both are bound
-by device-memory bytes; each makes two passes over its inputs, with
-partial sums per pixel range in a scratch buffer and a fixed-order
-reduction, so results do not depend on block scheduling.  See the
-source for the design.
+by device-memory bytes.  Each call is one cooperative launch of a
+persistent grid that copies its chunk of the input into shared memory,
+reads it from device memory once, reduces the per-(B, C) sums in a
+fixed order (no float atomics, so two calls give the same bits) and
+writes the output from shared memory.  :func:`_plan`
+sizes the chunks; see the source for the design.
 
 Numerics are the fp32 contract of the JAX package's
 ``models/layers.py:_in_moments``/``_in_apply``/``_in_bwd``: moments of
@@ -38,14 +40,18 @@ other's.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from renderloom_torch.ops import _build
+
 EPS = 1e-5
-_MAX_CT = 32            # channels per block (one warp's width)
-_THREADS = 256          # csrc/instance_norm.cu kThreads
-_TARGET_BLOCKS = 528    # about four blocks per SM on a 132-SM card
+_THREADS = 512          # csrc/instance_norm.cu kThreads
+_FWD_TABLES = 7         # per-channel fp32 tables in shared memory:
+_BWD_TABLES = 9         # csrc/instance_norm.cu norm_{fwd,bwd}_kernel
+_BLOCK_SUMS_DEPTH = 40  # partial values one thread may add in a block
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -138,15 +144,154 @@ def instance_norm_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
     return dx, dscale, dbias
 
 
-def _geometry(B: int, n_px: int, C: int):
-    ct = min(_MAX_CT, 1 << (C - 1).bit_length())
-    rows = _THREADS // ct
-    ctiles = -(-C // ct)
-    n_split = max(1, min(-(-_TARGET_BLOCKS // (B * ctiles)),
-                         -(-n_px // rows)))
-    rows_per_split = -(-n_px // n_split)
-    n_split = -(-n_px // rows_per_split)
-    return ct, n_split, rows_per_split
+@functools.lru_cache(maxsize=None)
+def _plan(B: int, n_px: int, C: int, itemsize: int, n_inputs: int,
+          n_sms: int, blocks_per_sm: int, smem_per_block: int,
+          parity: bool = False) -> dict:
+    """The work split the kernel follows, for ``n_inputs`` (B, n_px, C)
+    tensors of ``itemsize`` bytes (1: the forward, 2: the backward's x
+    and dy) on a grid of ``n_sms · blocks_per_sm`` blocks with
+    ``smem_per_block`` bytes of dynamic shared memory each.
+
+    The work unit is a slab: one batch element and ``group`` channels (a
+    divisor of C), slab s being b = s // (C / group) and channels from
+    (s % (C / group)) · group.  ``slabs_per_chunk`` slabs at a time are
+    cut into ``parts`` ranges of ``rows_per_part`` pixels, one range per
+    block (block k: slab k // parts of the chunk, range k % parts), and
+    ``n_chunks`` chunks cover every slab.  A block keeps up to
+    ``rows_cap`` pixels of its inputs in shared memory beside its
+    per-channel tables; ``streaming`` marks a call whose range exceeds
+    that, where the rest is read from device memory again.
+
+    After each chunk's barrier the partial rows of a slab are reduced by
+    every block of the slab on its own, from L2, where one thread adds
+    at most ``_BLOCK_SUMS_DEPTH`` of them; else (``grid_reduce``) once,
+    a warp per (b, c) across the grid, behind a second barrier.
+
+    The group is the one that needs the fewest chunks, the widest among
+    those: C where a whole batch element fits, else a narrower slab with
+    pixel runs of at least 64 bytes (32 where only those avoid
+    streaming).  The parity norm keeps group = C, so that the four
+    parity groups of a channel sit in one slab."""
+    grid = n_sms * blocks_per_sm
+    n_tables = _FWD_TABLES if n_inputs == 1 else _BWD_TABLES
+
+    def plan(G):
+        # the tables start 16-byte aligned after the rows
+        rows_cap = ((smem_per_block - n_tables * G * 4 - 16)
+                    // (G * itemsize * n_inputs))
+        if rows_cap < 1:
+            return None
+        n_slabs = B * (C // G)
+
+        def split(spc):
+            parts = min(grid // spc, n_px)
+            rows = -(-n_px // parts)
+            return -(-n_px // rows), rows
+
+        spc = next((k for k in range(min(n_slabs, grid), 0, -1)
+                    if split(k)[1] <= rows_cap), 1)
+        n_chunks = -(-n_slabs // spc)
+        spc = -(-n_slabs // n_chunks)       # the same chunk count, balanced
+        parts, rows = split(spc)
+        n = 2 * G                           # sums per slab
+        depth = -(-parts // max(1, _THREADS // n)) * -(-n // _THREADS)
+        return dict(grid=grid, group=G, slabs_per_chunk=spc,
+                    n_chunks=n_chunks, parts=parts, rows_per_part=rows,
+                    rows_cap=rows_cap, streaming=rows > rows_cap,
+                    grid_reduce=depth > _BLOCK_SUMS_DEPTH)
+
+    groups = [C] if parity else [
+        G for G in range(C, 0, -1)
+        if C % G == 0 and (G == C or (G * itemsize % 16 == 0
+                                      and G * itemsize >= 32))]
+    plans = [p for p in map(plan, groups) if p is not None]
+    if not plans:
+        raise ValueError(f"instance norm with C = {C} does not fit in "
+                         f"{smem_per_block} bytes of shared memory")
+    wide = [p for p in plans
+            if p["group"] == C or p["group"] * itemsize >= 64]
+    if all(p["streaming"] for p in wide):
+        wide = plans
+    return min(wide, key=lambda p: (p["streaming"], p["n_chunks"],
+                                    -p["group"]))
+
+
+def _scratch_floats(B: int, C: int, parts: int, parity: bool) -> int:
+    """fp32 scratch of one call: the partial sums (B, parts, 2, C), the
+    per-(B, C) sums (B, 2, C) and, for parity, the shifts (B, C / 4)."""
+    return B * parts * 2 * C + B * 2 * C + (B * C // 4 if parity else 0)
+
+
+class _Config(ctypes.Structure):
+    """A call's scalars (csrc/instance_norm.cu ``struct Config``), packed
+    once per shape, so a launch passes eight arguments through ctypes."""
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "width", "B", "n_px", "C", "G", "is_bf16", "vec", "leaky", "grid",
+        "parts", "rows_per_part", "rows_cap", "slabs_per_chunk",
+        "n_chunks", "grid_reduce")] + [("slope", ctypes.c_float),
+                                       ("eps", ctypes.c_float)]
+
+
+_lib: Optional[ctypes.CDLL] = None
+_devices: Dict[int, Tuple[int, int, int]] = {}
+_configs: Dict[tuple, Tuple[_Config, int]] = {}
+
+
+def _library() -> ctypes.CDLL:
+    """The compiled kernels, loaded and bound once."""
+    global _lib
+    if _lib is None:
+        lib = _build.load("instance_norm")
+        ptr, cfg = ctypes.c_void_p, ctypes.POINTER(_Config)
+        lib.rl_norm_device.restype = ctypes.c_int
+        lib.rl_norm_device.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.rl_instance_norm.restype = ctypes.c_int
+        lib.rl_instance_norm.argtypes = [ptr] * 6 + [cfg, ptr]
+        lib.rl_instance_norm_bwd.restype = ctypes.c_int
+        lib.rl_instance_norm_bwd.argtypes = [ptr] * 9 + [cfg, ptr]
+        _lib = lib
+    return _lib
+
+
+def _device(index: int) -> Tuple[int, int, int]:
+    """(SMs, blocks per SM, shared memory per block) of a card, queried
+    once: ``rl_norm_device`` also raises the kernels' shared-memory
+    limit, which every launch on that card needs."""
+    geo = _devices.get(index)
+    if geo is None:
+        vals = [ctypes.c_int() for _ in range(3)]
+        with torch.cuda.device(index):
+            err = _library().rl_norm_device(*vals)
+        if err != 0 or vals[1].value < 1:
+            raise RuntimeError(f"rl_norm_device failed: CUDA error {err}, "
+                               f"{vals[1].value} blocks per SM")
+        geo = _devices[index] = tuple(v.value for v in vals)
+    return geo
+
+
+def _config(x: torch.Tensor, n_inputs: int, width: int, slope, eps: float,
+            vec: bool) -> Tuple[_Config, int]:
+    """The packed scalars of a call on ``x`` and its scratch size in
+    floats, made once per (shape, dtype, device, options)."""
+    key = (x.shape, x.dtype, x.device.index, n_inputs, width, slope, eps,
+           vec)
+    hit = _configs.get(key)
+    if hit is None:
+        B, H, W, C = x.shape
+        isz = x.element_size()
+        p = _plan(B, H * W, C, isz, n_inputs, *_device(x.device.index),
+                  parity=width > 0)
+        cfg = _Config(width, B, H * W, C, p["group"],
+                      int(x.dtype == torch.bfloat16),
+                      int(vec and p["group"] * isz % 16 == 0),
+                      int(slope is not None), p["grid"], p["parts"],
+                      p["rows_per_part"], p["rows_cap"],
+                      p["slabs_per_chunk"], p["n_chunks"],
+                      int(p["grid_reduce"]), float(slope or 0.0), float(eps))
+        hit = _configs[key] = (cfg, _scratch_floats(B, C, p["parts"],
+                                                    width > 0))
+    return hit
 
 
 def _check_input(x: torch.Tensor, name: str):
@@ -188,7 +333,7 @@ def instance_norm_cuda(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
     """Launch ``rl_instance_norm`` on the current stream.  With
     ``stats`` (a contiguous (B, C, 3) float32 CUDA tensor) the kernel
     also writes the residuals ``s, m1, inv`` that the backward reads.
-    ``parity`` runs the parity pre-pass and reduction (counted in
+    ``parity`` takes the parity shift and reduction (counted in
     ``instance_norm_cuda.parity_launches``, the standard norm in
     ``.launches``)."""
     _check_input(x, "instance_norm_cuda")
@@ -202,26 +347,14 @@ def instance_norm_cuda(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                               or stats.device != x.device
                               or not stats.is_contiguous()):
         raise ValueError(f"stats must be contiguous float32 ({B}, {C}, 3)")
-    from renderloom_torch.ops import _build
-
-    fn = _build.load("instance_norm").rl_instance_norm
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 2 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    n_px = H * W
-    ct, n_split, rows_per_split = _geometry(B, n_px, C)
+    cfg, n_scratch = _config(x, 1, W if parity else 0, slope, eps,
+                             x.data_ptr() % 16 == 0)
     out = torch.empty_like(x)
-    partial = torch.empty((B, n_split, 2, C), dtype=torch.float32,
-                          device=x.device)
-    shift = (torch.empty((B, C // 4), dtype=torch.float32, device=x.device)
-             if parity else None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), out.data_ptr(), _ptr(scale), _ptr(bias),
-             partial.data_ptr(), _ptr(stats), _ptr(shift), W, B, n_px, C,
-             int(x.dtype == torch.bfloat16), int(slope is not None),
-             float(slope or 0.0), float(eps), n_split, rows_per_split, ct,
-             stream)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+    err = _library().rl_instance_norm(
+        x.data_ptr(), out.data_ptr(), _ptr(scale), _ptr(bias), _ptr(stats),
+        scratch.data_ptr(), ctypes.byref(cfg),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rl_instance_norm launch failed: CUDA error {err}")
     if parity:
@@ -254,26 +387,17 @@ def instance_norm_bwd_cuda(x: torch.Tensor, dy: torch.Tensor,
     if (stats.shape != (B, C, 3) or stats.dtype != torch.float32
             or stats.device != x.device or not stats.is_contiguous()):
         raise ValueError(f"stats must be contiguous float32 ({B}, {C}, 3)")
-    from renderloom_torch.ops import _build
-
-    fn = _build.load("instance_norm").rl_instance_norm_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    n_px = H * W
-    ct, n_split, rows_per_split = _geometry(B, n_px, C)
+    aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    cfg, n_scratch = _config(x, 2, 0, slope, 0.0, aligned)
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale) if scale is not None else None
     dbias = torch.empty_like(bias) if bias is not None else None
-    partial = torch.empty((B, n_split, 2, C), dtype=torch.float32,
-                          device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), dy.data_ptr(), stats.data_ptr(), _ptr(scale),
-             _ptr(bias), dx.data_ptr(), _ptr(dscale), _ptr(dbias),
-             partial.data_ptr(), B, n_px, C, int(x.dtype == torch.bfloat16),
-             int(slope is not None), float(slope or 0.0), n_split,
-             rows_per_split, ct, stream)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+    err = _library().rl_instance_norm_bwd(
+        x.data_ptr(), dy.data_ptr(), stats.data_ptr(), _ptr(scale),
+        _ptr(bias), dx.data_ptr(), _ptr(dscale), _ptr(dbias),
+        scratch.data_ptr(), ctypes.byref(cfg),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"rl_instance_norm_bwd launch failed: CUDA error {err}")

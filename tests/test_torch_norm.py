@@ -91,11 +91,80 @@ def test_cpu_tensor_takes_twin_and_cuda_wrapper_refuses_it():
         norm_kernel.instance_norm_cuda(x)
 
 
-def test_geometry_covers_every_pixel_once():
-    """The launch geometry of the serving shapes splits H·W into ranges
-    that tile it exactly, with one C tile per 32 channels."""
-    for B, n_px, C in [(7, 320 * 480, 16), (7, 40 * 60, 256),
-                       (7, 20 * 30, 512), (1, 7, 3)]:
-        ct, n_split, rows = norm_kernel._geometry(B, n_px, C)
-        assert ct <= 32 and ct >= min(C, 32) and ct & (ct - 1) == 0
-        assert (n_split - 1) * rows < n_px <= n_split * rows
+# (B, H, W, C) of every instance norm on the port's main paths at full
+# width: standard serving (7 segments), the parity norms of the fastpath
+# (packed, 4C channels), and one training step (batch 4, the
+# discriminators' crops at 8); the keys of chip_smoke.py phases 4, N
+# and B, which differ only in affine and leaky.  Last, one input past
+# the grid's shared memory, which streams.
+SERVE_SHAPES = [(7, 320, 480, 32), (7, 320, 480, 16), (7, 160, 240, 64),
+                (7, 160, 240, 32), (7, 80, 120, 128), (7, 80, 120, 64),
+                (7, 40, 60, 256), (7, 40, 60, 128), (7, 20, 30, 512),
+                (7, 20, 30, 256)]
+PARITY_SHAPES = [(7, 160, 240, 128), (7, 160, 240, 64), (7, 80, 120, 256),
+                 (7, 80, 120, 128), (7, 40, 60, 512)]
+TRAIN_SHAPES = [(4, 320, 480, 32), (4, 160, 240, 64), (4, 320, 480, 16),
+                (4, 160, 240, 32), (4, 80, 120, 128), (4, 80, 120, 64),
+                (4, 40, 60, 256), (4, 80, 120, 32), (4, 40, 60, 128),
+                (4, 20, 30, 512), (4, 19, 29, 512), (4, 40, 60, 64),
+                (4, 20, 30, 256), (4, 20, 30, 128), (4, 9, 14, 512),
+                (4, 40, 40, 32), (4, 10, 15, 256), (8, 20, 20, 32),
+                (4, 20, 20, 64), (4, 9, 9, 256), (8, 10, 10, 64),
+                (4, 10, 10, 128), (8, 4, 4, 256), (8, 5, 5, 128)]
+STREAM_SHAPE = (1, 1080, 1920, 32)
+# (SMs, blocks per SM, shared memory per block): the H100's grid, as
+# rl_norm_device reports it, and a smaller card's
+H100 = (132, 1, 200 * 1024)
+GRIDS = [H100, (108, 2, 96 * 1024)]
+
+
+def _check_plan(shape, itemsize, n_inputs, grid, parity):
+    """Every (b, c, pixel) covered once, each block's share within its
+    shared memory unless the plan streams, and the kernel's invariants."""
+    B, H, W, C = shape
+    n_px = H * W
+    p = norm_kernel._plan(B, n_px, C, itemsize, n_inputs, *grid,
+                          parity=parity)
+    G, parts, rows = p["group"], p["parts"], p["rows_per_part"]
+    assert C % G == 0
+    assert G == C or (G * itemsize % 16 == 0 and G * itemsize >= 32)
+    if parity:      # the four parity groups of a channel in one slab
+        assert G == C and C % 4 == 0
+    assert p["grid"] == grid[0] * grid[1]
+    assert p["slabs_per_chunk"] * parts <= p["grid"]
+    n_tables = 7 if n_inputs == 1 else 9
+    data = -(-p["rows_cap"] * G * itemsize * n_inputs // 16) * 16
+    assert p["rows_cap"] >= 1 and data + 4 * n_tables * G <= grid[2]
+    assert p["streaming"] == (rows > p["rows_cap"])
+    assert isinstance(p["grid_reduce"], bool)
+    ng = C // G
+    cover = np.zeros((B, ng, n_px), np.int16)
+    for chunk in range(p["n_chunks"]):      # the kernel's struct Work
+        for k in range(p["grid"]):
+            sl, part = divmod(k, parts)
+            s = chunk * p["slabs_per_chunk"] + sl
+            if sl >= p["slabs_per_chunk"] or s >= B * ng:
+                continue
+            p0 = part * rows
+            assert p0 < n_px
+            cover[s // ng, s % ng, p0:p0 + rows] += 1
+    np.testing.assert_array_equal(cover, 1)
+    return p
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,kind", (
+    [(s, "serve") for s in SERVE_SHAPES]
+    + [(s, "parity") for s in PARITY_SHAPES]
+    + [(s, "train") for s in TRAIN_SHAPES] + [(STREAM_SHAPE, "stream")]))
+def test_plan_covers_every_element_once(shape, kind, dtype):
+    """``_plan`` at every main-path shape, forward (x) and backward (x
+    and dy; the parity norm has none), on two grids.  On the H100's grid
+    no main-path call streams, so each input is read once."""
+    itemsize = 4 if dtype == "float32" else 2
+    for n_inputs in (1,) if kind == "parity" else (1, 2):
+        for grid in GRIDS:
+            p = _check_plan(shape, itemsize, n_inputs, grid,
+                            kind == "parity")
+            if grid == H100:
+                assert p["streaming"] == (kind == "stream"), p
