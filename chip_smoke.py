@@ -5,16 +5,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs a
 CUDA device and the CUDA toolkit (``nvcc``); it builds the kernels from
 ``renderloom_torch/csrc`` into ``build/renderloom_torch/`` and then:
 
-1. prints the card, its power limit, and the torch/CUDA versions, and
-   builds every kernel (build time printed);
+1. prints the card, its power limit, and the torch/CUDA versions,
+   builds every kernel (build time, registers and spills printed), and
+   counts K1's operations per term in its machine code
+   (``k1_ops_from_sass``);
 2. holds the instance-norm kernel (K2) against its plain twin at the
    generator's full-width shapes, and times kernel, twin and
    ``F.instance_norm``; checks that two calls at the largest shape give
    the same bits, holds a streaming shape (one slab larger than the
    grid's shared memory) against the twin, and prints the wrapper's host
    time per call at a tiny shape;
-3. holds the rasterizer kernel (K1) against its plain twin at 29 frames
-   of 320×480, f32 and bf16 labels, masks on and off, and times both;
+3. holds the rasterizer kernel (K1) against its plain twin bit for bit
+   at 29 frames of 320×480, f32 and bf16 labels, masks on and off; checks
+   one launch per call; times kernel and twin; prints the share of (tile,
+   term) pairs that the cull rule keeps and the bound on these tables
+   (``raster_bound``); the same on a compact person (``_person_poses``);
 4. runs the serving pipeline at full width (configs/hsm.yaml +
    configs/motion.yaml, 480×320, rate 4, 8 keyframes, one clip, seeded
    random weights): checks its output and that both kernels were
@@ -30,7 +35,12 @@ bf16):
 
 P. holds K1's packed and cfhw layouts against their twins, bit for bit,
    at 29 frames of 320×480 (f32 and bf16 labels, masks on and off, one
-   train-table case), and times them;
+   train-table case), and times them as phase 3 does, the packed bf16
+   call also on a compact person; then holds every layout, label type
+   and mask option bit for bit on the cull rule's adversarial tables
+   (``adversarial_tables``) at 320×480, 318×478 and 45×61 and on the
+   seed-0 poses and the person at the ragged sizes; and holds and times
+   K1 on the tables that phases 4 and F rasterized;
 F. runs the fastpath pipeline at full width on the same weights as
    phase 4: checks K1 launched once in the packed layout and the K2 and
    K2-parity launches against the counts derived from the module
@@ -50,7 +60,8 @@ then the training slice:
 
 A. holds K1 on train-mode tables (random σ, keep and part flags from a
    seeded CPU generator) against its twin at 16 frames of 320×480 with
-   masks, bit for bit, and times both;
+   masks, bit for bit, and times it as phase 3 does, on the spread
+   poses and on a compact person;
 C. trains at full width (configs/hsm.yaml, batch 4 × 4-frame raw
    windows at 480×320, float32, spectral norm, the fuse/raw/face/hand
    discriminators, the VGG19 term on random weights): one warm-up step
@@ -253,9 +264,33 @@ def phase_build():
           f"({len(logs)} compiled, the rest cached)")
     for name, log in logs.items():
         _write(f"ptxas_{name}.txt", log)
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = _kernel_tag(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                print(f"  {name} {entry}: {line.strip()}")
+    # the rasterizer's machine code, whose loops raster_bound counts
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"), "-sass",
+         str(_build.library_path("rasterize"))],
+        capture_output=True, text=True, timeout=120)
+    _write("sass_rasterize.txt", sass.stdout + sass.stderr)
+    K1_OPS.update(k1_ops_from_sass(sass.stdout))
+    print(f"  K1 fp32 operations per pixel and kept term (SASS): {K1_OPS}")
+
+
+def _kernel_tag(mangled: str) -> str:
+    """A short name for a mangled kernel: raster_kernel<f32|bf16, layout>
+    for the rasterizer's instantiations."""
+    import re
+
+    m = re.search(r"raster_kernelI(f|13__nv_bfloat16)Li(\d)E", mangled)
+    if m is None:
+        name = re.search(r"\d+([a-z_]*kernel)(.*)", mangled)
+        return mangled[:60] if name is None else name[1] + name[2][:24]
+    return (f"raster_kernel<{'f32' if m[1] == 'f' else 'bf16'}, "
+            f"{('nhwc', 'packed', 'cfhw')[int(m[2])]}>")
 
 
 # ---------------------------------------------------------------------------
@@ -394,58 +429,291 @@ def phase_norm():
 F_RASTER, H_FULL, W_FULL = 29, 320, 480
 
 
-def _poses(F_: int, H: int, W: int, seed: int):
+def _poses(F_: int, H: int, W: int, seed: int, device="cuda"):
     """Joints spread over the frame (and a few pixels past its edges),
     about a fifth of them below the confidence threshold."""
     rng = np.random.default_rng(seed)
     coords = rng.uniform([-8, -8], [W + 8, H + 8], (F_, 19, 2))
     conf = np.where(rng.uniform(size=(F_, 19)) > 0.2, 0.9, 0.0)
-    return (torch.tensor(coords, dtype=torch.float32, device="cuda"),
-            torch.tensor(conf, dtype=torch.float32, device="cuda"))
+    return (torch.tensor(coords, dtype=torch.float32, device=device),
+            torch.tensor(conf, dtype=torch.float32, device=device))
 
 
-def raster_bound(F_, H, W, label_bytes, emit_masks):
-    n_px = F_ * H * W
+# a standing person in a unit box (x right, y down), in the joint order of
+# renderloom_torch.ops.rasterize.POSE_EDGES_19: nose, neck, right arm
+# (shoulder, elbow, wrist), left arm, mid hip, right leg (hip, knee,
+# ankle), left leg, left foot, right foot, left hand, right hand
+_PERSON = np.array([
+    [0.50, 0.06], [0.50, 0.19], [0.29, 0.20], [0.21, 0.38], [0.17, 0.54],
+    [0.71, 0.20], [0.79, 0.38], [0.83, 0.54], [0.50, 0.50], [0.38, 0.50],
+    [0.36, 0.73], [0.35, 0.95], [0.62, 0.50], [0.64, 0.73], [0.65, 0.95],
+    [0.71, 0.98], [0.29, 0.98], [0.85, 0.58], [0.15, 0.58]])
+
+
+def _person_poses(F_: int, H: int, W: int, seed: int, device="cuda"):
+    """One standing person a quarter of the frame wide and three quarters
+    high (120×240 at 320×480), anywhere in the frame in each frame, each
+    joint moved by up to 6 px, one in twenty below the confidence
+    threshold: the compact figure that serving poses are, where the
+    spread ``_poses`` keep fewer (tile, term) pairs."""
+    rng = np.random.default_rng(seed)
+    box = np.array([W / 4, 3 * H / 4])
+    origin = rng.uniform([0, 0], [W, H] - box, (F_, 1, 2))
+    coords = (origin + _PERSON * box
+              + rng.uniform(-6, 6, (F_, 19, 2)))
+    conf = np.where(rng.uniform(size=(F_, 19)) > 0.05, 0.9, 0.0)
+    return (torch.tensor(coords, dtype=torch.float32, device=device),
+            torch.tensor(conf, dtype=torch.float32, device=device))
+
+
+def adversarial_tables(H: int, W: int, device="cuda"):
+    """K1 tables (joints, skel, caps) of 3 frames that sit on the edges of
+    the kernel's cull rule (``rasterize_kernel.tile_terms``), for tiles of
+    16x16 and 8x32 pixels (corners at x multiples of 32, y of 16):
+
+    frame 0: each joint at a tile corner with d^2 * inv from 100 to 120
+      there (exp underflows past 103.97; the rule skips past 110); skeleton
+      capsules whose segment (brush 4) or end dot (radius 8) passes 0.5 px
+      inside or outside a tile edge; mask disks and capsules tangent to a
+      tile edge at their radius +- 0.5 px;
+    frame 1: zero-length skeleton and mask segments, a NaN coordinate on
+      an invalid joint (its heatmap is NaN everywhere, in the plain
+      version too), an invalid joint with inv < 0 (exp overflows: NaN far
+      from it), a joint with inv = 0, one far outside the frame;
+    frame 2: every term invalid; the last skeleton capsule's colour is
+      infinite (0 * inf: its channels are NaN everywhere).
+    """
+    rng = np.random.default_rng(11)
+    corners = [(x, y) for y in range(16, H, 16) for x in range(32, W, 32)]
+    offs = [(1, 0), (0, 1), (3, 4), (5, 12), (7, 1), (2, 9), (8, 6)]
+    targets = [100.0, 103.0, 103.9, 104.0, 104.5, 105.0, 108.0, 109.9,
+               110.0, 110.1, 112.0, 115.0, 120.0]
+    joints = np.zeros((3, 19, 4), np.float32)
+    skel = np.zeros((3, 18, 8), np.float32)
+    caps = np.zeros((3, 39, 7), np.float32)
+    colors = np.array([[153, 0, 51], [0, 153, 0], [0, 0, 208]],
+                      np.float32) / 255.0
+    radii = np.array([30.0] + [15.0] * 18 + [15.0] * 17 + [20.0] * 3,
+                     np.float32)
+    for j in range(19):
+        cx, cy = corners[j % len(corners)]
+        dx, dy = offs[j % len(offs)]
+        d2 = np.float32(dx * dx + dy * dy)
+        inv = np.float32(targets[j % len(targets)]) / d2
+        joints[0, j] = (cx - dx, cy - dy, inv, 1.0)
+    for e in range(18):
+        cx, cy = corners[(3 * e) % len(corners)]
+        off = (3.5, 4.5, 7.5, 8.5)[e % 4]
+        if e % 4 < 2:       # the segment's side, 4 +- 0.5 from the edge
+            a, b = (cx - 10.0, cy - off), (cx + 10.0, cy - off)
+        else:               # the end dot, 8 +- 0.5 from the edge
+            a, b = (cx + 5.0, cy - off), (cx + 5.0, cy - off - 20.0)
+        if e % 8 >= 4:      # the same against a vertical edge
+            a, b = (a[1] - cy + cx, a[0] - cx + cy), (b[1] - cy + cx,
+                                                      b[0] - cx + cy)
+        skel[0, e] = (*a, *b, 1.0, *colors[e % 3])
+    for k in range(39):
+        cx, cy = corners[(5 * k + 1) % len(corners)]
+        off = radii[k] + (0.5 if k % 2 else -0.5)
+        a = (cx + 3.0, cy - off)
+        b = a if k < 19 else (a[0] + 12.0, a[1])
+        caps[0, k] = (*a, *b, radii[k], 1.0, float(k % 3 == 0))
+    # frame 1: degenerate terms
+    pts = rng.uniform([0, 0], [W, H], (19, 2)).astype(np.float32)
+    joints[1, :, :2] = np.floor(pts)
+    joints[1, :, 2] = 0.02
+    joints[1, :, 3] = 1.0
+    joints[1, 0] = (np.nan, 5.0, 0.02, 0.0)      # NaN on an invalid joint
+    joints[1, 1, 2] = 0.0                        # inv = 0: 1 everywhere
+    joints[1, 3, 2:] = (-1.0, 0.0)               # inv < 0, invalid
+    joints[1, 2, :2] = (1e7, -3e6)               # far outside the frame
+    for e in range(18):                          # zero-length segments
+        skel[1, e] = (*pts[e], *pts[e], 1.0, *colors[e % 3])
+    for k in range(39):
+        p = np.floor(pts[k % 19])
+        caps[1, k] = (*p, *p, radii[k], 1.0, float(k % 2))
+    caps[1, 0] = (np.nan, np.nan, np.nan, np.nan, 30.0, 0.0, 0.0)
+    # frame 2: everything invalid
+    joints[2, :, :2] = rng.uniform([0, 0], [W, H], (19, 2))
+    joints[2, :, 2] = 0.02
+    skel[2, :, :4] = rng.uniform(0, min(H, W), (18, 4))
+    skel[2, :, 5:] = colors[np.arange(18) % 3]
+    skel[2, 17, 5] = np.inf
+    caps[2, :, :4] = np.floor(rng.uniform(0, min(H, W), (39, 4)))
+    caps[2, :, 4] = radii
+    return tuple(torch.tensor(t, device=device) for t in (joints, skel, caps))
+
+
+def kept_share(keep: dict) -> float:
+    """Share of (tile, term) pairs kept in ``rasterize_kernel.tile_terms``'
+    output ``keep``."""
+    return (sum(int(k.sum()) for k in keep.values())
+            / sum(k.numel() for k in keep.values()))
+
+
+# fp32 operations of a SASS opcode (by its stem), FFMA counted as 2
+_FP32_COST = {"FADD": 1, "FMUL": 1, "FFMA": 2, "FSETP": 1, "FMNMX": 1,
+              "FCHK": 1, "MUFU": 1}
+
+
+def k1_ops_from_sass(text: str) -> dict:
+    """K1's fp32 operations per pixel and kept term, counted in the machine
+    code of raster_kernel<f32, nhwc> (``cuobjdump -sass`` of the build,
+    as phase 1 dumps it): a skeleton and a mask capsule are one pass of
+    the first and second loop that holds the IEEE division's slow-path
+    call, in that order; a gaussian is the mean span between two of the
+    19 unrolled ``expf`` (``MUFU.EX2``); ``divide`` is the straight code
+    after the skeleton loop up to the next shared load (the three colour
+    divisions and the label's assembly, run where a tile keeps a skeleton
+    capsule).  ``pixel`` (the pixel's coordinates) is fixed at 3.  Raises
+    where the code has not that shape: the kernel changed, and so must
+    this count."""
+    import re
+
+    body = next((b for b in re.split(r"^\s*Function : ", text, flags=re.M)
+                 if re.match(r"\S*raster_kernelIfLi0E", b)), None)
+    if body is None:
+        raise AssertionError("no raster_kernel<f32, nhwc> in the SASS")
+    ins = [(int(m[1], 16), m[2]) for m in re.finditer(
+        r"/\*([0-9a-f]{4,})\*/\s+([^;\n]*);", body)]
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    opc = [re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for _, t in ins]
+    ops = lambda lo, hi: sum(_FP32_COST.get(o.split(".")[0], 0)
+                             for o in opc[lo:hi])
+    loops = []
+    for i, (a, t) in enumerate(ins):
+        m = re.match(r"@!?P\w+\s+BRA\s+(0x[0-9a-f]+)", t)
+        if m and int(m[1], 16) < a:
+            lo = at[int(m[1], 16)]
+            if any(o.startswith("CALL") for o in opc[lo:i]):
+                loops.append((lo, i + 1))
+    ex = [i for i, o in enumerate(opc) if o == "MUFU.EX2"]
+    if len(loops) != 2 or len(ex) != 19:
+        raise AssertionError(f"raster_kernel<f32, nhwc>: {len(loops)} loops "
+                             f"with a division (want 2), {len(ex)} expf "
+                             f"(want 19); recount K1's operations")
+    (s0, s1), (c0, c1) = loops
+    end = next((i for i in range(s1, len(opc)) if opc[i].startswith("LDS")),
+               len(opc))
+    return {"joints": ops(ex[0], ex[-1]) / (len(ex) - 1),
+            "skel": ops(s0, s1), "caps": ops(c0, c1), "pixel": 3,
+            "divide": ops(s1, end)}
+
+
+# K1's fp32 operations per pixel and kept term, from phase 1's SASS
+# (k1_ops_from_sass; on an NVIDIA H100 80GB HBM3 with CUDA 12: gaussian
+# 18, skeleton capsule 45, mask capsule 31, divide 43).  The stores count
+# as bytes.
+K1_OPS = {}
+
+
+def raster_bound(tables, H, W, label_bytes, emit_masks, layout):
+    """(bound ms, its side, kept share, operations' ms) of one K1 call
+    on these tables:
+    the label (and masks) written once, against the operations of the
+    (pixel, term) pairs that the cull rule keeps on these tables, plus
+    each pixel's own; the longer of the two."""
+    from renderloom_torch.ops import rasterize_kernel as RK
+
+    if not K1_OPS:
+        raise AssertionError("K1_OPS is counted from the SASS in phase 1")
+    keep = RK.tile_terms(*tables, H, W, emit_masks=emit_masks,
+                         layout=layout)
+    th, tw = RK.TILES[layout]
+    dev = tables[0].device
+    rows = torch.clamp(H - torch.arange(0, H, th, device=dev), max=th)
+    cols = torch.clamp(W - torch.arange(0, W, tw, device=dev), max=tw)
+    px = (rows[:, None] * cols[None, :]).double()        # pixels per tile
+    n_px = tables[0].shape[0] * H * W
+    ops = (n_px * K1_OPS["pixel"] + K1_OPS["divide"] * float(
+        (keep["skel"].any(-1).double() * px).sum()) + sum(
+        K1_OPS[k] * float((v.sum(-1).double() * px).sum())
+        for k, v in keep.items()))
     n_bytes = n_px * 22 * label_bytes + (8 * n_px if emit_masks else 0)
-    # per pixel: 19 gaussians (~8 ops each), 18 skeleton capsules (~30),
-    # the label assembly (~10), and 39 mask capsules (~20) with masks
-    flops = n_px * (19 * 8 + 18 * 30 + 10 + (39 * 20 if emit_masks else 0))
-    return bound_ms(n_bytes, flops)
+    return (*bound_ms(n_bytes, ops), kept_share(keep),
+            ops / FP32_FLOPS * 1e3)
+
+
+def same_bits(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Raise unless ``got`` equals ``want`` bit for bit, NaN exactly where
+    ``want`` is NaN (the card's bf16 NaN has other bits than torch's
+    conversion gives); returns max |got - want| elsewhere (0.0)."""
+    g, w = got.float(), want.float()        # exact, signed zeros kept
+    nan = torch.isnan(w)
+    ok = (g.shape == w.shape and torch.equal(nan, torch.isnan(g))
+          and torch.equal(g[~nan].view(torch.int32),
+                          w[~nan].view(torch.int32)))
+    err = (g[~nan] - w[~nan]).abs().max().item() if (~nan).any() else 0.0
+    print(f"  {name}: bit for bit {'ok' if ok else 'FAIL'}"
+          + (f" ({int(nan.sum())} NaN in both)" if nan.any() else ""))
+    if not ok:
+        raise AssertionError(f"{name}: not bit for bit, max |err| {err}")
+    return err
+
+
+def _k1_check(tag, tables, H, W, dtype, masks, layout):
+    """K1 against its twin, every output bit for bit; returns the error
+    and the kernel's output."""
+    from renderloom_torch.ops import rasterize_kernel as RK
+
+    args = (*tables, H, W, dtype, masks)
+    got = RK.rasterize_tables_cuda(*args, layout=layout)
+    want = RK.rasterize_tables_plain(*args, layout=layout)
+    torch.cuda.synchronize()
+    err = max(same_bits(f"{tag} {k}", got[k], want[k]) for k in want)
+    return err, got
+
+
+def _k1_times(tag, tables, H, W, dtype, masks, layout):
+    """One launch per call (profile), call/device/twin ms, the bound on
+    these tables and the kept share."""
+    from renderloom_torch.ops import rasterize_kernel as RK
+
+    args = (*tables, H, W, dtype, masks)
+    f = lambda: RK.rasterize_tables_cuda(*args, layout=layout)
+    one_kernel(f"K1 {tag}", f, "raster_kernel")
+    ms, dev = cuda_ms(f), device_ms(f)
+    plain = cuda_ms(lambda: RK.rasterize_tables_plain(*args, layout=layout),
+                    3, 1)
+    bnd, by, share, ops_ms = raster_bound(
+        tables, H, W, torch.finfo(dtype).bits // 8, masks, layout)
+    print(f"    call {ms:.4f} ms, device {dev:.4f} ms ({bnd / dev:.1%} of "
+          f"bound), twin {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
+          f"operations {ops_ms:.4f} ms), kept {share:.2%} of (tile, term) "
+          f"pairs, 1 launch per call")
+    return dict(max_abs_err=0.0, ms=ms, device_ms=dev, plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=None, kept_share=share)
 
 
 def phase_raster():
+    print(f"K1 rasterizer, kernel vs plain twin bit for bit "
+          f"({F_RASTER} frames, {H_FULL}x{W_FULL}, nhwc):")
     from renderloom_torch.ops import rasterize_kernel as RK
 
-    print(f"K1 rasterizer, kernel vs plain twin "
-          f"({F_RASTER} frames, {H_FULL}x{W_FULL}):")
     coords, conf = _poses(F_RASTER, H_FULL, W_FULL, seed=0)
     tables = [t.contiguous() for t in
               RK.build_tables(coords, conf, H_FULL, W_FULL)]
     result = None
     for dtype in (torch.float32, torch.bfloat16):
         for masks in (False, True):
-            got = RK.rasterize_tables_cuda(*tables, H_FULL, W_FULL, dtype,
-                                           masks)
-            want = RK.rasterize_tables_plain(*tables, H_FULL, W_FULL, dtype,
-                                             masks)
-            tol = 1e-5 if dtype == torch.float32 else 8e-3
-            err = compare(f"label {str(dtype)[6:]} masks={masks}",
-                          got["label"], want["label"], tol)
-            if masks:
-                for k in ("mask", "part_mask"):
-                    compare(f"  {k} (exact)", got[k], want[k], 0.0)
-            f = lambda: RK.rasterize_tables_cuda(*tables, H_FULL, W_FULL,
-                                                 dtype, masks)
-            ms, dev = cuda_ms(f), device_ms(f)
-            plain = cuda_ms(lambda: RK.rasterize_tables_plain(
-                *tables, H_FULL, W_FULL, dtype, masks), 3, 1)
-            bnd, by = raster_bound(F_RASTER, H_FULL, W_FULL,
-                                   got["label"].element_size(), masks)
-            print(f"    call {ms:.4f} ms, device {dev:.4f} ms, twin "
-                  f"{plain:.4f} ms, bound {bnd:.4f} ms ({by})")
-            if dtype == torch.float32 and not masks:    # the serving call
-                result = dict(max_abs_err=err, ms=ms, device_ms=dev,
-                              plain_ms=plain, bound_ms=bnd, bound_by=by)
+            tag = f"nhwc {str(dtype)[6:]} masks={masks}"
+            err, _ = _k1_check(tag, tables, H_FULL, W_FULL, dtype, masks,
+                               "nhwc")
+            times = _k1_times(tag, tables, H_FULL, W_FULL, dtype, masks,
+                              "nhwc")
+            if dtype == torch.float32 and not masks:
+                result = dict(times, max_abs_err=err)
+    print("  a compact person (_person_poses, seed 0):")
+    coords, conf = _person_poses(F_RASTER, H_FULL, W_FULL, seed=0)
+    ptables = [t.contiguous() for t in
+               RK.build_tables(coords, conf, H_FULL, W_FULL)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for masks in (True, False):
+            err, _ = _k1_check(f"person nhwc {str(dtype)[6:]} masks={masks}",
+                               ptables, H_FULL, W_FULL, dtype, masks, "nhwc")
+    result["person"] = dict(_k1_times(
+        "person nhwc float32 masks=False", ptables, H_FULL, W_FULL,
+        torch.float32, False, "nhwc"), max_abs_err=err)
     return result
 
 
@@ -681,11 +949,15 @@ def phase_pipeline():
     motion, conf, keys = _bench_inputs(K, H, W, "cuda")
 
     # warm-up, recording the input of every instance norm of the run
-    seen = Counter()
+    seen, raster_calls = Counter(), []
     hooks = [m.register_forward_pre_hook(_norm_recorder(seen))
              for m in gen.modules() if isinstance(m, (InstanceNorm, Spade))]
-    fn(motion, conf, keys)
-    torch.cuda.synchronize()
+    restore = _raster_recorder(raster_calls)
+    try:
+        fn(motion, conf, keys)
+        torch.cuda.synchronize()
+    finally:
+        restore()
     for h in hooks:
         h.remove()
 
@@ -735,7 +1007,7 @@ def phase_pipeline():
         f"{k} {v:.2f}" for k, v in stages.items()))
     serve = dict(mcfg=mcfg, rcfg=rcfg, rate=rate, K=K, gen=gen,
                  interp=interp, fn=fn, inputs=(motion, conf, keys),
-                 fps=fps, stages=stages)
+                 fps=fps, stages=stages, raster_calls=raster_calls)
     prof = _profile(fn, (motion, conf, keys))
     _write("profile.txt", prof)
     print("  " + "\n  ".join(prof.splitlines()))
@@ -919,13 +1191,15 @@ def phase_fastpath(serve):
     print(f"  built models and transformed weights in "
           f"{time.perf_counter() - tic:.1f} s")
 
-    seen = Counter()
+    seen, raster_calls = Counter(), []
     restore = _parity_recorder(seen)
+    restore_raster = _raster_recorder(raster_calls)
     try:
         fn(motion, conf, keys)
         torch.cuda.synchronize()
     finally:
         restore()
+        restore_raster()
 
     _reset_launches()
     torch.cuda.synchronize()
@@ -982,7 +1256,7 @@ def phase_fastpath(serve):
     print("  " + "\n  ".join(prof.splitlines()[:16]))
     print("  " + "\n  ".join(extra))
     return dict(launches=launches, fps=fps, stages=stages, seen=seen,
-                gen=gen)
+                gen=gen, raster_calls=raster_calls)
 
 
 # ---------------------------------------------------------------------------
@@ -1214,7 +1488,7 @@ def phase_fast_vs_standard(serve, fast):
 # ---------------------------------------------------------------------------
 
 
-def phase_raster_layouts():
+def phase_raster_layouts(serve, fast):
     from renderloom_torch.ops import rasterize_kernel as RK
 
     print(f"P. K1 packed and cfhw layouts, kernel vs plain twin bit for bit "
@@ -1228,37 +1502,87 @@ def phase_raster_layouts():
                                  ("packed", f32, False),
                                  ("packed", f32, True), ("packed", bf16, True),
                                  ("cfhw", f32, True), ("cfhw", bf16, True)):
-        args = (*tables, H_FULL, W_FULL, dtype, masks)
-        got = RK.rasterize_tables_cuda(*args, layout=layout)
-        want = RK.rasterize_tables_plain(*args, layout=layout)
-        err = max(compare(f"{layout} {str(dtype)[6:]} masks={masks} {k}",
-                          got[k], want[k], 0.0) for k in want)
-        f = lambda: RK.rasterize_tables_cuda(*args, layout=layout)
-        ms, dev = cuda_ms(f), device_ms(f)
-        plain = cuda_ms(lambda: RK.rasterize_tables_plain(*args,
-                                                          layout=layout),
-                        3, 1)
-        bnd, by = raster_bound(F_RASTER, H_FULL, W_FULL,
-                               torch.finfo(dtype).bits // 8, masks)
-        print(f"    call {ms:.4f} ms, device {dev:.4f} ms, twin "
-              f"{plain:.4f} ms, bound {bnd:.4f} ms ({by})")
+        tag = f"{layout} {str(dtype)[6:]} masks={masks}"
+        err, _ = _k1_check(tag, tables, H_FULL, W_FULL, dtype, masks,
+                           layout)
         results[(layout, dtype, masks)] = dict(
-            max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain,
-            bound_ms=bnd,
-            bound_by=by, library_ms=None)
+            _k1_times(tag, tables, H_FULL, W_FULL, dtype, masks, layout),
+            max_abs_err=err)
+    coords, conf = _person_poses(F_RASTER, H_FULL, W_FULL, seed=0)
+    ptables = [t.contiguous() for t in
+               RK.build_tables(coords, conf, H_FULL, W_FULL)]
+    err, _ = _k1_check("person packed bfloat16 masks=False", ptables, H_FULL,
+                       W_FULL, bf16, False, "packed")
+    results["person"] = dict(_k1_times(
+        "person packed bfloat16 masks=False", ptables, H_FULL, W_FULL, bf16,
+        False, "packed"), max_abs_err=err)
     draws = RK.draw_train_tables(torch.Generator().manual_seed(1), F_RASTER,
                                  5.0, 0.02, 0.06)
     draws = {k: v.cuda() for k, v in draws.items()}
     ttables = [t.contiguous() for t in RK.build_tables(
         coords, conf, H_FULL, W_FULL, draws=draws)]
-    args = (*ttables, H_FULL, W_FULL, f32, True)
-    got = RK.rasterize_tables_cuda(*args, layout="packed")
-    want = RK.rasterize_tables_plain(*args, layout="packed")
-    for k in want:
-        compare(f"train tables packed f32 masks {k}", got[k], want[k], 0.0)
+    _, got = _k1_check("train tables packed f32 masks", ttables, H_FULL,
+                       W_FULL, f32, True, "packed")
     if not bool(got["part_mask"].any()):
         raise AssertionError("no part limb reached the part mask")
+
+    # the cull rule's edges (chip_smoke.adversarial_tables) at full width
+    # and at ragged sizes, and the seed-0 poses and the person at the
+    # ragged sizes: every layout, label type and mask option
+    print("  adversarial tables and ragged sizes, bit for bit:")
+    for H, W in ((H_FULL, W_FULL), (318, 478), (45, 61)):
+        sets = [("adversarial", adversarial_tables(H, W))]
+        if H != H_FULL:
+            for name, recipe in (("poses", _poses), ("person", _person_poses)):
+                c, cf = recipe(F_RASTER, H, W, seed=0)
+                sets.append((name, [t.contiguous() for t in
+                                    RK.build_tables(c, cf, H, W)]))
+        for name, tabs in sets:
+            for layout in RK.LAYOUTS:
+                h, w = (H - H % 2, W - W % 2) if layout == "packed" else (H, W)
+                for dtype in (f32, bf16):
+                    for masks in ((True,) if layout == "cfhw"
+                                  else (False, True)):
+                        _k1_check(f"{name} {h}x{w} {layout} "
+                                  f"{str(dtype)[6:]} masks={masks}", tabs, h,
+                                  w, dtype, masks, layout)
+
+    # K1 on the tables the two serving pipelines rasterized (phases 4, F)
+    print("  K1 on the serving pipelines' own tables:")
+    for what, calls in (("standard", serve["raster_calls"]),
+                        ("fastpath", fast["raster_calls"])):
+        if len(calls) != 1:
+            raise AssertionError(f"{what}: {len(calls)} K1 calls recorded")
+        args, kw = calls[0]
+        tabs, (H, W, dtype, masks) = args[:3], args[3:7]
+        tag = f"{what} pipeline {kw['layout']} {str(dtype)[6:]}"
+        err, _ = _k1_check(tag, tabs, H, W, dtype, masks, kw["layout"])
+        results[what] = dict(_k1_times(tag, tabs, H, W, dtype, masks,
+                                       kw["layout"]), max_abs_err=err)
     return results
+
+
+def _raster_recorder(calls: list):
+    """Record every K1 call's arguments (tables cloned) while still
+    launching it; returns the function that undoes the recording."""
+    from renderloom_torch.ops import rasterize_kernel as RK
+
+    orig = RK.rasterize_tables_cuda
+
+    def rec(joints, skel, caps, height, width, out_dtype=torch.float32,
+            emit_masks=False, brush=None, layout="nhwc"):
+        calls.append(((joints.clone(), skel.clone(), caps.clone(), height,
+                       width, out_dtype, emit_masks), {"layout": layout}))
+        kw = {} if brush is None else {"brush": brush}
+        return orig(joints, skel, caps, height, width, out_dtype, emit_masks,
+                    layout=layout, **kw)
+
+    rec.layout_launches = orig.layout_launches
+    RK.rasterize_tables_cuda = rec
+
+    def restore():
+        RK.rasterize_tables_cuda = orig
+    return restore
 
 
 # ---------------------------------------------------------------------------
@@ -1329,27 +1653,25 @@ def phase_raster_train():
     draws = {k: v.cuda() for k, v in draws.items()}
     tables = [t.contiguous() for t in
               RK.build_tables(coords, conf, H_FULL, W_FULL, draws=draws)]
-    args = (*tables, H_FULL, W_FULL, torch.float32, True)
-    got = RK.rasterize_tables_cuda(*args)
-    want = RK.rasterize_tables_plain(*args)
     print(f"  draws: sigma in {sorted(draws['sigma'].unique().tolist())}, "
           f"{int((~draws['keep_j']).sum())} joints and "
           f"{int((~draws['keep_e']).sum())} limbs dropped, "
           f"{int(draws['part'].sum())} part limbs")
-    err = compare("label (exact)", got["label"], want["label"], 0.0)
-    for k in ("mask", "part_mask"):
-        compare(f"{k} (exact)", got[k], want[k], 0.0)
+    err, got = _k1_check("train nhwc f32 masks", tables, H_FULL, W_FULL,
+                         torch.float32, True, "nhwc")
     if not bool(got["part_mask"].any()):
         raise AssertionError("no part limb reached the part mask")
-    f = lambda: RK.rasterize_tables_cuda(*args)
-    ms, dev = cuda_ms(f), device_ms(f)
-    plain = cuda_ms(lambda: RK.rasterize_tables_plain(*args), 3, 1)
-    bnd, by = raster_bound(F_TRAIN, H_FULL, W_FULL, 4, True)
-    print(f"    call {ms:.4f} ms, device {dev:.4f} ms, twin {plain:.4f} ms, "
-          f"bound {bnd:.4f} ms ({by})")
-    return dict(max_abs_err=err, ms=ms, device_ms=dev, plain_ms=plain,
-                bound_ms=bnd,
-                bound_by=by, library_ms=None,
+    times = _k1_times("train nhwc f32 masks", tables, H_FULL, W_FULL,
+                      torch.float32, True, "nhwc")
+    coords, conf = _person_poses(F_TRAIN, H_FULL, W_FULL, seed=1)
+    ptables = [t.contiguous() for t in
+               RK.build_tables(coords, conf, H_FULL, W_FULL, draws=draws)]
+    perr, _ = _k1_check("person train nhwc f32 masks", ptables, H_FULL,
+                        W_FULL, torch.float32, True, "nhwc")
+    person = dict(_k1_times("person train nhwc f32 masks", ptables, H_FULL,
+                            W_FULL, torch.float32, True, "nhwc"),
+                  max_abs_err=perr)
+    return dict(times, max_abs_err=err, person=person,
                 shape=f"{F_TRAIN}x{H_FULL}x{W_FULL}x22 f32 label + masks, "
                       f"train tables")
 
@@ -1819,7 +2141,7 @@ def main() -> int:
     fast = phase_fastpath(serve)
     parity = phase_norm_parity(fast)
     phase_fast_vs_standard(serve, fast)
-    layouts = phase_raster_layouts()
+    layouts = phase_raster_layouts(serve, fast)
     phase_cpu_match()
     raster_train = phase_raster_train()
     train = phase_train()
@@ -1837,7 +2159,8 @@ def main() -> int:
                                ["rasterize"]},
              **raster_train,
              serve=dict(shape=f"{F_RASTER}x{H_FULL}x{W_FULL}x22 f32 label, "
-                              f"no masks", **raster)),
+                              f"no masks", **raster),
+             serve_pipeline_tables=layouts["standard"]),
         dict(name="instance_norm", route="cuda",
              source="renderloom_torch/csrc/instance_norm.cu",
              replaces="renderloom/ops/norm_pallas.py:150",
@@ -1866,7 +2189,8 @@ def main() -> int:
                                ["rasterize_packed"]},
              **layouts[("packed", torch.bfloat16, False)],
              shape=f"{F_RASTER}x{H_FULL // 2}x{W_FULL // 2}x88 bf16 label, "
-                   f"no masks"),
+                   f"no masks", person=layouts["person"],
+             serve_pipeline_tables=layouts["fastpath"]),
         dict(name="rasterize_cfhw", route="cuda",
              source="renderloom_torch/csrc/rasterize.cu",
              replaces="renderloom/ops/rasterize_pallas.py:172 (_kernel)",
