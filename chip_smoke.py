@@ -56,6 +56,39 @@ N. holds K2 parity against its twin at every parity shape the fastpath
 S. holds the card's fastpath pipeline with an f32 label against the
    card's standard pipeline on the same weights at full width;
 
+then bf16 compute (both configs' ``compute_dtype: bfloat16``; with the
+fastpath it is the JAX TPU serving configuration that ``bench.py``
+times):
+
+H. runs both serving configurations in bf16 at full width on phase 4's
+   weights: checks K1, K2 shifted, K2 parity and K2 r3centered launches
+   against the counts derived from the module structure (the standard
+   clip launches only r3centered norms), the output and the keyframes;
+   prints frames/s, stage times and the idle share beside the float32
+   numbers of phases 4 and F, the largest |bf16 − f32| of the fused
+   frames, a witness of where that gap comes from (the first generator
+   step in bf16, and in float32 on bf16-rounded inputs and weights,
+   each against float32, part by part; the clip with only the motion
+   transformer, or only the renderer, in bf16), and the cuDNN kernels
+   of the (7, 256, 80, 120) → 128 3×3 convolution in float32 and in
+   bf16;
+R. holds K2's r3centered mode against its twin at every shape the bf16
+   standard run gave it (recorded by a call hook) to one bf16 ulp of n
+   (× |γ|), with at most 0.01% of elements not bit-equal; checks
+   determinism, the library composition, and a mean-256/std-1 input
+   against the contract in float64; times kernel, twin and the library
+   composition (``F.instance_norm`` in float32 → bf16 → affine);
+N2. holds K2 parity against its twin at every parity shape the bf16
+   fastpath run gave it (bf16, and float32 in the mask net), and times
+   it as phase N does;
+E. holds the card's bf16 pipeline against the port's CPU bf16 pipeline
+   at 64×96 in both configurations;
+O. holds ``make_rollout`` and ``segment_rollout_chunked`` (2 segments
+   a chunk) against ``make_segment_rollout`` (1e-3) on phase 4's
+   29-frame clip, and the first segment chunk and ``rollout_chunked``
+   (8 frames a chunk) against the unchunked rollouts of the same frames
+   bit for bit;
+
 then the training slice:
 
 A. holds K1 on train-mode tables (random σ, keep and part flags from a
@@ -742,23 +775,47 @@ def _count_norms(module) -> int:
                for m in module.modules())
 
 
-def _norm_recorder(seen: Counter):
-    """Forward pre-hook counting (shape, dtype, affine, slope) of the
-    norm each InstanceNorm / Spade module is about to run."""
-    from renderloom_torch.models.layers import InstanceNorm
+def _norm_kind_recorder(seen: Counter):
+    """Swap ``norm_kernel.instance_norm`` (which both generators' modules
+    call) for a recorder of each call's (shape, dtype, affine, slope,
+    kind), kind being the contract the dispatch takes: "parity",
+    "r3centered" (a bf16 x in the standard layout) or "shifted"; returns
+    the function that puts it back."""
+    from renderloom_torch.models import fastpath as PF
+    from renderloom_torch.models import layers as TL
 
-    def hook(module, args):
-        x = args[0]
-        affine = isinstance(module, InstanceNorm)
-        slope = args[1] if affine and len(args) > 1 else None
-        seen[(tuple(x.shape), x.dtype, affine, slope)] += 1
-    return hook
+    inner = TL.instance_norm
+
+    def rec(x, scale=None, bias=None, slope=None, eps=1e-5, parity=False):
+        kind = ("parity" if parity else "r3centered"
+                if x.dtype == torch.bfloat16 else "shifted")
+        seen[(tuple(x.shape), x.dtype, scale is not None, slope, kind)] += 1
+        return inner(x, scale, bias, slope, eps, parity=parity)
+    TL.instance_norm = PF.instance_norm = rec
+
+    def restore():
+        TL.instance_norm = PF.instance_norm = inner
+    return restore
+
+
+# launch-count key of each contract
+KIND_KEYS = {"shifted": "instance_norm", "parity": "instance_norm_parity",
+             "r3centered": "instance_norm_r3"}
+
+
+def _by_kind(seen: Counter) -> Counter:
+    """Recorded norm calls summed by launch-count key."""
+    out = Counter()
+    for key, n in seen.items():
+        out[KIND_KEYS[key[4]]] += n
+    return out
 
 
 def _stage_times(fn_parts, motion, conf, keys, rate, K, **prep_kwargs):
     """Host-clock time of each pipeline stage, synchronised between
-    stages (the pipeline's own calls, in its order); ``prep_kwargs`` are
-    the pipeline's label options (``label_dtype``, ``packed_label``)."""
+    stages (the pipeline's own calls, in its order), and the prepared
+    clip the rollout ran on; ``prep_kwargs`` are the pipeline's label
+    options (``label_dtype``, ``packed_label``)."""
     from renderloom_torch.data.hsm import prepare_batch
     from renderloom_torch.eval.motion_infer import bucket_length
     from renderloom_torch.eval.pipeline import (FLOW,
@@ -789,12 +846,12 @@ def _stage_times(fn_parts, motion, conf, keys, rate, K, **prep_kwargs):
                 {"images": assemble_keyframe_stream(keys * 255.0, rate),
                  "dain": backs * 255.0,
                  "poses": poses.permute(0, 3, 1, 2).float()}, data_cfg,
-                **prep_kwargs)
+                want_masks=False, **prep_kwargs)
 
         p = timed("prepare (raster)", prep)
-        timed("rollout", lambda: rollout(
-            {"label": p["label"], "back": p["back"], "key_img": p["image"]}))
-    return times
+        batch = {"label": p["label"], "back": p["back"], "key_img": p["image"]}
+        timed("rollout", lambda: rollout(batch))
+    return times, batch
 
 
 def _profile(fn, args) -> str:
@@ -853,14 +910,19 @@ def _profile(fn, args) -> str:
     return "\n".join(lines)
 
 
-def derived_fast_launches(cfg, packed_levels: int) -> dict:
-    """K2 and K2-parity launches of one parity-layout generator call
-    (``GeneratorConfig`` ``cfg``), from the structure of
-    ``models/fastpath.py``: in the mask net each encoder's in-conv and
-    all downs but the last, and every up, are parity norms, the last
-    downs and the residual blocks' norms standard; in the trunk the SPADE
-    norms (two, and a third for a shortcut) of each block at a level
-    below ``packed_levels`` are parity norms, the others standard."""
+def derived_fast_launches(cfg, packed_levels: int, bf16: bool = False
+                          ) -> dict:
+    """K2 (shifted), K2-parity and K2-r3centered launches of one
+    parity-layout generator call (``GeneratorConfig`` ``cfg``), from the
+    structure of ``models/fastpath.py``: in the mask net each encoder's
+    in-conv and all downs but the last, and every up, are parity norms,
+    the last downs and the residual blocks' norms standard; in the trunk
+    the SPADE norms (two, and a third for a shortcut) of each block at a
+    level below ``packed_levels`` are parity norms, the others standard.
+    In float32 every standard norm is shifted.  In bf16 (``bf16``) a
+    standard norm of a bf16 tensor is r3centered: the trunk's and the
+    encoders' last downs; the last downs return float32, so the mask
+    net's residual blocks convolve and normalize (shifted) in float32."""
     m = cfg.mask
     n_down = cfg.num_downsamples
     n_res = int(-(-(cfg.num_layers - n_down) // 2) * 2)
@@ -868,19 +930,23 @@ def derived_fast_launches(cfg, packed_levels: int) -> dict:
     mf = lambda i: min(m.max_num_filters, m.num_filters * 2 ** i)
     spade = lambda i_ch, o_ch: 2 + (i_ch != o_ch)
     parity = 3 * m.num_downsamples
-    standard = 2
+    last_downs, res = 2, 0
     ch = 2 * mf(m.num_downsamples)
     for _ in range(m.num_res_blocks):
-        standard += 2 + (ch != mf(m.num_downsamples))
+        res += 2 + (ch != mf(m.num_downsamples))
         ch = mf(m.num_downsamples)
+    trunk = n_res * spade(f(n_down + 1), f(n_down + 1))
     for i in range(n_down + 1):
         n = spade(f(i), f(i + 1)) + spade(f(i + 1), f(i))
         if i < max(1, min(packed_levels, n_down)):
             parity += n
         else:
-            standard += n
-    standard += n_res * spade(f(n_down + 1), f(n_down + 1))
-    return {"instance_norm": standard, "instance_norm_parity": parity}
+            trunk += n
+    if bf16:
+        return {"instance_norm": res, "instance_norm_parity": parity,
+                "instance_norm_r3": last_downs + trunk}
+    return {"instance_norm": last_downs + res + trunk,
+            "instance_norm_parity": parity, "instance_norm_r3": 0}
 
 
 def _serve_launches() -> dict:
@@ -891,7 +957,8 @@ def _serve_launches() -> dict:
     by = RK.rasterize_tables_cuda.layout_launches
     return {"rasterize": by["nhwc"], "rasterize_packed": by["packed"],
             "instance_norm": NK.instance_norm_cuda.launches,
-            "instance_norm_parity": NK.instance_norm_cuda.parity_launches}
+            "instance_norm_parity": NK.instance_norm_cuda.parity_launches,
+            "instance_norm_r3": NK.instance_norm_cuda.r3_launches}
 
 
 def _sum_shapes(kernel, per, shapes, inputs, check, times,
@@ -931,9 +998,6 @@ def phase_pipeline():
                                               load_renderer_config)
     from renderloom_torch.eval.motion_infer import MotionInterpolator
     from renderloom_torch.eval.pipeline import build_pipeline
-    from renderloom_torch.models.layers import InstanceNorm, Spade
-    from renderloom_torch.ops import norm_kernel as NK
-    from renderloom_torch.ops import rasterize_kernel as RK
     from renderloom_torch.train.gan import make_segment_rollout
 
     mcfg = load_motion_config(os.path.join(ROOT, "configs", "motion.yaml"))
@@ -950,16 +1014,14 @@ def phase_pipeline():
 
     # warm-up, recording the input of every instance norm of the run
     seen, raster_calls = Counter(), []
-    hooks = [m.register_forward_pre_hook(_norm_recorder(seen))
-             for m in gen.modules() if isinstance(m, (InstanceNorm, Spade))]
+    restore_norms = _norm_kind_recorder(seen)
     restore = _raster_recorder(raster_calls)
     try:
         fn(motion, conf, keys)
         torch.cuda.synchronize()
     finally:
         restore()
-    for h in hooks:
-        h.remove()
+        restore_norms()
 
     # the counted run
     _reset_launches()
@@ -971,7 +1033,8 @@ def phase_pipeline():
     print(f"  launches in one run: {launches} (K2 expected {want_norms} = "
           f"{_count_norms(gen)} per generator step x {rate - 1} steps)")
     if launches != {"rasterize": 1, "rasterize_packed": 0,
-                    "instance_norm": want_norms, "instance_norm_parity": 0}:
+                    "instance_norm": want_norms, "instance_norm_parity": 0,
+                    "instance_norm_r3": 0}:
         raise AssertionError(f"kernel launches {launches}")
     if sum(seen.values()) != want_norms:
         raise AssertionError(f"recorded {sum(seen.values())} norms")
@@ -1001,15 +1064,17 @@ def phase_pipeline():
 
     interp = MotionInterpolator(m_model, np.zeros((19, 2), np.float32),
                                 np.ones((19, 2), np.float32), "cuda")
-    stages = _stage_times((interp, make_segment_rollout(gen, rate),
-                           rcfg.data), motion, conf, keys, rate, K)
+    stages, clip = _stage_times((interp, make_segment_rollout(gen, rate),
+                                 rcfg.data), motion, conf, keys, rate, K)
     print("  stages (ms, synchronised): " + ", ".join(
         f"{k} {v:.2f}" for k, v in stages.items()))
     serve = dict(mcfg=mcfg, rcfg=rcfg, rate=rate, K=K, gen=gen,
                  interp=interp, fn=fn, inputs=(motion, conf, keys),
-                 fps=fps, stages=stages, raster_calls=raster_calls)
+                 fps=fps, stages=stages, raster_calls=raster_calls,
+                 fused=fused, clip=clip)
     prof = _profile(fn, (motion, conf, keys))
     _write("profile.txt", prof)
+    serve["prof"] = prof
     print("  " + "\n  ".join(prof.splitlines()))
 
     # K2 at every shape the run gave it: hold against the twin, and sum
@@ -1030,25 +1095,6 @@ def phase_pipeline():
 # ---------------------------------------------------------------------------
 
 
-def _parity_recorder(seen: Counter):
-    """Swap the parity-layout generator's norm for a recorder of each
-    call's (shape, dtype, affine, slope, parity); returns the function
-    that puts it back."""
-    from renderloom_torch.models import fastpath as PF
-
-    inner = PF.instance_norm
-
-    def rec(x, scale=None, bias=None, slope=None, eps=1e-5, parity=False):
-        seen[(tuple(x.shape), x.dtype, scale is not None, slope,
-              parity)] += 1
-        return inner(x, scale, bias, slope, eps, parity=parity)
-    PF.instance_norm = rec
-
-    def restore():
-        PF.instance_norm = inner
-    return restore
-
-
 def _dev_ms(e) -> float:
     return (getattr(e, "self_device_time_total", None)
             or getattr(e, "self_cuda_time_total", 0) or 0) / 1e3
@@ -1058,14 +1104,15 @@ def _conv_kernels(x_nhwc_shape, weight: torch.Tensor,
                   benchmark: bool = False):
     """(kernel names with device ms of one profiled call, CUDA-event ms of
     one call) of the NHWC conv the port runs: ``F.conv2d`` on the NCHW
-    view of an NHWC tensor, symmetric padding.  ``benchmark``: with
+    view of an NHWC tensor in the weight's dtype, symmetric padding.  ``benchmark``: with
     ``torch.backends.cudnn.benchmark`` on for this call only (the port
     leaves it off)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x = torch.randn(x_nhwc_shape, device="cuda").permute(0, 3, 1, 2)
     weight = weight.detach()
+    x = torch.randn(x_nhwc_shape, device="cuda",
+                    dtype=weight.dtype).permute(0, 3, 1, 2)
     pad = (weight.shape[-1] - 1) // 2
     f = lambda: F.conv2d(x, weight, None, 1, pad)
     before = torch.backends.cudnn.benchmark
@@ -1074,16 +1121,19 @@ def _conv_kernels(x_nhwc_shape, weight: torch.Tensor,
         ms = cuda_ms(f, iters=5, warmup=2)
         torch.cuda.synchronize()
         # CPU activity too, as _profile: with CUDA alone some runs lost
-        # the convolution's own kernel record
+        # the convolution's own kernel record; three calls, as the
+        # records of a single short call were lost too
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            f()
+            for _ in range(3):
+                f()
             torch.cuda.synchronize()
     finally:
         torch.backends.cudnn.benchmark = before
-    names = [f"{e.key[:90]} {_dev_ms(e):.3f} ms" for e in sorted(
-        prof.key_averages(), key=_dev_ms, reverse=True)
-        if e.device_type == DeviceType.CUDA and _dev_ms(e) > 0]
+    names = [f"{e.key[:90]} {_dev_ms(e) / max(e.count, 1) * 3:.3f} ms"
+             for e in sorted(prof.key_averages(), key=_dev_ms, reverse=True)
+             if e.device_type == DeviceType.CUDA
+             and not e.key.startswith(("Activity Buffer", "Buffer Flush"))]
     return names[:3], ms
 
 
@@ -1192,7 +1242,7 @@ def phase_fastpath(serve):
           f"{time.perf_counter() - tic:.1f} s")
 
     seen, raster_calls = Counter(), []
-    restore = _parity_recorder(seen)
+    restore = _norm_kind_recorder(seen)
     restore_raster = _raster_recorder(raster_calls)
     try:
         fn(motion, conf, keys)
@@ -1213,11 +1263,8 @@ def phase_fastpath(serve):
           f"generator step x {rate - 1} steps)")
     if launches != want:
         raise AssertionError(f"fastpath kernel launches {launches}")
-    recorded = Counter()
-    for (_, _, _, _, parity), n in seen.items():
-        recorded["instance_norm_parity" if parity else "instance_norm"] += n
-    if dict(recorded) != {k: want[k] for k in recorded} or \
-            sum(recorded.values()) != sum(per.values()) * (rate - 1):
+    recorded = _by_kind(seen)
+    if any(recorded[k] != want[k] for k in per):
         raise AssertionError(f"recorded norm calls {dict(recorded)}")
     if tuple(fused.shape) != (1, L, H, W, 3):
         raise AssertionError(f"fused shape {tuple(fused.shape)}")
@@ -1243,9 +1290,9 @@ def phase_fastpath(serve):
           f"temperature right after: {card_state()})")
     interp = MotionInterpolator(m_model, np.zeros((19, 2), np.float32),
                                 np.ones((19, 2), np.float32), "cuda")
-    stages = _stage_times((interp, make_segment_rollout(gen, rate),
-                           rcfg.data), motion, conf, keys, rate, K,
-                          label_dtype=torch.bfloat16, packed_label=True)
+    stages, _ = _stage_times((interp, make_segment_rollout(gen, rate),
+                              rcfg.data), motion, conf, keys, rate, K,
+                             label_dtype=torch.bfloat16, packed_label=True)
     print("  stages (ms, synchronised): " + ", ".join(
         f"{k} {v:.2f}" for k, v in stages.items()) + "; standard path: "
         + ", ".join(f"{k} {v:.2f}" for k, v in serve["stages"].items()))
@@ -1256,7 +1303,7 @@ def phase_fastpath(serve):
     print("  " + "\n  ".join(prof.splitlines()[:16]))
     print("  " + "\n  ".join(extra))
     return dict(launches=launches, fps=fps, stages=stages, seen=seen,
-                gen=gen, raster_calls=raster_calls)
+                gen=gen, raster_calls=raster_calls, fused=fused, prof=prof)
 
 
 # ---------------------------------------------------------------------------
@@ -1311,7 +1358,8 @@ def phase_norm_parity(fast):
     from renderloom_torch.models.fastpath import depth_to_space, space_to_depth
     from renderloom_torch.ops import norm_kernel as NK
 
-    shapes = sorted(((k, n) for k, n in fast["seen"].items() if k[4]),
+    shapes = sorted(((k, n) for k, n in fast["seen"].items()
+                     if k[4] == "parity"),
                     key=lambda kv: -np.prod(kv[0][0]))
     print(f"N. K2 parity, kernel vs plain twin, at the fastpath run's "
           f"{len(shapes)} parity shapes:")
@@ -1363,6 +1411,29 @@ def phase_norm_parity(fast):
                         "space_to_depth (a composition; no single call)",
                 shape=f"{n_calls} launches over {len(shapes)} shapes, B=7, "
                       f"4C 64-512, summed per clip")
+
+
+def phase_norm_parity_bf16(bf16):
+    """K2 parity at every parity shape of the bf16 fastpath run: bf16
+    (the Pallas contract's bf16 store) and, in the mask net's float32
+    part, float32.  The plan follows the element size, so each is held
+    against the twin and timed in its own right."""
+    shapes = sorted(((k, n) for k, n in bf16["fastpath"]["seen"].items()
+                     if k[4] == "parity"),
+                    key=lambda kv: -np.prod(kv[0][0]))
+    print(f"N2. K2 parity, kernel vs plain twin, at the bf16 fastpath "
+          f"run's {len(shapes)} parity shapes:")
+    entry = _sum_shapes(
+        "K2 parity bf16", "bf16 fastpath clip", shapes,
+        lambda i, key: _norm_inputs(*key[:3], seed=550 + i) + (key[3],),
+        lambda x, s, b, slope: _parity_check("vs twin", x, s, b, slope),
+        _parity_times, "library composition")
+    n_calls = sum(n for _, n in shapes)
+    n_bf16 = sum(n for k, n in shapes if k[1] == torch.bfloat16)
+    return dict(**entry, shape=f"{n_calls} launches over {len(shapes)} "
+                               f"shapes ({n_bf16} bf16, the rest float32 "
+                               f"in the mask net), B=7, summed per bf16 "
+                               f"fastpath clip")
 
 
 # ---------------------------------------------------------------------------
@@ -1484,6 +1555,547 @@ def phase_fast_vs_standard(serve, fast):
 
 
 # ---------------------------------------------------------------------------
+# H. bf16 serving at full width
+# ---------------------------------------------------------------------------
+
+
+def _bf16(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, compute_dtype="bfloat16")
+
+
+# the FFT-algorithm shape of PERF.md section 5: the standard mask net's
+# up2 at B = 7, (7, 256, 80, 120) -> 128, 3x3
+FFT_SHAPE = (7, 80, 120, 256)
+
+
+def fft_conv_report() -> list:
+    """The cuDNN kernels and time of the FFT_SHAPE convolution in float32
+    (TF32 off, as the port runs it) and in bf16, with and without
+    ``cudnn.benchmark``.  Run before any large profile: after one,
+    ``torch.profiler`` drops the records of short kernels."""
+    from renderloom_torch.train.gan import set_float32_precision
+
+    set_float32_precision()
+    g = torch.Generator(device="cuda").manual_seed(7)
+    w = torch.randn((128, 256, 3, 3), device="cuda", generator=g) / 48.0
+    lines = [f"the convolution {FFT_SHAPE} -> 128, 3x3 (the standard mask "
+             f"net's up2 at B=7), ms per call and its kernels:"]
+    for dtype in (torch.float32, torch.bfloat16):
+        for bench in (False, True):
+            names, ms = _conv_kernels(FFT_SHAPE, w.to(dtype),
+                                      benchmark=bench)
+            lines.append(f"  {str(dtype)[6:]}"
+                         f"{' cudnn.benchmark' if bench else ''}: "
+                         f"{ms:.3f} ms; " + ("; ".join(names)
+                                            or "(no kernel record)"))
+    return lines
+
+
+def _child_outputs(gen, args) -> dict:
+    """``gen(*args)`` with the output of each direct child module that
+    returns a tensor (its last call), in call order."""
+    outs, removes = {}, []
+    for name, child in gen.named_children():
+        def hook(_, __, out, name=name):
+            if isinstance(out, torch.Tensor):
+                outs.pop(name, None)
+                outs[name] = out.float()
+        removes.append(child.register_forward_hook(hook).remove)
+    try:
+        with torch.inference_mode():
+            img, mask = gen(*args)
+    finally:
+        for r in removes:
+            r()
+    return dict(outs, img=img.float(), mask=mask.float())
+
+
+def _bf16_witness(serve, gen16):
+    """Whether the full-width |bf16 - f32| is the function's own: the
+    first generator step of phase 4's rollout (B = 7, its own inputs) in
+    bf16, and in float32 on inputs and convolution weights rounded to
+    bf16 (the data the bf16 model starts from, every later rounding
+    left out), each against the float32 step; the relative RMS gap of
+    each of the generator's parts on the way; then the whole clip with
+    only the motion transformer, or only the renderer, in bf16."""
+    import copy
+
+    from renderloom_torch.models.layers import Conv
+
+    step, rm = _first_call(serve["gen"])
+    try:
+        serve["fn"](*serve["inputs"])
+    finally:
+        rm()
+    args = step["args"]
+    rounded = copy.deepcopy(serve["gen"])
+    with torch.no_grad():
+        for m in rounded.modules():
+            if isinstance(m, Conv):
+                for p in (m.weight, m.bias):
+                    if p is not None:
+                        p.copy_(p.bfloat16().float())
+    ref = _child_outputs(serve["gen"], args)
+    runs = {"bf16": _child_outputs(gen16, args),
+            "f32 on bf16-rounded inputs and weights": _child_outputs(
+                rounded, [a.bfloat16().float() for a in args])}
+    print(f"  witness, the first generator step (B={args[0].shape[0]}) "
+          f"against float32, on the float32 clip's inputs:")
+    for name, outs in runs.items():
+        d = (outs["img"] - ref["img"]).abs()
+        flips = ((outs["img"] * ref["img"] < 0)
+                 & (ref["img"].abs() > 0.5)).float().mean().item()
+        gaps = ", ".join(
+            f"{k} {((v - ref[k]).norm() / ref[k].norm()).item():.1e}"
+            for k, v in outs.items())
+        print(f"    {name}: img max |diff| {d.max().item():.4e}, mean "
+              f"{d.mean().item():.4e}, sign flips beyond |0.5| "
+              f"{100 * flips:.4f}% of elements; relative RMS gap by part: "
+              f"{gaps}")
+    # the whole clip with one stage in bf16: the motion transformer's
+    # joints decide where the raster draws each limb
+    from renderloom_torch.eval.pipeline import build_pipeline
+
+    mcfg, rcfg = serve["mcfg"], serve["rcfg"]
+    for name, m, r in (("bf16 motion, float32 renderer", _bf16(mcfg), rcfg),
+                       ("float32 motion, bf16 renderer", mcfg,
+                        _bf16(rcfg))):
+        fn, _, _ = build_pipeline(m, r, serve["rate"], serve["K"],
+                                  device="cuda")
+        d = (fn(*serve["inputs"])[0] - serve["fused"]).abs()
+        print(f"    the clip with {name}: fused frames max |diff| from "
+              f"float32 {d.max().item():.4e}, mean {d.mean().item():.4e}")
+
+
+def phase_bf16(serve, fast, conv_lines):
+    """Both serving configurations with bf16 compute (the configs'
+    ``compute_dtype``) on phase 4's weights and inputs, each beside its
+    float32 numbers from phases 4 and F."""
+    from renderloom_torch.eval.motion_infer import MotionInterpolator
+    from renderloom_torch.eval.pipeline import build_pipeline
+    from renderloom_torch.models import fastpath as PF
+    from renderloom_torch.train.gan import make_segment_rollout
+
+    mcfg, rcfg = _bf16(serve["mcfg"]), _bf16(serve["rcfg"])
+    rate, K = serve["rate"], serve["K"]
+    H, W = rcfg.data.model_height, rcfg.data.model_width
+    L = (K - 1) * rate + 1
+    motion, conf, keys = serve["inputs"]
+    print(f"H. bf16 serving (motion.yaml and hsm.yaml with compute_dtype "
+          f"bfloat16): {W}x{H}, rate {rate}, {K} keyframes, the weights "
+          f"of phase 4")
+    out = {}
+    for name, fastpath, f32 in (("standard", False, serve),
+                                ("fastpath", True, fast)):
+        fn, m_model, gen = build_pipeline(mcfg, rcfg, rate, K,
+                                          device="cuda", fastpath=fastpath)
+        if isinstance(gen, PF.FastInferenceGen) != fastpath or \
+                gen.dtype != torch.bfloat16:
+            raise AssertionError(f"{name}: built {type(gen).__name__} "
+                                 f"in {gen.dtype}")
+        seen = Counter()
+        restore = _norm_kind_recorder(seen)
+        try:
+            fn(motion, conf, keys)
+            torch.cuda.synchronize()
+        finally:
+            restore()
+
+        # the counted run
+        _reset_launches()
+        torch.cuda.synchronize()
+        fused, sync = fn(motion, conf, keys)
+        torch.cuda.synchronize()
+        launches = _serve_launches()
+        if fastpath:
+            per = derived_fast_launches(rcfg.gen, gen.packed_levels,
+                                        bf16=True)
+        else:
+            per = {"instance_norm": 0, "instance_norm_parity": 0,
+                   "instance_norm_r3": _count_norms(gen)}
+        want = {"rasterize": 0 if fastpath else 1,
+                "rasterize_packed": 1 if fastpath else 0,
+                **{k: v * (rate - 1) for k, v in per.items()}}
+        print(f"  {name}: launches in one run {launches}; derived {want} "
+              f"({per} per generator step x {rate - 1} steps)")
+        if launches != want:
+            raise AssertionError(f"bf16 {name} kernel launches {launches}")
+        kinds = _by_kind(seen)
+        if any(kinds[k] != want[k] for k in per):
+            raise AssertionError(f"recorded norm calls {dict(kinds)}")
+        if tuple(fused.shape) != (1, L, H, W, 3) or fused.dtype != \
+                torch.float32:
+            raise AssertionError(f"fused {tuple(fused.shape)} {fused.dtype}")
+        if not bool(torch.isfinite(fused).all()):
+            raise AssertionError("non-finite output")
+        key_unit = (keys * 255.0).float() / 127.5 - 1.0
+        if not torch.equal(fused[:, ::rate], key_unit):
+            raise AssertionError("keyframes did not pass through exactly")
+        gap = (fused - f32["fused"]).abs()
+        print(f"    output {tuple(fused.shape)} finite, keyframes exact, "
+              f"checksum {float(sync):.6e}; largest |bf16 - f32| of the "
+              f"fused frames {gap.max().item():.4e} (mean "
+              f"{gap.mean().item():.4e}; reported, not held)")
+
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            fn(motion, conf, keys)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - tic)
+        fps = len(runs) * L / sum(runs)
+        print(f"    bf16 {name} e2e_interp_frames_per_sec {fps:.3f} (runs "
+              "of " + ", ".join(f"{r * 1e3:.1f}" for r in runs)
+              + f" ms per clip); float32 {f32['fps']:.3f} in this run; SM "
+              f"clock, power, temperature right after: {card_state()}")
+        interp = MotionInterpolator(m_model, np.zeros((19, 2), np.float32),
+                                    np.ones((19, 2), np.float32), "cuda")
+        prep = (dict(label_dtype=torch.bfloat16, packed_label=True)
+                if fastpath else {})
+        stages, _ = _stage_times((interp, make_segment_rollout(gen, rate),
+                                  rcfg.data), motion, conf, keys, rate, K,
+                                 **prep)
+        print("    stages (ms, synchronised), bf16: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in stages.items()) + "; float32: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in f32["stages"].items()))
+        prof = _profile(fn, (motion, conf, keys))
+        _write(f"profile_bf16_{name}.txt", prof)
+        idle = [ln for ln in prof.splitlines() if "idle share" in ln][0]
+        idle32 = [ln for ln in f32["prof"].splitlines()
+                  if "idle share" in ln][0]
+        print(f"    bf16 {idle.split(': ')[-1]} idle (float32 "
+              f"{idle32.split(': ')[-1]}); " + prof.splitlines()[0])
+        print("    " + "\n    ".join(prof.splitlines()[2:10]))
+        out[name] = dict(launches=launches, fps=fps, stages=stages,
+                         seen=seen, fused=fused, gen=gen)
+
+    _bf16_witness(serve, out["standard"]["gen"])
+
+    # which cuDNN algorithm the float32 FFT shape gets in bf16 (taken
+    # after phase 1, before the first large profile)
+    if tuple(serve["gen"].mask_net.up2.conv.conv.weight.shape) != \
+            (128, 256, 3, 3):
+        raise AssertionError("the mask net's up2 is not the FFT shape")
+    print("  " + "\n  ".join(conv_lines))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# R. K2 r3centered
+# ---------------------------------------------------------------------------
+
+# Tolerance: one bf16 ulp of the normalized value n, times |gamma| at
+# affine call sites, plus 1e-6, elementwise as 2^-7 |n| |gamma| + 1e-6:
+# the sums run in another order than the twin's, which moves n by a few
+# float32 ulp and can round it to the neighbouring bf16 value.  At mean
+# 256 and std 1 (|mean| / std = 2^8, where bf16 itself steps by 2) the
+# unshifted fp32 moments of the contract lose var to the rounding of
+# m2 ~ 65537 (ulp 2^-7) and of m1^2, so any two summation orders differ
+# by more than that ulp; there each side is held against the contract
+# evaluated in float64 (moments in float64, then n rounded to bf16), the
+# kernel to at most 1.5x the twin's error plus one ulp.
+
+
+# Beyond the ulp, the share of elements that are not bit-equal: where
+# the kernel and its twin differ only in their sums' order, n rounds to
+# another bf16 value in at most 0.0016% of elements at the bf16 clip's
+# shapes (NVIDIA H100 80GB HBM3, 700 W); a kernel that skipped the
+# rounding of n before the affine, or rounded the affine's float32
+# output, would differ at nearly every element of an affine call site
+# while staying within the ulp.
+R3_NOT_EQUAL_MAX = 1e-4
+
+
+def _r3_tol(x, s):
+    from renderloom_torch.ops import norm_kernel as NK
+
+    n = NK.instance_norm_plain(x, r3centered=True).float()
+    return 2.0 ** -7 * n.abs() * (1.0 if s is None else s.abs()) + 1e-6
+
+
+def _r3_check(name, x, s, b, slope):
+    """Max |kernel - twin|; raises beyond _r3_tol or on a wrong dtype."""
+    from renderloom_torch.ops import norm_kernel as NK
+
+    got = NK.instance_norm_cuda(x, s, b, slope, r3centered=True)
+    want = NK.instance_norm_plain(x, s, b, slope, r3centered=True)
+    if got.dtype != want.dtype or got.dtype != (
+            torch.bfloat16 if s is None else torch.float32):
+        raise AssertionError(f"{name}: output {got.dtype}, twin {want.dtype}")
+    diff = (got.float() - want.float()).abs()
+    over = (diff > _r3_tol(x, s)).float().mean().item()
+    err = diff.max().item()
+    neq = (got != want).float().mean().item()
+    print(f"  {name}: max_abs_err {err:.3e} (tol one bf16 ulp of n x "
+          f"|gamma| + 1e-6), not bit-equal {100 * neq:.4f}% "
+          f"{'ok' if over == 0 else 'FAIL'}")
+    if over:
+        raise AssertionError(f"{name}: {100 * over:.4f}% beyond one ulp")
+    if neq > R3_NOT_EQUAL_MAX:
+        raise AssertionError(f"{name}: {100 * neq:.4f}% not bit-equal")
+    return err
+
+
+def _r3_library(x, s, b, slope):
+    """The library composition: ``F.instance_norm`` in float32 on the
+    NCHW view, rounded to bf16, then the float32 affine and leaky."""
+    y = F.instance_norm(x.permute(0, 3, 1, 2).float(), eps=1e-5).to(
+        torch.bfloat16)
+    if s is not None:
+        y = y.float() * s[:, None, None] + b[:, None, None]
+    if slope is not None:
+        y = F.leaky_relu(y, slope)
+    return y.permute(0, 2, 3, 1)
+
+
+def _r3_times(x, s, b, slope, iters=10):
+    """(call, device, twin, library composition, bound) ms of one call,
+    and what bounds it; raises unless the call is one kernel."""
+    from renderloom_torch.ops import norm_kernel as NK
+
+    n = x.numel()
+    f = lambda: NK.instance_norm_cuda(x, s, b, slope, r3centered=True)
+    ms, dev = cuda_ms(f, iters), device_ms(f)
+    one_kernel(f"K2 r3centered {tuple(x.shape)}", f, "norm_fwd_kernel")
+    plain = cuda_ms(lambda: NK.instance_norm_plain(x, s, b, slope,
+                                                   r3centered=True),
+                    max(2, iters // 4), 1)
+    lib = cuda_ms(lambda: _r3_library(x, s, b, slope), iters)
+    # bf16 x read once, the output written once (bf16, or float32 at an
+    # affine call site); ~10 fp32 operations per element
+    bnd, by = bound_ms(n * (2 + (4 if s is not None else 2)), 10 * n)
+    return ms, dev, plain, lib, bnd, by
+
+
+def _r3_f64(x, s, b, slope):
+    """The r3centered contract with float64 moments: n rounded to bf16,
+    the affine and the leaky in float64."""
+    x64 = x.double()
+    m1 = x64.mean((1, 2), keepdim=True)
+    var = x64.var((1, 2), unbiased=False, keepdim=True)
+    y = ((x64 - m1) / torch.sqrt(var + 1e-5)).to(torch.bfloat16).double()
+    if s is not None:
+        y = y * s.double() + b.double()
+    if slope is not None:
+        y = torch.where(y >= 0, y, y * slope)
+    return y
+
+
+def phase_norm_r3(bf16):
+    from renderloom_torch.ops import norm_kernel as NK
+
+    shapes = sorted(((k[:4], n) for k, n in bf16["standard"]["seen"].items()),
+                    key=lambda kv: -np.prod(kv[0][0]))
+    print(f"R. K2 r3centered, kernel vs plain twin, at the bf16 standard "
+          f"run's {len(shapes)} shapes:")
+    entry = _sum_shapes(
+        "K2 r3centered", "clip", shapes,
+        lambda i, key: _norm_inputs(*key[:3], seed=700 + i) + (key[3],),
+        lambda x, s, b, slope: _r3_check("vs twin", x, s, b, slope),
+        _r3_times, "library composition")
+    fast_shapes = {k[:4] for k in bf16["fastpath"]["seen"]
+                   if k[4] == "r3centered"}
+    for i, key in enumerate(sorted(fast_shapes - {k for k, _ in shapes})):
+        x, s, b = _norm_inputs(*key[:3], seed=750 + i)
+        _r3_check(f"fastpath-only {key}", x, s, b, key[3])
+    # the library composition computes the same function (to the ulp)
+    x, s, b = _norm_inputs((7, 160, 240, 64), torch.bfloat16, True, 790)
+    lib = _r3_library(x, s, b, LEAKY)
+    diff = (lib - NK.instance_norm_cuda(x, s, b, LEAKY,
+                                        r3centered=True)).abs()
+    if not bool((diff <= _r3_tol(x, s)).all()):
+        raise AssertionError("library composition vs kernel beyond one ulp")
+    print(f"  library composition vs kernel (affine + leaky): max "
+          f"{diff.max().item():.3e}, within one ulp ok")
+    # two calls give the same bits
+    if not torch.equal(NK.instance_norm_cuda(x, s, b, LEAKY, r3centered=True),
+                       NK.instance_norm_cuda(x, s, b, LEAKY,
+                                             r3centered=True)):
+        raise AssertionError("K2 r3centered: two calls differ")
+    print("  determinism: two calls at (7, 160, 240, 64) equal bit for bit ok")
+    # mean 256, std 1: the edge of the unshifted contract
+    x, s, b = _norm_inputs((7, 40, 60, 256), torch.bfloat16, True, 791,
+                           loc=256.0)
+    got = NK.instance_norm_cuda(x, s, b, LEAKY, r3centered=True)
+    twin = NK.instance_norm_plain(x, s, b, LEAKY, r3centered=True)
+    ref = _r3_f64(x, s, b, LEAKY)
+    diff = (got - twin).abs()
+    e_k = (got.double() - ref).abs().max().item()
+    e_t = (twin.double() - ref).abs().max().item()
+    ulp = _r3_tol(x, s).max().item()
+    print(f"  (7, 40, 60, 256) bfloat16 mean 256 std 1, affine + leaky: "
+          f"kernel vs twin max {diff.max().item():.3e}, not bit-equal "
+          f"{100 * (diff > 0).float().mean().item():.2f}%, beyond one ulp "
+          f"{100 * (diff > _r3_tol(x, s)).float().mean().item():.2f}%; "
+          f"against the contract in float64: kernel {e_k:.3e}, twin "
+          f"{e_t:.3e} (held: kernel <= 1.5 x twin + {ulp:.2e})")
+    if not e_k <= 1.5 * e_t + ulp:
+        raise AssertionError(f"r3centered at mean 256: kernel {e_k}, twin "
+                             f"{e_t}")
+    x, _, _ = _norm_inputs((1, 4, 4, 32), torch.bfloat16, False, 792)
+    print(f"  host time per call at (1, 4, 4, 32): "
+          f"{host_us(lambda: NK.instance_norm_cuda(x, r3centered=True)):.1f}"
+          f" us")
+    n_calls = sum(n for _, n in shapes)
+    return dict(**entry,
+                library="F.instance_norm (float32) -> bf16 -> float32 "
+                        "affine -> leaky (a composition; no single call)",
+                shape=f"{n_calls} launches over {len(shapes)} shapes, B=7, "
+                      f"C 16-512, bf16 in, bf16 or float32 out, summed "
+                      f"per bf16 standard clip")
+
+
+# ---------------------------------------------------------------------------
+# E. card bf16 pipeline vs CPU bf16 pipeline
+# ---------------------------------------------------------------------------
+
+
+def _tiny_serving_case():
+    """phase 5's 64x96 case: tiny-width configs, motion statistics that
+    keep the joints in the frame, and seeded inputs."""
+    from renderloom_torch.core import config as C
+
+    H, W, rate, K = 64, 96, 2, 3
+    mcfg = C.MotionConfig(
+        transformer=C.TransformerConfig(hidden_dim=32, nheads=4,
+                                        dim_feedforward=64, enc_layers=2,
+                                        dec_layers=2, dropout=0.0),
+        pos_encode=C.PosEncodeConfig(hidden_dim=32))
+    rcfg = C.RendererConfig(
+        gen=C.GeneratorConfig(
+            num_filters=4, max_num_filters=16, num_layers=6,
+            num_downsamples=4, do_checkpoint=False,
+            mask=C.MaskNetConfig(num_filters=4, max_num_filters=16,
+                                 num_downsamples=3, num_res_blocks=1),
+            embed=C.EmbedConfig(num_filters=4, max_num_filters=16,
+                                num_downsamples=4)),
+        data=C.RendererDataConfig(model_width=W, model_height=H,
+                                  load_width=W, load_height=H))
+    mean = np.zeros((19, 2), np.float32)
+    mean[-1] = (-0.8, -0.85)
+    std = np.full((19, 2), 0.02, np.float32)
+    rng = np.random.default_rng(1)
+    motion = np.stack([rng.uniform(-0.9, -0.7, (1, 19, K)),
+                       rng.uniform(-0.9, -0.8, (1, 19, K))], axis=2)
+    conf = np.full((1, 19, 1, K), 0.9)
+    keys = rng.uniform(0, 1, (1, K, H, W, 3))
+    return (mcfg, rcfg, rate, K, dict(mean=mean, std=std),
+            (motion, conf, keys))
+
+
+def _serve_tiny(mcfg, rcfg, rate, K, stats, inputs, device, fastpath):
+    from renderloom_torch.eval.pipeline import build_pipeline
+
+    fn, _, _ = build_pipeline(mcfg, rcfg, rate, K, device=device,
+                              fastpath=fastpath, **stats)
+    as_t = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    return fn(*map(as_t, inputs))[0].cpu()
+
+
+# bf16 on two devices: the same function rounded at other places (cuDNN
+# and the kernels sum in other orders than the CPU), and the tiny
+# random-weight network amplifies the rounding (tests/test_torch_bf16.py:
+# the JAX bf16 image itself lies tenths from its float32 one).  The
+# card is held on the generated frames (keyframes pass through exactly
+# and are checked in phase H): their mean |card - CPU bf16| within
+# BF16_MEAN_TOL, and their largest error against the CPU float32
+# pipeline at most 1.5x the CPU bf16 pipeline's own + 1e-3.  The limit
+# lies between the sound reading and a control that departs from the
+# CPU's bf16 function by bf16's own size, the card's frames against the
+# CPU float32 pipeline's: on an NVIDIA H100 80GB HBM3 at 700 W, sound
+# 3.54e-3 (standard) and 3.34e-3 (fastpath), control 1.55e-2 and
+# 1.54e-2.  The control is printed each run and must lie beyond the
+# limit.
+BF16_MEAN_TOL = 7e-3
+
+
+def phase_bf16_cpu_match():
+    mcfg, rcfg, rate, K, stats, inputs = _tiny_serving_case()
+    print(f"E. card bf16 pipeline vs CPU bf16 pipeline (64x96, rate {rate}, "
+          f"{K} keyframes, tiny widths, same weights), generated frames:")
+    for fastpath in (False, True):
+        run = lambda m, r, dev: _serve_tiny(m, r, rate, K, stats, inputs,
+                                            dev, fastpath)[:, 1::rate]
+        cpu32 = run(mcfg, rcfg, "cpu")
+        cpu, card = (run(_bf16(mcfg), _bf16(rcfg), dev)
+                     for dev in ("cpu", "cuda"))
+        name = "fastpath" if fastpath else "standard"
+        mean = (card - cpu).abs().mean().item()
+        control = (card - cpu32).abs().mean().item()
+        err, own = ((a - cpu32).abs().max().item() for a in (card, cpu))
+        print(f"  {name}: max |card - CPU| "
+              f"{(card - cpu).abs().max().item():.3e}, mean {mean:.3e} "
+              f"(tol {BF16_MEAN_TOL:.0e}; the control, mean |card - CPU "
+              f"float32|, {control:.3e}); against CPU float32 card "
+              f"{err:.3e}, CPU bf16 {own:.3e} (tol 1.5x + 1e-3)")
+        if not (mean <= BF16_MEAN_TOL < control
+                and err <= 1.5 * own + 1e-3):
+            raise AssertionError(f"bf16 {name}: card vs CPU out of bounds")
+    print("  ok")
+
+
+# ---------------------------------------------------------------------------
+# O. the other rollouts on the card
+# ---------------------------------------------------------------------------
+
+# make_rollout against make_segment_rollout: 1e-3.  segment chunks
+# against the whole clip: each chunk is the segment rollout of its own
+# sub-clip, which the first chunk checks bit for bit; against the whole
+# clip the kernels see another batch (B = 2 segments, 1 in the last
+# chunk, not 7), and K2's
+# plan (its sums' order) and cuDNN's algorithms follow the batch, so the
+# frames differ by rounding amplified through three steps: on an NVIDIA
+# H100 80GB HBM3 at 700 W 2.96e-4 with the last chunk padded to 2
+# segments, 5.54e-4 with it run at its own length (1 segment), past the
+# 1e-5 this check was first given; it is held to the batch-composition
+# tolerance of the sequential check, 1e-3.
+SEQ_VS_SEG_TOL = 1e-3
+
+
+def phase_rollouts(serve):
+    """``make_rollout`` and its chunked form against
+    ``make_segment_rollout`` and ``segment_rollout_chunked`` on phase 4's
+    prepared 29-frame clip, float32, the standard generator."""
+    from renderloom_torch.train.gan import (make_rollout,
+                                            make_segment_rollout,
+                                            rollout_chunked,
+                                            segment_rollout_chunked)
+
+    gen, rate, clip = serve["gen"], serve["rate"], serve["clip"]
+    L = clip["label"].shape[1]
+    is_key = torch.arange(L) % rate == 0
+    seq, seg = make_rollout(gen), make_segment_rollout(gen, rate)
+    first = {k: v[:, :2 * rate + 1] for k, v in clip.items()}
+    with torch.inference_mode():
+        want = seg(clip)
+        outs = {"sequential": seq({**clip, "is_key": is_key}),
+                "segment, chunks of 2 segments": segment_rollout_chunked(
+                    seg, clip, rate, seg_chunk=2),
+                "first chunk alone": seg(first)}
+        outs["sequential, chunks of 8"] = rollout_chunked(
+            seq, {**clip, "is_key": is_key}, chunk=8)
+    torch.cuda.synchronize()
+    print(f"O. rollouts on phase 4's {L}-frame clip (float32, standard "
+          f"generator):")
+    for i, part in enumerate(("fused", "masks")):
+        compare(f"sequential vs segment, {part}", outs["sequential"][i],
+                want[i], SEQ_VS_SEG_TOL)
+        compare(f"segment, chunks of 2 segments vs unchunked, {part}",
+                outs["segment, chunks of 2 segments"][i], want[i],
+                SEQ_VS_SEG_TOL)
+        compare(f"its first chunk vs the segment rollout of frames "
+                f"0-{2 * rate}, {part} (bit for bit)",
+                outs["segment, chunks of 2 segments"][i][:, :2 * rate + 1],
+                outs["first chunk alone"][i], 0.0)
+        compare(f"sequential, chunks of 8 vs unchunked, {part} (bit for "
+                f"bit)", outs["sequential, chunks of 8"][i],
+                outs["sequential"][i], 0.0)
+
+
+# ---------------------------------------------------------------------------
 # P. K1 packed and cfhw layouts
 # ---------------------------------------------------------------------------
 
@@ -1591,48 +2203,14 @@ def _raster_recorder(calls: list):
 
 
 def phase_cpu_match():
-    from renderloom_torch.core import config as C
-    from renderloom_torch.eval.pipeline import build_pipeline
-
-    H, W, rate, K = 64, 96, 2, 3
-    mcfg = C.MotionConfig(
-        transformer=C.TransformerConfig(hidden_dim=32, nheads=4,
-                                        dim_feedforward=64, enc_layers=2,
-                                        dec_layers=2, dropout=0.0),
-        pos_encode=C.PosEncodeConfig(hidden_dim=32))
-    rcfg = C.RendererConfig(
-        gen=C.GeneratorConfig(
-            num_filters=4, max_num_filters=16, num_layers=6,
-            num_downsamples=4, do_checkpoint=False,
-            mask=C.MaskNetConfig(num_filters=4, max_num_filters=16,
-                                 num_downsamples=3, num_res_blocks=1),
-            embed=C.EmbedConfig(num_filters=4, max_num_filters=16,
-                                num_downsamples=4)),
-        data=C.RendererDataConfig(model_width=W, model_height=H,
-                                  load_width=W, load_height=H))
-    # statistics that keep the random transformer's joints in the frame
-    mean = np.zeros((19, 2), np.float32)
-    mean[-1] = (-0.8, -0.85)
-    std = np.full((19, 2), 0.02, np.float32)
-    rng = np.random.default_rng(1)
-    motion = np.stack([rng.uniform(-0.9, -0.7, (1, 19, K)),
-                       rng.uniform(-0.9, -0.8, (1, 19, K))], axis=2)
-    conf = np.full((1, 19, 1, K), 0.9)
-    keys = rng.uniform(0, 1, (1, K, H, W, 3))
-    print(f"card pipeline vs CPU pipeline ({W}x{H}, rate {rate}, {K} "
+    mcfg, rcfg, rate, K, stats, inputs = _tiny_serving_case()
+    print(f"card pipeline vs CPU pipeline (64x96, rate {rate}, {K} "
           f"keyframes, tiny widths, same weights):")
     for fastpath in (False, True):
-        outs = []
-        for device in ("cpu", "cuda"):
-            fn, _, _ = build_pipeline(mcfg, rcfg, rate, K, mean=mean,
-                                      std=std, device=device,
-                                      fastpath=fastpath)
-            as_t = lambda a: torch.tensor(a, dtype=torch.float32,
-                                          device=device)
-            fused, _ = fn(as_t(motion), as_t(conf), as_t(keys))
-            outs.append(fused.cpu())
+        cpu, card = (_serve_tiny(mcfg, rcfg, rate, K, stats, inputs, dev,
+                                 fastpath) for dev in ("cpu", "cuda"))
         compare(f"fused frames, {'fastpath' if fastpath else 'standard'}",
-                outs[1], outs[0], 1e-3)
+                card, cpu, 1e-3)
 
 
 # ---------------------------------------------------------------------------
@@ -1689,9 +2267,9 @@ def _norm_call_recorder(fwd: Counter, bwd: Counter):
     f0, b0 = NK.instance_norm_cuda, NK.instance_norm_bwd_cuda
 
     def fwd_rec(x, scale=None, bias=None, slope=None, eps=1e-5, stats=None,
-                parity=False):
+                parity=False, r3centered=False):
         fwd[(tuple(x.shape), scale is not None, slope)] += 1
-        return f0(x, scale, bias, slope, eps, stats, parity)
+        return f0(x, scale, bias, slope, eps, stats, parity, r3centered)
 
     def bwd_rec(x, dy, stats, scale=None, bias=None, slope=None):
         bwd[(tuple(x.shape), scale is not None, slope)] += 1
@@ -1701,11 +2279,13 @@ def _norm_call_recorder(fwd: Counter, bwd: Counter):
     # name points at, so the recorders carry the counts meanwhile
     fwd_rec.launches, bwd_rec.launches = f0.launches, b0.launches
     fwd_rec.parity_launches = f0.parity_launches
+    fwd_rec.r3_launches = f0.r3_launches
     NK.instance_norm_cuda, NK.instance_norm_bwd_cuda = fwd_rec, bwd_rec
 
     def restore():
         f0.launches, b0.launches = fwd_rec.launches, bwd_rec.launches
         f0.parity_launches = fwd_rec.parity_launches
+        f0.r3_launches = fwd_rec.r3_launches
         NK.instance_norm_cuda, NK.instance_norm_bwd_cuda = f0, b0
     return restore
 
@@ -1752,6 +2332,7 @@ def _reset_launches():
     RK.rasterize_tables_cuda.layout_launches = dict.fromkeys(RK.LAYOUTS, 0)
     NK.instance_norm_cuda.launches = 0
     NK.instance_norm_cuda.parity_launches = 0
+    NK.instance_norm_cuda.r3_launches = 0
     NK.instance_norm_bwd_cuda.launches = 0
 
 
@@ -2135,12 +2716,18 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     tic = time.perf_counter()
     phase_build()
+    conv_lines = fft_conv_report()
     phase_norm()
     raster = phase_raster()
     launches, fps, norm, serve = phase_pipeline()
     fast = phase_fastpath(serve)
     parity = phase_norm_parity(fast)
     phase_fast_vs_standard(serve, fast)
+    bf16 = phase_bf16(serve, fast, conv_lines)
+    r3 = phase_norm_r3(bf16)
+    parity["serve_clip_fastpath_bf16"] = phase_norm_parity_bf16(bf16)
+    phase_bf16_cpu_match()
+    phase_rollouts(serve)
     layouts = phase_raster_layouts(serve, fast)
     phase_cpu_match()
     raster_train = phase_raster_train()
@@ -2168,6 +2755,10 @@ def main() -> int:
              launches_by_path={"serve_clip": launches["instance_norm"],
                                "serve_clip_fastpath": fast["launches"]
                                ["instance_norm"],
+                               "serve_clip_bf16": bf16["standard"]
+                               ["launches"]["instance_norm"],
+                               "serve_clip_fastpath_bf16": bf16["fastpath"]
+                               ["launches"]["instance_norm"],
                                "train_3_steps": train["launches"]
                                ["instance_norm"]},
              **norm_train, serve=norm),
@@ -2177,8 +2768,20 @@ def main() -> int:
                       "the reduction at :60-82)",
              launches=fast["launches"]["instance_norm_parity"],
              launches_by_path={"serve_clip_fastpath": fast["launches"]
-                               ["instance_norm_parity"]},
+                               ["instance_norm_parity"],
+                               "serve_clip_fastpath_bf16": bf16["fastpath"]
+                               ["launches"]["instance_norm_parity"]},
              **parity),
+        dict(name="instance_norm_r3centered", route="cuda",
+             source="renderloom_torch/csrc/instance_norm.cu",
+             replaces="renderloom/models/layers.py:226 (instance_norm bf16 "
+                      "dispatch r3centered; no Pallas kernel)",
+             launches=bf16["standard"]["launches"]["instance_norm_r3"],
+             launches_by_path={"serve_clip_bf16": bf16["standard"]
+                               ["launches"]["instance_norm_r3"],
+                               "serve_clip_fastpath_bf16": bf16["fastpath"]
+                               ["launches"]["instance_norm_r3"]},
+             **r3),
         dict(name="rasterize_packed", route="cuda",
              source="renderloom_torch/csrc/rasterize.cu",
              replaces="renderloom/ops/rasterize_pallas.py:239 (_kernel_"
@@ -2208,7 +2811,9 @@ def main() -> int:
              **norm_bwd),
     ]
     print(f"e2e_interp_frames_per_sec {fps:.3f} (fastpath "
-          f"{fast['fps']:.3f}); gan_train_windows_per_sec "
+          f"{fast['fps']:.3f}; bf16 {bf16['standard']['fps']:.3f}, bf16 "
+          f"fastpath {bf16['fastpath']['fps']:.3f}); "
+          f"gan_train_windows_per_sec "
           f"{train['wps']:.4f}; chip_smoke done in "
           f"{time.perf_counter() - tic:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -9,9 +9,10 @@ training paths are hand-written CUDA kernels under ``csrc/``, built with
 
 * ``ops/rasterize_kernel.py`` — the pose label rasterizer, deterministic
   and train-mode tables (replaces ``renderloom/ops/rasterize_pallas.py``);
-* ``ops/norm_kernel.py`` — the instance norm and its backward, joined by
-  an ``autograd.Function`` (replaces ``renderloom/ops/norm_pallas.py``
-  and the custom VJP of ``renderloom/models/layers.py``).
+* ``ops/norm_kernel.py`` — the instance norm (shifted, parity, and the
+  bf16 ``r3centered`` contract) and its backward, joined by an
+  ``autograd.Function`` (replaces ``renderloom/ops/norm_pallas.py``, the
+  custom VJP and the bf16 dispatch of ``renderloom/models/layers.py``).
 
 Each kernel wrapper runs its plain PyTorch twin for a CPU tensor and the
 kernel for a CUDA tensor.  The serving entry point is

@@ -20,7 +20,17 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Sequence
 
+import torch
 import yaml
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(compute_dtype: str) -> torch.dtype:
+    """The torch dtype of a config's ``compute_dtype``."""
+    if compute_dtype not in _DTYPES:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+    return _DTYPES[compute_dtype]
 
 
 def _update_dataclass(obj, data: Mapping[str, Any]):

@@ -1,9 +1,12 @@
 // Instance norm (+ per-channel affine, + leaky) over NHWC, for Hopper:
-// the forward (K2: standard, with residuals, parity) and its backward (K2b).
+// the forward (K2: standard, with residuals, parity, r3centered) and its
+// backward (K2b).
 //
 // K2 replaces the TPU kernel renderloom/ops/norm_pallas.py:
 // instance_norm_fused (Pallas body `_kernel`), forward, parity=False and
-// parity=True.
+// parity=True.  Its r3centered mode is the bf16 dispatch of
+// renderloom/models/layers.py:instance_norm (:226-236), which the JAX
+// package leaves to XLA (no Pallas kernel).
 // K2b replaces the custom VJP renderloom/models/layers.py:_in_bwd, which
 // the JAX package wrote by hand (jnp, no Pallas kernel).
 //
@@ -75,6 +78,15 @@
 //    step 4 each block averages the four groups' moments of channels c,
 //    Cg+c, 2Cg+c, 3Cg+c.  Parity has no backward: the JAX kernel is
 //    inference-only.
+//  * r3centered (bf16 input, the standard layout; forward only): the
+//    bf16 contract of renderloom/models/layers.py:instance_norm.  The
+//    same chunks, sums and apply with s = 0 (unshifted fp32 moments), the
+//    normalized value rounded to bf16 (nearest even) before the affine,
+//    and, at an affine call site, n * gamma + beta (and the leaky) stored
+//    as float32: the instantiation with a float output (TO = float).
+//    Without affine it stores n as bf16.  Unshifted moments lose
+//    precision when |mean| >> std; that is the contract, which a bf16
+//    input cannot resolve past |mean| / std ~ 2^8 anyway.
 //  * Residuals (training): the block holding part 0 of a slab writes the
 //    per-(b, c) (s, m1, inv) that the backward reads, so the backward
 //    never recomputes the moments.
@@ -102,11 +114,12 @@ namespace cg = cooperative_groups;
 
 // A call's scalars, packed once per shape by ops/norm_kernel.py
 // (_Config): width > 0 selects the parity norm (C divisible by 4, `width`
-// the packed tensor's W, G = C, no residuals); the plan's split; the
-// leaky's slope and eps.
+// the packed tensor's W, G = C, no residuals); the plan's split; r3 the
+// r3centered mode (bf16 input, width 0, no residuals) and out_f32 its
+// float32 output at affine call sites; the leaky's slope and eps.
 struct Config {
   int width, B, n_px, C, G, is_bf16, vec, leaky, grid, parts, rows_per_part,
-      rows_cap, slabs_per_chunk, n_chunks, grid_reduce;
+      rows_cap, slabs_per_chunk, n_chunks, grid_reduce, r3, out_f32;
   float slope, eps;
 };
 
@@ -123,6 +136,10 @@ __device__ __forceinline__ float load_f(__nv_bfloat16 v) {
 __device__ __forceinline__ void store_f(float& p, float v) { p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16& p, float v) {
   p = __float2bfloat16(v);  // round to nearest even, as torch's cast
+}
+// v rounded to bf16 and back (the r3centered mode's astype(bfloat16))
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
 }
 
 // V consecutive elements: 16 bytes on the vector path, one on the scalar.
@@ -146,6 +163,7 @@ struct Args {
   int G;                 // channels per slab (a divisor of C)
   int width;             // parity: packed W; 0: the standard norm
   int leaky;
+  int r3;                // r3centered: s = 0, n rounded to bf16 first
   float slope, eps;
   int parts, rows_per_part, rows_cap, slabs_per_chunk, n_chunks;
   int grid_reduce;       // 1: reduce_pairs and a second barrier
@@ -395,11 +413,13 @@ __device__ void parity_shifts(const T* x, float* shift, int B, int n_px,
 
 // The forward.  Shared memory: the block's rows of x (G channels each),
 // then seven (G,) tables: shift, m1, inv (parity: inv * gamma), gamma,
-// beta, and the slab's two sums.
-template <typename T, bool kVec>
+// beta, and the slab's two sums.  TO is the output type: T, or float for
+// the r3centered mode at an affine call site.
+template <typename T, typename TO, bool kVec>
 __global__ void __launch_bounds__(kThreads, 1) norm_fwd_kernel(Args a) {
   constexpr int V = kVec ? 16 / sizeof(T) : 1;
   using P = Pack<T, V>;
+  using PO = Pack<TO, V>;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red1[kThreads], red2[kThreads];
   cg::grid_group grid = cg::this_grid();
@@ -407,7 +427,7 @@ __global__ void __launch_bounds__(kThreads, 1) norm_fwd_kernel(Args a) {
   const int B = a.B, n_px = a.n_px, C = a.C, G = a.G;
   const bool parity = a.width > 0;  // the plan gives G = C
   const T* x = static_cast<const T*>(a.x);
-  T* out = static_cast<T*>(a.out);
+  TO* out = static_cast<TO*>(a.out);
   float* partial = a.scratch;
   float* sums = partial + (size_t)B * a.parts * 2 * C;
   float* shift = sums + (size_t)B * 2 * C;
@@ -434,8 +454,9 @@ __global__ void __launch_bounds__(kThreads, 1) norm_fwd_kernel(Args a) {
       copy_in<T, kVec>(xs, xg, w.nr_s, G, C);
       for (int k = threadIdx.x; k < G; k += kThreads) {
         const int c = w.c0 + k;
-        t_s[k] = parity ? shift[(size_t)w.b * (C / 4) + c % (C / 4)]
-                        : load_f(x[(size_t)w.b * n_px * C + c]);
+        t_s[k] = a.r3     ? 0.f
+                 : parity ? shift[(size_t)w.b * (C / 4) + c % (C / 4)]
+                          : load_f(x[(size_t)w.b * n_px * C + c]);
         t_g[k] = a.scale ? a.scale[c] : 1.f;
         t_b[k] = a.bias ? a.bias[c] : 0.f;
       }
@@ -505,7 +526,8 @@ __global__ void __launch_bounds__(kThreads, 1) norm_fwd_kernel(Args a) {
     // is folded into t_a, + beta
     const bool mul_g = a.scale && !parity;
     const bool add_b = a.bias != nullptr;
-    P* og = reinterpret_cast<P*>(out + w.off);
+    const bool r3 = a.r3 != 0;
+    PO* og = reinterpret_cast<PO*>(out + w.off);
     for (int j0 = 0; j0 < g.Cv; j0 += g.cols) {
       const int j = j0 + g.col;
       if (g.rowi >= g.rows_par || j >= g.Cv) continue;
@@ -521,9 +543,10 @@ __global__ void __launch_bounds__(kThreads, 1) norm_fwd_kernel(Args a) {
         const P p = r < w.nr_s
             ? reinterpret_cast<const P*>(xs)[(size_t)r * g.Cv + j]
             : reinterpret_cast<const P*>(xg)[(size_t)r * Cv + j];
-        P o;
+        PO o;
         for (int k = 0; k < V; ++k) {
           float y = ((load_f(p.v[k]) - cs[k]) - cm[k]) * ca[k];
+          if (r3) y = round_bf16(y);  // n in bf16, then the fp32 affine
           if (mul_g) y = y * cgm[k];
           if (add_b) y = y + cb[k];
           if (a.leaky) y = y >= 0.f ? y : y * a.slope;
@@ -705,20 +728,30 @@ __global__ void __launch_bounds__(kThreads, 1) norm_bwd_kernel(Args a) {
   }
 }
 
-void* const kKernels[8] = {
-    (void*)norm_fwd_kernel<float, true>,
-    (void*)norm_fwd_kernel<float, false>,
-    (void*)norm_fwd_kernel<__nv_bfloat16, true>,
-    (void*)norm_fwd_kernel<__nv_bfloat16, false>,
+// [bwd * 4 + is_bf16 * 2 + scalar], then the r3centered mode's float
+// output at affine call sites: [8 + scalar]
+void* const kKernels[10] = {
+    (void*)norm_fwd_kernel<float, float, true>,
+    (void*)norm_fwd_kernel<float, float, false>,
+    (void*)norm_fwd_kernel<__nv_bfloat16, __nv_bfloat16, true>,
+    (void*)norm_fwd_kernel<__nv_bfloat16, __nv_bfloat16, false>,
     (void*)norm_bwd_kernel<float, true>,
     (void*)norm_bwd_kernel<float, false>,
     (void*)norm_bwd_kernel<__nv_bfloat16, true>,
     (void*)norm_bwd_kernel<__nv_bfloat16, false>,
+    (void*)norm_fwd_kernel<__nv_bfloat16, float, true>,
+    (void*)norm_fwd_kernel<__nv_bfloat16, float, false>,
 };
 
 // The plan's invariants (ops/norm_kernel.py:_plan), checked before the
-// launch: a plan that breaks one would index outside its buffers.
-bool plan_ok(const Args& a, int bwd, int itemsize, int vec, int grid) {
+// launch: a plan that breaks one would index outside its buffers.  The
+// r3centered mode takes a bf16 input in the standard layout, forward
+// only, and writes no residuals; only it writes float from bf16.
+bool plan_ok(const Args& a, int bwd, int itemsize, int vec, int grid,
+             int out_f32) {
+  if (a.r3 && (bwd || itemsize != 2 || a.width != 0 || a.stats))
+    return false;
+  if (out_f32 && !a.r3) return false;
   const int n_in = bwd ? 2 : 1, n_tables = bwd ? 9 : 7;
   const long long rows =
       ((long long)a.rows_cap * a.G * itemsize * n_in + 15) / 16 * 16;
@@ -730,11 +763,12 @@ bool plan_ok(const Args& a, int bwd, int itemsize, int vec, int grid) {
          (long long)a.slabs_per_chunk * a.n_chunks * a.G >= (long long)a.B * a.C;
 }
 
-int launch(int bwd, int is_bf16, int vec, int grid, Args& a,
+int launch(int bwd, int is_bf16, int vec, int grid, int out_f32, Args& a,
            cudaStream_t stream) {
-  if (!plan_ok(a, bwd, is_bf16 ? 2 : 4, vec, grid))
+  if (!plan_ok(a, bwd, is_bf16 ? 2 : 4, vec, grid, out_f32))
     return static_cast<int>(cudaErrorInvalidValue);
-  void* fn = kKernels[bwd * 4 + is_bf16 * 2 + (vec ? 0 : 1)];
+  void* fn = out_f32 ? kKernels[8 + (vec ? 0 : 1)]
+                     : kKernels[bwd * 4 + is_bf16 * 2 + (vec ? 0 : 1)];
   void* params[] = {&a};
   cudaError_t err = cudaLaunchCooperativeKernel(
       fn, dim3(grid), dim3(kThreads), params, kDynSmem, stream);
@@ -753,6 +787,7 @@ Args args(const Config& k) {
   a.G = k.G;
   a.width = k.width;
   a.leaky = k.leaky;
+  a.r3 = k.r3;
   a.slope = k.slope;
   a.eps = k.eps;
   a.parts = k.parts;
@@ -792,7 +827,7 @@ extern "C" int rl_norm_device(int* n_sms, int* blocks_per_sm,
 }
 
 // scratch: B * parts * 2 * C + B * 2 * C floats, plus B * C / 4 for
-// parity.
+// parity.  out: x's type, or float for the r3centered mode with affine.
 extern "C" int rl_instance_norm(const void* x, void* out, const void* scale,
                                 const void* bias, void* stats, void* scratch,
                                 const Config* k, void* stream) {
@@ -803,7 +838,7 @@ extern "C" int rl_instance_norm(const void* x, void* out, const void* scale,
   a.bias = static_cast<const float*>(bias);
   a.stats = static_cast<float*>(stats);
   a.scratch = static_cast<float*>(scratch);
-  return launch(0, k->is_bf16, k->vec, k->grid, a,
+  return launch(0, k->is_bf16, k->vec, k->grid, k->out_f32, a,
                 static_cast<cudaStream_t>(stream));
 }
 
@@ -823,6 +858,6 @@ extern "C" int rl_instance_norm_bwd(const void* x, const void* dy,
   a.scratch = static_cast<float*>(scratch);
   a.dscale = static_cast<float*>(dscale);
   a.dbias = static_cast<float*>(dbias);
-  return launch(1, k->is_bf16, k->vec, k->grid, a,
+  return launch(1, k->is_bf16, k->vec, k->grid, 0, a,
                 static_cast<cudaStream_t>(stream));
 }

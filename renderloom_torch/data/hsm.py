@@ -76,15 +76,18 @@ def _label_layout(ras, B, F, H, W, packed_label):
 def prepare_batch(batch: Dict[str, torch.Tensor], cfg: RendererDataConfig,
                   draws: Optional[Dict[str, torch.Tensor]] = None,
                   label_dtype: Optional[torch.dtype] = None,
-                  packed_label: bool = False) -> Dict[str, torch.Tensor]:
+                  packed_label: bool = False,
+                  want_masks: bool = True) -> Dict[str, torch.Tensor]:
     """``batch``: images/dain (B, F, H0, W0, 3) in [0, 255] (dain already
     shifted to t−1 per frame), poses (B, F, 19, 3) xy + conf in source
-    pixels.  Returns label (B, F, H, W, 22) float32 and image/back
-    (B, F, H, W, 3) in [-1, 1].
+    pixels.  Returns label (B, F, H, W, 22) float32, image/back
+    (B, F, H, W, 3) in [-1, 1] and the human mask ``fg_mask``
+    (B, F, H, W, 1) float32 0/1.
 
     ``draws`` (:func:`draw_train_randomness`, on the batch's device)
-    selects the train branch, which also returns ``fg_mask``
-    (B, F, H, W, 1).  ``label_dtype`` (default float32) is the label
+    selects the train branch.  ``want_masks=False`` (serving, the
+    deterministic branch only) drops ``fg_mask``, and the kernel then
+    skips the mask capsules (the JAX ``want_masks``).  ``label_dtype`` (default float32) is the label
     stream's type, which the kernel casts to at the store (bf16 halves
     the label's bytes); ``packed_label`` emits it parity-packed,
     (B, F, H/2, W/2, 88) = space_to_depth of each frame's label, which
@@ -117,9 +120,12 @@ def prepare_batch(batch: Dict[str, torch.Tensor], cfg: RendererDataConfig,
     ras = rasterize_frames_fused(
         coords.reshape(B * F, -1, 2), conf.reshape(B * F, -1), H, W,
         gauss_sigma=cfg.gauss_sigma, thres=cfg.skeleton_thres,
-        foot_thres=cfg.foot_thres, **layout)
-    return {"label": _label_layout(ras, B, F, H, W, packed_label),
-            "image": images_t, "back": _zero_first_back(dain_t, dain)}
+        foot_thres=cfg.foot_thres, emit_masks=want_masks, **layout)
+    out = {"label": _label_layout(ras, B, F, H, W, packed_label),
+           "image": images_t, "back": _zero_first_back(dain_t, dain)}
+    if want_masks:
+        out["fg_mask"] = ras["mask"].reshape(B, F, H, W, 1)
+    return out
 
 
 def _zero_first_back(back: torch.Tensor, dain: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,9 @@ from renderloom_torch.convert import load_flax_params, random_init_
 from renderloom_torch.data.hsm import prepare_batch
 from renderloom_torch.eval.motion_infer import (MotionInterpolator,
                                                 bucket_length)
-from renderloom_torch.models.motion_transformer import build_motion_model
+from renderloom_torch.models.layers import cast_weights_
+from renderloom_torch.models.motion_transformer import (Dense,
+                                                        build_motion_model)
 from renderloom_torch.ops.flow import upsample_background
 from renderloom_torch.ops.image import separable_resize
 from renderloom_torch.train.gan import (make_inference_pair,
@@ -83,7 +85,8 @@ def make_pipeline_fn(interp: MotionInterpolator, rollout: Callable,
         prep = prepare_batch({"images": images, "dain": backs * 255.0,
                               "poses": poses}, data_cfg,
                              label_dtype=torch.bfloat16 if label_bf16
-                             else None, packed_label=packed_label)
+                             else None, packed_label=packed_label,
+                             want_masks=False)
         fused, _ = rollout({"label": prep["label"], "back": prep["back"],
                             "key_img": prep["image"]})
         return fused, fused.sum() * 1e-20
@@ -101,12 +104,15 @@ def build_pipeline(mcfg, rcfg, rate: int, keyframes: int, *,
     ``device`` (the card unless the caller asks for the CPU; without a
     CUDA device a CUDA request raises).
 
-    ``fastpath``: the JAX ``build_pipeline(platform="tpu")``
-    configuration: the parity-layout generator
+    ``fastpath``: the parity-layout generator
     (:class:`renderloom_torch.models.fastpath.FastInferenceGen`) over
     the same folded weights, and the label stream parity-packed and
     stored in bf16.  The default is the standard generator on an NHWC
-    float32 label.
+    float32 label.  Each model computes in its config's
+    ``compute_dtype``: ``mcfg`` and ``rcfg`` in bfloat16 with
+    ``fastpath=True`` is the JAX ``build_pipeline(platform="tpu")``
+    configuration that ``bench.py`` serves; without the fastpath it is
+    the standard generator in bf16.
 
     ``m_params`` / ``g_params`` + ``g_stats``: numpy flax trees of trained
     weights (spectral norm is folded here); seeded random weights when
@@ -124,7 +130,7 @@ def build_pipeline(mcfg, rcfg, rate: int, keyframes: int, *,
         random_init_(m_model, 0)
     else:
         load_flax_params(m_model, m_params)
-    m_model = m_model.to(device).eval()
+    m_model = cast_weights_(m_model.to(device).eval(), (Dense,))
     interp = MotionInterpolator(
         m_model, np.zeros((19, 2), np.float32) if mean is None else mean,
         np.ones((19, 2), np.float32) if std is None else std, device)

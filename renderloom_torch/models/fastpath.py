@@ -22,7 +22,16 @@ space-to-depth tensors (spatial/2 on each side, channels ×4, channel
 
 Tensors are NHWC as in the rest of the port; kernels are OIHW.  Every
 norm goes through :func:`renderloom_torch.ops.norm_kernel.instance_norm`
-(K2 and K2 parity on the card, their twins on the CPU).  The JAX
+(K2 and K2 parity on the card, their twins on the CPU).
+
+Compute dtype, as the JAX module's ``cdt``: the inputs are cast to it
+once, and a convolution casts its kernel and bias to the dtype of its
+input (``k.astype(x.dtype)``), so the transformed kernels stay in
+float32 (built from the float32 weights, cast at use, never cast and
+then summed).  Under bfloat16 the parity norms keep x's dtype and the
+standard-layout norms take the r3centered contract, whose affine form
+returns float32: the mask net's residual blocks and up path then run in
+float32, as the JAX fast path does on the TPU.  The JAX
 module's dispatch policy (the ``RENDERLOOM_FASTPATH``,
 ``RENDERLOOM_PACKED_LEVELS`` and ``RENDERLOOM_PALLAS_NORM*`` switches,
 the batch gate and the compile probe with its fallback) is not carried
@@ -127,7 +136,8 @@ def _conv(x: torch.Tensor, k: torch.Tensor, b: Optional[torch.Tensor] = None,
         xn, pad = F.pad(xn, (1, 0, 1, 0)), 0
     else:
         pad = (k.shape[-1] - 1) // 2
-    return F.conv2d(xn, k, b, 1, pad, 1, groups).permute(0, 2, 3, 1)
+    return F.conv2d(xn, k.to(x.dtype), None if b is None else b.to(x.dtype),
+                    1, pad, 1, groups).permute(0, 2, 3, 1)
 
 
 def _norm(h: torch.Tensor, ns: Optional[torch.Tensor] = None,
@@ -459,17 +469,21 @@ class FastInferenceGen(nn.Module):
     """The inference generator in the parity layout: ``forward(label,
     label_prev, img_warped, img_prev) → (img, mask)`` as
     :class:`renderloom_torch.models.renderer.Generator`'s, on the
-    transformed weights of a folded ``Generator`` (held as buffers, so
-    ``.to()`` moves them).  ``label`` may be NHWC (B, H, W, 22) or
+    transformed weights of a folded float32 ``Generator`` (held as
+    float32 buffers, so ``.to()`` moves them), computing in the
+    generator's ``dtype``.  ``label`` may be NHWC (B, H, W, 22) or
     pre-packed (B, H/2, W/2, 88), as the rasterizer's packed layout gives
-    it; a bf16 label is computed in float32.  Inference only: the
-    weights are buffers and the parity norm has no backward."""
+    it, in any float type.  Inference only: the weights are buffers and
+    the parity and r3centered norms have no backward."""
 
     def __init__(self, gen, cfg: GeneratorConfig, packed_levels: int = 2):
         super().__init__()
+        if gen.conv_img.conv.weight.dtype != torch.float32:
+            raise ValueError("the parity-layout kernels are built from "
+                             "the float32 weights")
         self.cfg = cfg
         self.packed_levels = packed_levels
-        self.dtype = gen.conv_img.conv.weight.dtype
+        self.dtype = gen.dtype
         tree = {"mask": transform_mask_params(gen.mask_net),
                 "embed": transform_embed_params(gen.ref_embed),
                 "trunk": transform_trunk_params(gen, cfg, packed_levels)}

@@ -23,6 +23,17 @@ Every instance norm goes through :func:`renderloom_torch.ops.
 norm_kernel.instance_norm`: the CUDA kernels for a tensor on the card,
 their plain twins for a tensor on the CPU, with a gradient on either.
 
+Compute dtype, as flax's ``dtype=``: parameters are float32 masters,
+and a convolution casts its input and its kernel (and bias) to its
+``compute_dtype`` (:func:`set_compute_dtype`; float32 by default),
+accumulates in float32 and returns the compute dtype.  Under bfloat16
+an instance norm takes the r3centered contract (:mod:`renderloom_torch.
+ops.norm_kernel`): an affine norm returns float32, which the next
+convolution casts back, a norm without affine returns bf16.
+:func:`cast_weights_` casts the convolutions' weights once for
+inference (the same numbers as the cast at each call, half the bytes);
+the norms' γ, β stay float32.
+
 Parameter names follow the flax param tree (``conv``, ``norm``,
 ``spade0``, ...), so :mod:`renderloom_torch.convert` loads a JAX tree by
 name.
@@ -57,6 +68,7 @@ class Conv(nn.Module):
         super().__init__()
         self.stride = stride
         self.padding = (kernel - 1) // 2
+        self.compute_dtype = torch.float32
         self.weight = nn.Parameter(
             torch.empty(features, in_ch, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias \
@@ -65,11 +77,38 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor,
                 weight: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``weight`` (default: the parameter) is the OIHW kernel to
-        convolve with, e.g. a spectral-normalized one."""
-        y = F.conv2d(x.permute(0, 3, 1, 2),
-                     self.weight if weight is None else weight, self.bias,
+        convolve with, e.g. a spectral-normalized one.  Input, kernel
+        and bias are cast to ``compute_dtype`` (a no-op where they have
+        it already)."""
+        dt = self.compute_dtype
+        w = self.weight if weight is None else weight
+        b = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), w.to(dt), b,
                      self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype,
+                      types: tuple = (Conv,)) -> nn.Module:
+    """Every module of ``types`` under ``module`` computes in ``dtype``."""
+    for m in module.modules():
+        if isinstance(m, types):
+            m.compute_dtype = dtype
+    return module
+
+
+def cast_weights_(module: nn.Module, types: tuple = (Conv,)) -> nn.Module:
+    """Cast the weight and bias of each module of ``types`` under
+    ``module`` to its compute dtype, once, for inference; everything
+    else (the norms' γ, β) stays as it is."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, types):
+                for name in ("weight", "bias"):
+                    p = getattr(m, name)
+                    if p is not None:
+                        p.data = p.data.to(m.compute_dtype)
+    return module
 
 
 def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

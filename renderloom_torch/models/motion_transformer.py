@@ -13,6 +13,16 @@ batch-first (B, L, C), with the reference's quirks kept:
 * attention is written as the JAX code writes it, explicit matmuls and
   a softmax.
 
+Compute dtype (the config's ``compute_dtype``), as flax's ``dtype=``:
+parameters are float32; a dense layer (:class:`Dense`) casts its input
+and weights to the compute dtype and returns it; a layer norm
+(:class:`LayerNorm`) takes its statistics in float32 and returns the
+compute dtype; the attention logits and the softmax are float32 (the
+JAX einsum's ``preferred_element_type``), the weights cast back; the
+positional encodings and the sequences run in the compute dtype, and the
+outputs are float32.  ``layers.cast_weights_(model, (Dense,))`` casts the
+dense weights once for inference (the same numbers, half the bytes).
+
 Module and parameter names follow the flax tree, so
 :mod:`renderloom_torch.convert` loads a JAX tree by name.
 """
@@ -26,10 +36,34 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from renderloom_torch.core.config import PosEncodeConfig, TransformerConfig
+from renderloom_torch.core.config import (PosEncodeConfig, TransformerConfig,
+                                           torch_dtype)
+from renderloom_torch.models.layers import set_compute_dtype
 
 NEG_INF = -1e9
 LN_EPS = 1e-6
+
+
+class Dense(nn.Linear):
+    """``nn.Dense(dtype=...)``: input, weight and bias cast to
+    ``compute_dtype``, the product accumulated in float32."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(dtype=...)``: statistics and the affine in
+    float32, the output in ``compute_dtype``."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.compute_dtype)
 
 
 def sine_position_encoding(batch: int, length: int, dim: int,
@@ -73,10 +107,10 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, dim: int, heads: int):
         super().__init__()
         self.heads = heads
-        self.q_proj = nn.Linear(dim, dim)
-        self.k_proj = nn.Linear(dim, dim)
-        self.v_proj = nn.Linear(dim, dim)
-        self.out_proj = nn.Linear(dim, dim)
+        self.q_proj = Dense(dim, dim)
+        self.k_proj = Dense(dim, dim)
+        self.v_proj = Dense(dim, dim)
+        self.out_proj = Dense(dim, dim)
 
     def forward(self, q_in, k_in, v_in, q_pos=None, k_pos=None,
                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -89,11 +123,13 @@ class MultiHeadAttention(nn.Module):
         q = q.reshape(B, Lq, self.heads, hd)
         k = k.reshape(B, Lk, self.heads, hd)
         v = v.reshape(B, Lk, self.heads, hd)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q * (1.0 / math.sqrt(hd)),
-                              k)
+        # float32 logits of the compute-dtype q and k (a bf16 matmul
+        # would round them to bf16)
+        logits = torch.einsum("bqhd,bkhd->bhqk",
+                              (q * (1.0 / math.sqrt(hd))).float(), k.float())
         if bias is not None:
             logits = logits + bias
-        weights = torch.softmax(logits, dim=-1)
+        weights = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
         return self.out_proj(out.reshape(B, Lq, D))
 
@@ -102,8 +138,8 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, hidden: int, activation: str):
         super().__init__()
         self.act = _activation(activation)
-        self.linear1 = nn.Linear(dim, hidden)
-        self.linear2 = nn.Linear(hidden, dim)
+        self.linear1 = Dense(dim, hidden)
+        self.linear2 = Dense(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.linear2(self.act(self.linear1(x)))
@@ -116,8 +152,8 @@ class EncoderLayer(nn.Module):
         self.self_attn = MultiHeadAttention(c.hidden_dim, c.nheads)
         self.ffn = FeedForward(c.hidden_dim, c.dim_feedforward,
                                c.activation)
-        self.norm1 = nn.LayerNorm(c.hidden_dim, eps=LN_EPS)
-        self.norm2 = nn.LayerNorm(c.hidden_dim, eps=LN_EPS)
+        self.norm1 = LayerNorm(c.hidden_dim, eps=LN_EPS)
+        self.norm2 = LayerNorm(c.hidden_dim, eps=LN_EPS)
 
     def forward(self, x, pos, bias):
         if self.pre_norm:
@@ -136,9 +172,9 @@ class DecoderLayer(nn.Module):
         self.cross_attn = MultiHeadAttention(c.hidden_dim, c.nheads)
         self.ffn = FeedForward(c.hidden_dim, c.dim_feedforward,
                                c.activation)
-        self.norm1 = nn.LayerNorm(c.hidden_dim, eps=LN_EPS)
-        self.norm2 = nn.LayerNorm(c.hidden_dim, eps=LN_EPS)
-        self.norm3 = nn.LayerNorm(c.hidden_dim, eps=LN_EPS)
+        self.norm1 = LayerNorm(c.hidden_dim, eps=LN_EPS)
+        self.norm2 = LayerNorm(c.hidden_dim, eps=LN_EPS)
+        self.norm3 = LayerNorm(c.hidden_dim, eps=LN_EPS)
 
     def forward(self, x, memory, q_pos, mem_pos, self_bias, cross_bias):
         if self.pre_norm:
@@ -181,23 +217,26 @@ class MotionTransformer(nn.Module):
     masks (B, L) bool with True = hidden.  Returns ``(joints, reco)``:
     the refined sequence and the denoised keyframes, both (B, L, C)."""
 
-    def __init__(self, cfg: TransformerConfig, pos_cfg: PosEncodeConfig):
+    def __init__(self, cfg: TransformerConfig, pos_cfg: PosEncodeConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if pos_cfg.position_embedding != "v2":
             raise NotImplementedError(
                 f"position_embedding {pos_cfg.position_embedding!r}: the "
                 "port has the sine encoding ('v2') only")
         self.cfg = cfg
+        self.dtype = dtype
         self.pe_dim = pos_cfg.hidden_dim
-        self.input_embed = nn.Linear(cfg.input_joints, cfg.hidden_dim)
-        self.joints_embed = nn.Linear(cfg.hidden_dim, cfg.input_joints)
+        self.input_embed = Dense(cfg.input_joints, cfg.hidden_dim)
+        self.joints_embed = Dense(cfg.hidden_dim, cfg.input_joints)
         for i in range(cfg.enc_layers):
             setattr(self, f"enc_{i}", EncoderLayer(cfg))
         for i in range(cfg.dec_layers):
             setattr(self, f"dec_{i}", DecoderLayer(cfg))
         if cfg.pre_norm:
-            self.encoder_norm = nn.LayerNorm(cfg.hidden_dim, eps=LN_EPS)
-        self.decoder_norm = nn.LayerNorm(cfg.hidden_dim, eps=LN_EPS)
+            self.encoder_norm = LayerNorm(cfg.hidden_dim, eps=LN_EPS)
+        self.decoder_norm = LayerNorm(cfg.hidden_dim, eps=LN_EPS)
+        set_compute_dtype(self, dtype, (Dense, LayerNorm))
 
     def encode(self, src_embed, src_mask, pos):
         L = src_embed.shape[1]
@@ -223,21 +262,20 @@ class MotionTransformer(nn.Module):
     def forward(self, src, src_mask, tgt, tgt_mask, rate: int,
                 lengths: Optional[torch.Tensor] = None):
         B, L, _ = src.shape
+        src = src.to(self.dtype)
         pos = sine_position_encoding(B, L, self.pe_dim, lengths=lengths,
-                                     device=src.device)
+                                     device=src.device).to(self.dtype)
         mem = self.encode(self.input_embed(src), src_mask, pos)
         reco = self.joints_embed(mem) + src
         center = interpolate_embedding(reco, rate) if self.cfg.two_stage \
-            else tgt
+            else tgt.to(self.dtype)
         out = self.decode(mem, src_mask, pos, self.input_embed(center),
                           tgt_mask, pos)
-        return self.joints_embed(out) + center, reco
+        return (self.joints_embed(out) + center).float(), reco.float()
 
 
 def build_motion_model(cfg) -> MotionTransformer:
-    """The motion transformer of a :class:`MotionConfig` (float32)."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r}: the port runs the motion "
-            "transformer in float32 only")
-    return MotionTransformer(cfg.transformer, cfg.pos_encode)
+    """The motion transformer of a :class:`MotionConfig`, computing in
+    its ``compute_dtype`` (float32 or bfloat16) on float32 parameters."""
+    return MotionTransformer(cfg.transformer, cfg.pos_encode,
+                             torch_dtype(cfg.compute_dtype))

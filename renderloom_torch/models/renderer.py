@@ -15,7 +15,10 @@ from the config, as flax infers them at init.  Forwards take
 ``update_stats`` like the flax modules: with the spectral-norm state of
 :func:`renderloom_torch.models.layers.enable_spectral_norm` it stores
 each power step's ``u`` (training); serving modules have folded weights
-and ignore it.
+and ignore it.  ``Generator(cfg, dtype)`` computes in ``dtype``
+(float32 or bfloat16), as the flax module's ``dtype``: its
+convolutions cast their inputs to it (:func:`renderloom_torch.models.
+layers.set_compute_dtype`) and its outputs are in it.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ from renderloom_torch.core.config import GeneratorConfig
 from renderloom_torch.models.layers import (Conv, ConvBlock, ResBlockCNACN,
                                             SNConv, SpadeResBlock,
                                             avg_pool_3x3s2, leaky,
-                                            upsample2x)
+                                            set_compute_dtype, upsample2x)
 
 
 def _filters(base: int, cap: int, level: int) -> int:
@@ -113,12 +116,15 @@ class MaskGenerator(nn.Module):
 
 class Generator(nn.Module):
     """SPADE generator: ``forward(label, label_prev, img_warped,
-    img_prev) → (img, mask)``.  ``label_prev`` is accepted for interface
-    parity and unused, as in the reference forward."""
+    img_prev) → (img, mask)``, both in ``dtype``.  ``label_prev`` is
+    accepted for interface parity and unused, as in the reference
+    forward."""
 
-    def __init__(self, cfg: GeneratorConfig):
+    def __init__(self, cfg: GeneratorConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         g = cfg
+        self.dtype = dtype
         spectral = g.weight_norm_type == "spectral"
         self.n_down = g.num_downsamples
         self.n_res = int(-(-(g.num_layers - g.num_downsamples) // 2) * 2)
@@ -145,6 +151,7 @@ class Generator(nn.Module):
                                spectral=False)
         self.mask_net = MaskGenerator(g, g.input_label_nc,
                                       3 * g.input_image_nc)
+        set_compute_dtype(self, dtype)
 
     def forward(self, label: torch.Tensor, label_prev: torch.Tensor,
                 img_warped: torch.Tensor, img_prev: torch.Tensor,
@@ -153,9 +160,12 @@ class Generator(nn.Module):
         cond = self.ref_embed(torch.cat([img_warped, img_prev], dim=-1),
                               update_stats)
         img = self.trunk(label, cond, update_stats)
-        mask = self.mask_net(label, torch.cat([img_prev, img_warped, img],
-                                              dim=-1), update_stats)
-        return img, mask
+        # the mask net's images in the compute dtype, as the flax module
+        # casts their concatenation
+        imgs = torch.cat([img_prev, img_warped, img.to(img_prev.dtype)],
+                         dim=-1).to(self.dtype)
+        mask = self.mask_net(label, imgs, update_stats)
+        return img, mask.to(img.dtype)
 
     def trunk(self, label: torch.Tensor, cond: List[torch.Tensor],
               update_stats: bool = False) -> torch.Tensor:

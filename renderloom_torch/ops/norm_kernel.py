@@ -31,10 +31,21 @@ moments of ``x − s`` averaged over the groups, ``(d − m1)·(inv·γ) + β``
 with γ, β already parity-tiled (4C,).  It is inference-only, as the JAX
 kernel is: a call that autograd would record raises.
 
-:func:`instance_norm` runs the kernels for a CUDA tensor and the twins
-for a CPU tensor, through :class:`InstanceNormFunction` whenever a
-gradient is wanted; it never falls back from one device's path to the
-other's.
+``r3centered=True`` is the bf16 contract of the JAX package's
+``models/layers.py:instance_norm`` (its dtype dispatch, :186-188 and
+:226-236), which XLA computes there (no Pallas kernel): unshifted fp32
+moments ``m1 = E[x]``, ``m2 = E[x²]``, ``n = bf16((x − m1)·rsqrt(var +
+eps))`` rounded to nearest even, and, at an affine call site, ``n·γ +
+β`` (then the fused leaky) returned in float32; without affine ``n`` in
+bf16.  It is K2's forward with the shift 0 and the rounding before the
+affine, forward only until the bf16 training slice gives it a backward.
+
+:func:`instance_norm` picks the contract by the input, as the JAX
+dispatch does: r3centered for a bf16 tensor in the standard layout, the
+shifted fp32 contract otherwise, the parity norm when asked.  It runs
+the kernels for a CUDA tensor and the twins for a CPU tensor, through
+:class:`InstanceNormFunction` whenever a gradient is wanted; it never
+falls back from one device's path to the other's.
 """
 
 from __future__ import annotations
@@ -102,14 +113,33 @@ def _plain_parity(x, scale, bias, slope, eps):
     return out.to(x.dtype)
 
 
+def _plain_r3centered(x, scale, bias, slope, eps):
+    """``layers.instance_norm``'s bf16 body (``r3centered``) + the fused
+    leaky: bf16 ``n`` without affine, float32 ``n·γ + β`` with it."""
+    x32 = x.float()
+    m1 = x32.mean(dim=(1, 2), keepdim=True)
+    m2 = (x32 * x32).mean(dim=(1, 2), keepdim=True)
+    var = torch.clamp(m2 - m1 * m1, min=0.0)
+    out = ((x32 - m1) * torch.rsqrt(var + eps)).to(torch.bfloat16)
+    if scale is not None:
+        out = out.float() * scale
+        out = out + bias
+    if slope is not None:
+        out = torch.where(out >= 0, out, out * slope)
+    return out
+
+
 def instance_norm_plain(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                         bias: Optional[torch.Tensor] = None,
                         slope: Optional[float] = None,
                         eps: float = EPS,
-                        parity: bool = False) -> torch.Tensor:
+                        parity: bool = False,
+                        r3centered: bool = False) -> torch.Tensor:
     """The forward kernel's arithmetic in plain PyTorch, x (B, H, W, C)."""
     if parity:
         return _plain_parity(x, scale, bias, slope, eps)
+    if r3centered:
+        return _plain_r3centered(x, scale, bias, slope, eps)
     return _plain_forward(x, scale, bias, slope, eps)[0]
 
 
@@ -229,8 +259,8 @@ class _Config(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "width", "B", "n_px", "C", "G", "is_bf16", "vec", "leaky", "grid",
         "parts", "rows_per_part", "rows_cap", "slabs_per_chunk",
-        "n_chunks", "grid_reduce")] + [("slope", ctypes.c_float),
-                                       ("eps", ctypes.c_float)]
+        "n_chunks", "grid_reduce", "r3", "out_f32")] + [
+            ("slope", ctypes.c_float), ("eps", ctypes.c_float)]
 
 
 _lib: Optional[ctypes.CDLL] = None
@@ -271,11 +301,12 @@ def _device(index: int) -> Tuple[int, int, int]:
 
 
 def _config(x: torch.Tensor, n_inputs: int, width: int, slope, eps: float,
-            vec: bool) -> Tuple[_Config, int]:
+            vec: bool, r3: bool = False,
+            out_f32: bool = False) -> Tuple[_Config, int]:
     """The packed scalars of a call on ``x`` and its scratch size in
     floats, made once per (shape, dtype, device, options)."""
     key = (x.shape, x.dtype, x.device.index, n_inputs, width, slope, eps,
-           vec)
+           vec, r3, out_f32)
     hit = _configs.get(key)
     if hit is None:
         B, H, W, C = x.shape
@@ -288,7 +319,8 @@ def _config(x: torch.Tensor, n_inputs: int, width: int, slope, eps: float,
                       int(slope is not None), p["grid"], p["parts"],
                       p["rows_per_part"], p["rows_cap"],
                       p["slabs_per_chunk"], p["n_chunks"],
-                      int(p["grid_reduce"]), float(slope or 0.0), float(eps))
+                      int(p["grid_reduce"]), int(r3), int(out_f32),
+                      float(slope or 0.0), float(eps))
         hit = _configs[key] = (cfg, _scratch_floats(B, C, p["parts"],
                                                     width > 0))
     return hit
@@ -329,27 +361,36 @@ def instance_norm_cuda(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                        slope: Optional[float] = None,
                        eps: float = EPS,
                        stats: Optional[torch.Tensor] = None,
-                       parity: bool = False) -> torch.Tensor:
+                       parity: bool = False,
+                       r3centered: bool = False) -> torch.Tensor:
     """Launch ``rl_instance_norm`` on the current stream.  With
     ``stats`` (a contiguous (B, C, 3) float32 CUDA tensor) the kernel
     also writes the residuals ``s, m1, inv`` that the backward reads.
     ``parity`` takes the parity shift and reduction (counted in
-    ``instance_norm_cuda.parity_launches``, the standard norm in
-    ``.launches``)."""
+    ``instance_norm_cuda.parity_launches``); ``r3centered`` the bf16
+    contract of ``layers.instance_norm`` (a bf16 x; float32 output with
+    affine; counted in ``.r3_launches``); the shifted standard norm is
+    counted in ``.launches``."""
     _check_input(x, "instance_norm_cuda")
     _check_affine(x, scale, bias)
     B, H, W, C = x.shape
     if parity and (C % 4 or stats is not None):
         raise ValueError("the parity norm needs C divisible by 4 and "
                          "writes no residuals")
+    if r3centered and (parity or stats is not None
+                       or x.dtype != torch.bfloat16):
+        raise ValueError("the r3centered norm takes a bfloat16 x in the "
+                         "standard layout and writes no residuals")
     if stats is not None and (stats.shape != (B, C, 3)
                               or stats.dtype != torch.float32
                               or stats.device != x.device
                               or not stats.is_contiguous()):
         raise ValueError(f"stats must be contiguous float32 ({B}, {C}, 3)")
+    out_f32 = r3centered and scale is not None
     cfg, n_scratch = _config(x, 1, W if parity else 0, slope, eps,
-                             x.data_ptr() % 16 == 0)
-    out = torch.empty_like(x)
+                             x.data_ptr() % 16 == 0, r3centered, out_f32)
+    out = torch.empty(x.shape, device=x.device,
+                      dtype=torch.float32 if out_f32 else x.dtype)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
     err = _library().rl_instance_norm(
         x.data_ptr(), out.data_ptr(), _ptr(scale), _ptr(bias), _ptr(stats),
@@ -359,14 +400,17 @@ def instance_norm_cuda(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
         raise RuntimeError(f"rl_instance_norm launch failed: CUDA error {err}")
     if parity:
         instance_norm_cuda.parity_launches += 1
+    elif r3centered:
+        instance_norm_cuda.r3_launches += 1
     else:
         instance_norm_cuda.launches += 1
     return out
 
 
-# kernel launches since the last reset: standard and parity norms
+# kernel launches since the last reset: shifted, parity and r3centered
 instance_norm_cuda.launches = 0
 instance_norm_cuda.parity_launches = 0
+instance_norm_cuda.r3_launches = 0
 
 
 def instance_norm_bwd_cuda(x: torch.Tensor, dy: torch.Tensor,
@@ -439,12 +483,16 @@ def instance_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                   slope: Optional[float] = None,
                   eps: float = EPS, parity: bool = False) -> torch.Tensor:
     """Instance norm of NHWC ``x``: the CUDA kernels for a CUDA tensor,
-    the plain twins for a CPU tensor.  When autograd records, the call
-    goes through :class:`InstanceNormFunction`, so the gradient reaches
-    x, γ and β on either device.  ``parity``: the space-to-depth norm,
-    inference only (a call autograd would record raises)."""
+    the plain twins for a CPU tensor.  A bf16 ``x`` in the standard
+    layout takes the r3centered contract (float32 output with affine),
+    as the JAX ``layers.instance_norm`` dispatches on the dtype.  When
+    autograd records, the call goes through :class:`InstanceNormFunction`,
+    so the gradient reaches x, γ and β on either device.  ``parity``: the
+    space-to-depth norm.  The parity and r3centered norms are inference
+    only: a call autograd would record raises."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {x.device}")
+    r3 = x.dtype == torch.bfloat16 and not parity
     wants_grad = torch.is_grad_enabled() and (
         x.requires_grad or (scale is not None and scale.requires_grad)
         or (bias is not None and bias.requires_grad))
@@ -452,7 +500,11 @@ def instance_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
         if parity:
             raise RuntimeError("the parity instance norm is inference-only: "
                                "it has no backward")
+        if r3:
+            raise RuntimeError("the bf16 (r3centered) instance norm is "
+                               "inference-only: it has no backward yet")
         return InstanceNormFunction.apply(x, scale, bias, slope, eps)
     if x.is_cuda:
-        return instance_norm_cuda(x, scale, bias, slope, eps, parity=parity)
-    return instance_norm_plain(x, scale, bias, slope, eps, parity)
+        return instance_norm_cuda(x, scale, bias, slope, eps, parity=parity,
+                                  r3centered=r3)
+    return instance_norm_plain(x, scale, bias, slope, eps, parity, r3)

@@ -12,11 +12,13 @@ Port of the JAX package's ``renderloom/train/gan.py``:
   Python loop.  Two AMSGrad optimizers (TTUR) wrapped like
   ``optax.apply_if_finite``, written out in :class:`AmsgradIfFinite`;
 * inference (``make_inference_generator``, ``make_inference_pair``,
-  ``make_segment_rollout``): the spectral-norm-folded generator and
-  the segment-parallel rollout.
+  ``make_rollout``, ``rollout_chunked``, ``make_segment_rollout``,
+  ``segment_rollout_chunked``): the spectral-norm-folded generator in
+  the config's compute dtype (float32 or bfloat16), optionally in the
+  parity layout, the sequential and the segment-parallel rollouts, and
+  their chunked forms for long clips.
 
-The parity-layout fast path and ``segment_rollout_chunked`` are not
-ported yet.
+Training runs in float32 only (ROADMAP, Queue 1: bf16 training).
 """
 
 from __future__ import annotations
@@ -29,11 +31,12 @@ import torch.nn as nn
 
 from renderloom_torch.convert import (fold_spectral_norm, load_flax_params,
                                       random_init_)
-from renderloom_torch.core.config import RendererConfig
+from renderloom_torch.core.config import RendererConfig, torch_dtype
 from renderloom_torch.data.hsm import draw_train_randomness, prepare_batch
 from renderloom_torch.models.discriminator import DiscriminatorSet
 from renderloom_torch.models.fastpath import FastInferenceGen
-from renderloom_torch.models.layers import enable_spectral_norm
+from renderloom_torch.models.layers import (cast_weights_,
+                                            enable_spectral_norm)
 from renderloom_torch.models.perceptual import PerceptualLoss
 from renderloom_torch.models.renderer import Generator, composite
 from renderloom_torch.train.gan_losses import (feature_matching_loss,
@@ -178,7 +181,8 @@ def create_gan_state(cfg: RendererConfig, device, seed: int = 0,
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype {cfg.compute_dtype!r}: the port trains in "
-            "float32 only")
+            "float32 only; bf16 training is ROADMAP Queue 1's next item "
+            "(bf16 training)")
     set_float32_precision()
     gen = enable_spectral_norm(Generator(cfg.gen))
     dis = enable_spectral_norm(DiscriminatorSet(cfg.dis))
@@ -359,14 +363,11 @@ def make_gan_train_step(cfg: RendererConfig, perceptual: PerceptualLoss,
 
 
 def make_inference_generator(cfg: RendererConfig) -> Generator:
-    """The generator the rollout runs: spectral norm folded into the
-    weights, float32 compute.  The config's weight-norm types are kept so
-    the random initializer knows which weights to normalize."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r}: the port runs the "
-            "generator in float32 only")
-    return Generator(cfg.gen)
+    """The generator the rollout runs, in the config's compute dtype, with
+    float32 parameters for the folded weights to load into.  The
+    config's weight-norm types are kept so the random initializer knows
+    which weights to normalize."""
+    return Generator(cfg.gen, torch_dtype(cfg.compute_dtype))
 
 
 def make_inference_pair(cfg: RendererConfig, params_g: Optional[dict],
@@ -377,7 +378,9 @@ def make_inference_pair(cfg: RendererConfig, params_g: Optional[dict],
     ``params_g`` is None, random weights from seed 1.  ``fastpath``
     returns the parity-layout :class:`FastInferenceGen` over those folded
     weights (the JAX ``make_inference_pair`` with ``fold_fast_params``),
-    the same function as the standard generator."""
+    the same function as the standard generator, its kernels built in
+    float32.  The standard generator's convolutions hold their weights
+    in the compute dtype (cast once here; its norms' γ, β stay float32)."""
     gen = make_inference_generator(cfg)
     if params_g is None:
         random_init_(gen, 1)
@@ -386,7 +389,76 @@ def make_inference_pair(cfg: RendererConfig, params_g: Optional[dict],
     gen = gen.to(device).eval()
     if fastpath:
         return FastInferenceGen(gen, cfg.gen).eval()
-    return gen
+    return cast_weights_(gen)
+
+
+def make_rollout(gen: nn.Module) -> Callable:
+    """The sequential autoregressive rollout (the evaluator's semantics):
+    keyframes pass through with a zero mask, every other frame is
+    generated from the previous fused frame and label.
+
+    ``batch``: label (B, L, H, W, 22) (or packed, for the parity-layout
+    generator), back and key_img (B, L, H, W, 3), ``is_key`` (L,) bool;
+    optionally ``init_fuse`` (B, H, W, 3) and ``init_label``, the carry
+    of a previous chunk (:func:`rollout_chunked`), in place of frame 0's
+    key image and label.  Returns fused (B, L, H, W, 3) and masks
+    (B, L, H, W, 1), the masks in the generator's ``dtype``.  The JAX
+    scan runs the generator at every frame and selects the key image at
+    keyframes; here a keyframe makes no generator call, with the same
+    result.
+    """
+    def rollout(batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        label, back, key_img = batch["label"], batch["back"], \
+            batch["key_img"]
+        is_key = torch.as_tensor(batch["is_key"]).reshape(-1).tolist()
+        if "init_fuse" in batch:
+            prev_fuse, prev_label = batch["init_fuse"], batch["init_label"]
+        else:
+            prev_fuse, prev_label = key_img[:, 0], label[:, 0]
+        fused, masks = [], []
+        for t, key in enumerate(is_key):
+            if key:
+                fuse, mask = key_img[:, t], None
+            else:
+                img, mask = gen(label[:, t], prev_label, back[:, t],
+                                prev_fuse)
+                fuse = composite(img, mask, back[:, t])
+            fused.append(fuse)
+            masks.append(mask)
+            prev_fuse, prev_label = fuse, label[:, t]
+        zero = torch.zeros(key_img.shape[:1] + key_img.shape[2:-1] + (1,),
+                           dtype=gen.dtype, device=key_img.device)
+        return (torch.stack(fused, dim=1),
+                torch.stack([zero if m is None else m for m in masks],
+                            dim=1))
+
+    return rollout
+
+
+def rollout_chunked(rollout: Callable, batch: Dict[str, torch.Tensor],
+                    chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`make_rollout`'s ``rollout`` over a long clip in chunks of
+    ``chunk`` frames, the fused frame and label carried from each chunk
+    into the next, so memory stays O(chunk).  The JAX function pads the
+    last chunk to ``chunk`` frames to keep one compiled shape; eager
+    PyTorch has none to keep, and frames after the last valid one cannot
+    reach it, so the last chunk runs at its own length."""
+    L = batch["label"].shape[1]
+    if L <= chunk:
+        return rollout(batch)
+    is_key = torch.as_tensor(batch["is_key"]).reshape(-1)
+    fused_parts, mask_parts, carry = [], [], {}
+    for start in range(0, L, chunk):
+        end = min(start + chunk, L)
+        seg = {k: batch[k][:, start:end] for k in ("label", "back",
+                                                   "key_img")}
+        seg["is_key"] = is_key[start:end]
+        fused, masks = rollout({**seg, **carry})
+        fused_parts.append(fused)
+        mask_parts.append(masks)
+        carry = {"init_fuse": fused[:, -1], "init_label": seg["label"][:, -1]}
+    return torch.cat(fused_parts, dim=1), torch.cat(mask_parts, dim=1)
 
 
 def make_segment_rollout(gen: Generator, rate: int) -> Callable:
@@ -422,15 +494,19 @@ def make_segment_rollout(gen: Generator, rate: int) -> Callable:
 
         label_s, back_s, key_s = seg(label), seg(back), seg(key_img)
         prev_fuse, prev_label = key_s[0], label_s[0]
-        fused_seg = [key_s[0]]
-        masks_seg = [torch.zeros(key_s.shape[1:-1] + (1,),
-                                 dtype=key_s.dtype, device=key_s.device)]
+        fused_seg, masks_seg = [key_s[0]], []
         for t in range(1, rate):
+            # the carry is float32 under bf16 compute too: the bf16 image
+            # and mask composite over the float32 background
             img, mask = gen(label_s[t], prev_label, back_s[t], prev_fuse)
             prev_fuse = composite(img, mask, back_s[t])
             prev_label = label_s[t]
             fused_seg.append(prev_fuse)
             masks_seg.append(mask)
+        masks_seg.insert(0, torch.zeros_like(masks_seg[0]) if masks_seg
+                         else torch.zeros(key_s.shape[1:-1] + (1,),
+                                          dtype=key_s.dtype,
+                                          device=key_s.device))
         fused = torch.cat([unseg(torch.stack(fused_seg)), key_img[:, -1:]],
                           dim=1)
         last = torch.zeros(key_img[:, -1:].shape[:-1] + (1,),
@@ -439,3 +515,30 @@ def make_segment_rollout(gen: Generator, rate: int) -> Callable:
         return fused, masks
 
     return rollout
+
+
+def segment_rollout_chunked(seg_rollout: Callable,
+                            batch: Dict[str, torch.Tensor], rate: int,
+                            seg_chunk: int = 16
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`make_segment_rollout`'s ``rollout`` over ``seg_chunk``
+    segments at a time, so memory stays O(seg_chunk · rate) frames.
+    Every chunk starts at a keyframe, so nothing carries across chunks.
+    The JAX function pads the last chunk to ``seg_chunk`` segments to
+    keep one compiled shape; eager PyTorch has none to keep, so the last
+    chunk runs at its own length."""
+    L = batch["label"].shape[1]
+    S = (L - 1) // rate
+    if S * rate + 1 != L:
+        raise ValueError(f"clip length {L} is not S·{rate} + 1")
+    if S <= seg_chunk:
+        return seg_rollout(batch)
+    fused_parts, mask_parts = [], []
+    for s0 in range(0, S, seg_chunk):
+        s1 = min(s0 + seg_chunk, S)
+        fused, masks = seg_rollout({k: batch[k][:, s0 * rate:s1 * rate + 1]
+                                    for k in ("label", "back", "key_img")})
+        valid = (s1 - s0) * rate + (1 if s1 == S else 0)
+        fused_parts.append(fused[:, :valid])
+        mask_parts.append(masks[:, :valid])
+    return torch.cat(fused_parts, dim=1), torch.cat(mask_parts, dim=1)

@@ -10,6 +10,8 @@ sees exactly the tree a JAX checkpoint has.
 
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -116,3 +118,23 @@ def blobs(K, H, W, seed=0):
 def t(x) -> torch.Tensor:
     """numpy / jax array → CPU torch tensor."""
     return torch.from_numpy(np.array(x))
+
+
+def bf16(cfg):
+    """A motion or renderer config with ``compute_dtype: bfloat16``."""
+    return dataclasses.replace(cfg, compute_dtype="bfloat16")
+
+
+def hold_bf16(name, got, jax_bf16, jax_f32, mean_tol):
+    """A bf16 output of the port against the JAX package's
+    (tests/test_torch_bf16.py): its mean |port − JAX bf16| within
+    ``mean_tol``, and its largest error against the JAX float32 output at
+    most 1.5× the JAX bf16 output's own plus 1e-3."""
+    got = np.asarray(got, np.float32)
+    want, ref = (np.asarray(a, np.float32) for a in (jax_bf16, jax_f32))
+    assert got.shape == want.shape == ref.shape, name
+    mean_err = np.abs(got - want).mean()
+    assert mean_err <= mean_tol, f"{name}: mean |port - JAX bf16| {mean_err}"
+    err, own = np.abs(got - ref).max(), np.abs(want - ref).max()
+    assert err <= 1.5 * own + 1e-3, \
+        f"{name}: {err} from float32, JAX bf16 {own}"

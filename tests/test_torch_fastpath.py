@@ -232,6 +232,26 @@ def test_mask_fast_matches_jax(weights):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 
+def _count_norm_calls(fast, monkeypatch) -> dict:
+    """The norms one call of the parity-layout generator ``fast`` runs,
+    by the contract each takes."""
+    seen = {"instance_norm": 0, "instance_norm_parity": 0,
+            "instance_norm_r3": 0}
+    inner = PF.instance_norm
+
+    def counting(x, *args, parity=False, **kw):
+        seen["instance_norm_parity" if parity else "instance_norm_r3"
+             if x.dtype == torch.bfloat16 else "instance_norm"] += 1
+        return inner(x, *args, parity=parity, **kw)
+    monkeypatch.setattr(PF, "instance_norm", counting)
+    rng = np.random.default_rng(9)
+    ins = [t(rng.uniform(-1, 1, (1, H, W, c)).astype(np.float32))
+           for c in (22, 22, 3, 3)]
+    with torch.no_grad():
+        fast(*ins)
+    return seen
+
+
 @pytest.mark.parametrize("packed_levels", [1, 2])
 def test_derived_norm_counts_match_a_call(weights, monkeypatch,
                                           packed_levels):
@@ -241,20 +261,33 @@ def test_derived_norm_counts_match_a_call(weights, monkeypatch,
     from chip_smoke import derived_fast_launches
 
     gen, tcfg = weights[1], weights[3]
-    fast = PF.FastInferenceGen(gen, tcfg.gen, packed_levels)
-    seen = {"instance_norm": 0, "instance_norm_parity": 0}
-    inner = PF.instance_norm
-
-    def counting(x, *args, parity=False, **kw):
-        seen["instance_norm_parity" if parity else "instance_norm"] += 1
-        return inner(x, *args, parity=parity, **kw)
-    monkeypatch.setattr(PF, "instance_norm", counting)
-    rng = np.random.default_rng(9)
-    ins = [t(rng.uniform(-1, 1, (1, H, W, c)).astype(np.float32))
-           for c in (22, 22, 3, 3)]
-    with torch.no_grad():
-        fast(*ins)
+    seen = _count_norm_calls(PF.FastInferenceGen(gen, tcfg.gen,
+                                                 packed_levels), monkeypatch)
     assert seen == derived_fast_launches(tcfg.gen, packed_levels)
+    assert sum(seen.values()) == sum(isinstance(m, (InstanceNorm, Spade))
+                                     for m in gen.modules())
+
+
+@pytest.mark.parametrize("packed_levels", [1, 2])
+def test_derived_norm_counts_match_a_bf16_call(weights, monkeypatch,
+                                               packed_levels):
+    """The same in bf16 compute: the standard-layout norms of bf16
+    tensors are r3centered, the mask net's residual blocks (after the
+    float32 output of the last downs' affine norms) shifted float32."""
+    import dataclasses
+
+    from chip_smoke import derived_fast_launches
+    from renderloom_torch import convert
+    from renderloom_torch.train.gan import make_inference_generator
+
+    tcfg, params, stats = weights[3], weights[4], weights[5]
+    gen = make_inference_generator(
+        dataclasses.replace(tcfg, compute_dtype="bfloat16"))
+    convert.load_flax_params(gen, convert.fold_spectral_norm(params, stats))
+    seen = _count_norm_calls(PF.FastInferenceGen(gen, tcfg.gen,
+                                                 packed_levels), monkeypatch)
+    assert seen == derived_fast_launches(tcfg.gen, packed_levels, bf16=True)
+    assert seen["instance_norm"] > 0 and seen["instance_norm_r3"] > 0
     assert sum(seen.values()) == sum(isinstance(m, (InstanceNorm, Spade))
                                      for m in gen.modules())
 

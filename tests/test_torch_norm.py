@@ -67,8 +67,10 @@ def test_twin_matches_pallas_affine_leaky(dtype):
     want = instance_norm_fused(jx, jnp.asarray(s), jnp.asarray(b),
                                slope=LEAKY_SLOPE, interpret=True)
     tx = torch.from_numpy(x).to(getattr(torch, dtype))
-    got = norm_kernel.instance_norm(tx, torch.from_numpy(s),
-                                    torch.from_numpy(b), LEAKY_SLOPE)
+    # the shifted mode's twin: a bf16 x through instance_norm() takes the
+    # r3centered contract instead (tests/test_torch_bf16.py)
+    got = norm_kernel.instance_norm_plain(tx, torch.from_numpy(s),
+                                          torch.from_numpy(b), LEAKY_SLOPE)
     assert got.dtype == tx.dtype
     want = np.asarray(want, np.float32)
     got = got.float().numpy()
