@@ -113,6 +113,25 @@ D. holds one card training step against the same step on the CPU at
    64×96, B = 2, L = 3, tiny widths, identical weights and shared draws:
    every metric and the first frame's G and D gradients;
 
+then bf16 training (``compute_dtype: bfloat16``, the configuration
+``bench.py:bench_gan_train`` times on the accelerator):
+
+T. phase C's step in bf16 with ``do_checkpoint`` on and off: the same
+   checks (every norm launched in its r3centered mode, forward and
+   backward, as derived from the module structure) and the same
+   numbers, printed beside phase C's float32 ones of this run;
+B2. holds K2b's r3centered mode (dx to one bf16 ulp with at most 0.05%
+   of elements not bit-equal, dγ and dβ as phase B) and K2's r3centered
+   mode with residuals against their twins at every shape phase T's
+   warm-up gave them; determinism, a mean-256 input against the
+   contract in float64, one launch per call; times kernel, twin and the
+   library composition (autograd through ``F.instance_norm`` in
+   float32 → bf16 → affine → leaky);
+D2. holds one card bf16 step against the CPU bf16 step at 64×96 by
+   mean errors (metrics, and the first frame's gradients per parameter
+   over their float32 largest), with the card against the CPU float32
+   step as a control that must read beyond each limit;
+
 and last prints the ``{"kernels": [...]}`` line, the card line, and the
 ``{"ok": true, "device": {...}}`` line.
 
@@ -1851,17 +1870,20 @@ def _r3_library(x, s, b, slope):
     return y.permute(0, 2, 3, 1)
 
 
-def _r3_times(x, s, b, slope, iters=10):
-    """(call, device, twin, library composition, bound) ms of one call,
-    and what bounds it; raises unless the call is one kernel."""
+def _r3_times(x, s, b, slope, iters=10, residuals=False):
+    """(call, device, twin, library composition, bound) ms of one call
+    (with ``residuals``, the training call, which also writes them), and
+    what bounds it; raises unless the call is one kernel."""
     from renderloom_torch.ops import norm_kernel as NK
 
     n = x.numel()
-    f = lambda: NK.instance_norm_cuda(x, s, b, slope, r3centered=True)
-    ms, dev = cuda_ms(f, iters), device_ms(f)
+    stats = (torch.empty((x.shape[0], x.shape[-1], 3), device="cuda")
+             if residuals else None)
+    f = lambda: NK.instance_norm_cuda(x, s, b, slope, 1e-5, stats,
+                                      r3centered=True)
+    ms, dev = cuda_ms(f, iters), device_ms(f, 2 * iters)
     one_kernel(f"K2 r3centered {tuple(x.shape)}", f, "norm_fwd_kernel")
-    plain = cuda_ms(lambda: NK.instance_norm_plain(x, s, b, slope,
-                                                   r3centered=True),
+    plain = cuda_ms(lambda: NK._plain_r3_forward(x, s, b, slope, 1e-5),
                     max(2, iters // 4), 1)
     lib = cuda_ms(lambda: _r3_library(x, s, b, slope), iters)
     # bf16 x read once, the output written once (bf16, or float32 at an
@@ -2261,31 +2283,35 @@ def phase_raster_train():
 
 def _norm_call_recorder(fwd: Counter, bwd: Counter):
     """Swap the K2 / K2b wrappers for recorders of each call's (shape,
-    affine, slope); returns the function that puts them back."""
+    affine, slope, r3centered); returns the function that puts them
+    back."""
     from renderloom_torch.ops import norm_kernel as NK
 
     f0, b0 = NK.instance_norm_cuda, NK.instance_norm_bwd_cuda
 
     def fwd_rec(x, scale=None, bias=None, slope=None, eps=1e-5, stats=None,
                 parity=False, r3centered=False):
-        fwd[(tuple(x.shape), scale is not None, slope)] += 1
+        fwd[(tuple(x.shape), scale is not None, slope, r3centered)] += 1
         return f0(x, scale, bias, slope, eps, stats, parity, r3centered)
 
-    def bwd_rec(x, dy, stats, scale=None, bias=None, slope=None):
-        bwd[(tuple(x.shape), scale is not None, slope)] += 1
-        return b0(x, dy, stats, scale, bias, slope)
+    def bwd_rec(x, dy, stats, scale=None, bias=None, slope=None,
+                r3centered=False):
+        bwd[(tuple(x.shape), scale is not None, slope, r3centered)] += 1
+        return b0(x, dy, stats, scale, bias, slope, r3centered)
 
     # the wrappers count their launches on the function their module
     # name points at, so the recorders carry the counts meanwhile
-    fwd_rec.launches, bwd_rec.launches = f0.launches, b0.launches
-    fwd_rec.parity_launches = f0.parity_launches
-    fwd_rec.r3_launches = f0.r3_launches
+    counts = {f0: ("launches", "parity_launches", "r3_launches"),
+              b0: ("launches", "r3_launches")}
+    for (w0, names), rec in zip(counts.items(), (fwd_rec, bwd_rec)):
+        for n in names:
+            setattr(rec, n, getattr(w0, n))
     NK.instance_norm_cuda, NK.instance_norm_bwd_cuda = fwd_rec, bwd_rec
 
     def restore():
-        f0.launches, b0.launches = fwd_rec.launches, bwd_rec.launches
-        f0.parity_launches = fwd_rec.parity_launches
-        f0.r3_launches = fwd_rec.r3_launches
+        for (w0, names), rec in zip(counts.items(), (fwd_rec, bwd_rec)):
+            for n in names:
+                setattr(w0, n, getattr(rec, n))
         NK.instance_norm_cuda, NK.instance_norm_bwd_cuda = f0, b0
     return restore
 
@@ -2297,7 +2323,10 @@ def derived_train_launches(cfg, gen, dis, frames: int) -> dict:
     of each SpadeResBlock branch; the D step runs the discriminator set
     (net_d 4×, the face and hand nets 2× each) and backpropagates all of
     it; the G loss runs the set again and backpropagates only its fake
-    half (net_d 2×, face and hand 1× each) into G."""
+    half (net_d 2×, face and hand 1× each) into G.  In float32 every
+    norm is the shifted one; in bf16 every norm's input is a bf16
+    convolution output (or a bf16 sum, pool or upsample of one), so
+    every norm is r3centered, forward and backward."""
     from renderloom_torch.models.layers import SpadeResBlock
 
     n_g = _count_norms(gen)
@@ -2309,9 +2338,13 @@ def derived_train_launches(cfg, gen, dis, frames: int) -> dict:
     if cfg.dis.use_hand:
         nets.append((dis.net_d_hand, 1))
     half = sum(_count_norms(net) * k for net, k in nets)
+    fwd, bwd = frames * (n_g + remat + 4 * half), frames * (n_g + 3 * half)
+    r3 = cfg.compute_dtype == "bfloat16"
     return {"rasterize": 1,
-            "instance_norm": frames * (n_g + remat + 4 * half),
-            "instance_norm_bwd": frames * (n_g + 3 * half)}
+            "instance_norm": 0 if r3 else fwd,
+            "instance_norm_r3": fwd if r3 else 0,
+            "instance_norm_bwd": 0 if r3 else bwd,
+            "instance_norm_bwd_r3": bwd if r3 else 0}
 
 
 def _train_launches() -> dict:
@@ -2321,7 +2354,9 @@ def _train_launches() -> dict:
     raster = RK.rasterize_tables_cuda.layout_launches
     return {"rasterize": sum(raster.values()),
             "instance_norm": NK.instance_norm_cuda.launches,
-            "instance_norm_bwd": NK.instance_norm_bwd_cuda.launches}
+            "instance_norm_r3": NK.instance_norm_cuda.r3_launches,
+            "instance_norm_bwd": NK.instance_norm_bwd_cuda.launches,
+            "instance_norm_bwd_r3": NK.instance_norm_bwd_cuda.r3_launches}
 
 
 def _reset_launches():
@@ -2334,6 +2369,7 @@ def _reset_launches():
     NK.instance_norm_cuda.parity_launches = 0
     NK.instance_norm_cuda.r3_launches = 0
     NK.instance_norm_bwd_cuda.launches = 0
+    NK.instance_norm_bwd_cuda.r3_launches = 0
 
 
 def _snapshot(state):
@@ -2344,18 +2380,37 @@ def _snapshot(state):
                             if n.endswith("sn_u")])}
 
 
-def phase_train():
-    from renderloom_torch.cli.train_renderer import synthetic_batches
+def _train_cfg(compute_dtype="float32", do_checkpoint=None):
+    """configs/hsm.yaml, in ``compute_dtype``, with ``do_checkpoint`` if
+    given (the yaml's: on)."""
+    import dataclasses
+
     from renderloom_torch.core.config import load_renderer_config
+
+    cfg = load_renderer_config(os.path.join(ROOT, "configs", "hsm.yaml"))
+    gen = cfg.gen if do_checkpoint is None else dataclasses.replace(
+        cfg.gen, do_checkpoint=do_checkpoint)
+    return dataclasses.replace(cfg, compute_dtype=compute_dtype, gen=gen)
+
+
+def _idle_share(profile_text: str) -> float:
+    """The idle share (%) that :func:`_profile` printed."""
+    import re
+
+    return float(re.search(r"idle share ([0-9.]+)%", profile_text).group(1))
+
+
+def phase_train(cfg=None, tag="C", profile_name="train_profile.txt"):
+    from renderloom_torch.cli.train_renderer import synthetic_batches
     from renderloom_torch.train.gan import (create_gan_state,
                                             make_gan_train_step,
                                             make_perceptual)
 
-    cfg = load_renderer_config(os.path.join(ROOT, "configs", "hsm.yaml"))
+    cfg = cfg or _train_cfg()
     d = cfg.data
     B, L, H, W = cfg.batch_size, d.max_frames, d.model_height, d.model_width
-    print(f"C. training at full width: {W}x{H}, batch {B} x {L}-frame raw "
-          f"windows, {cfg.compute_dtype}, do_checkpoint="
+    print(f"{tag}. training at full width: {W}x{H}, batch {B} x {L}-frame "
+          f"raw windows, {cfg.compute_dtype}, do_checkpoint="
           f"{cfg.gen.do_checkpoint}, hsm.yaml widths, random weights")
     tic = time.perf_counter()
     state = create_gan_state(cfg, "cuda", seed=0)
@@ -2409,7 +2464,8 @@ def phase_train():
     if launches != {k: 3 * v for k, v in want.items()}:
         raise AssertionError(f"kernel launches {launches}")
     if (sum(fwd.values()), sum(bwd.values())) != (
-            want["instance_norm"], want["instance_norm_bwd"]):
+            want["instance_norm"] + want["instance_norm_r3"],
+            want["instance_norm_bwd"] + want["instance_norm_bwd_r3"]):
         raise AssertionError("recorded norm calls differ from the derived "
                              "counts")
     vals = {k: float(v) for k, v in metrics.items()}
@@ -2439,11 +2495,12 @@ def phase_train():
         f"{k} {v:.2f}" for k, v in stages.items())
         + f" ({n_fr} frames; g_forward, d_step, g_step summed over them)")
     prof = _profile(step, (state, batches[5]))
-    _write("train_profile.txt", prof)
+    _write(profile_name, prof)
     print("  " + "\n  ".join(prof.splitlines()[:14]))
     return dict(launches=launches, fwd=fwd, bwd=bwd, wps=wps,
                 stages=dict(stages), peak_gib=peak / 2 ** 30,
-                step_ms=[r * 1e3 for r in runs])
+                step_ms=[r * 1e3 for r in runs], idle=_idle_share(prof),
+                per_step=want)
 
 
 # ---------------------------------------------------------------------------
@@ -2465,6 +2522,19 @@ def _bwd_inputs(shape, affine, seed):
     return x, dy, s, b
 
 
+def _dparam_check(name, got, want, mags):
+    """dγ and dβ (``got``, ``want``) against the twin's, each channel to
+    DPARAM_TOL of the sum of its terms' magnitudes ``mags``."""
+    for k, (g_, w_, mag) in enumerate(zip(got, want, mags)):
+        ratio = ((g_ - w_).abs() / mag).max().item()
+        ok = ratio <= DPARAM_TOL
+        print(f"  {name} d{'gamma' if k == 0 else 'beta'}: max "
+              f"|err|/sum|term| {ratio:.2e} (tol {DPARAM_TOL:.0e}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: dparam error ratio {ratio}")
+
+
 def _bwd_check(name, x, dy, s, b, slope):
     from renderloom_torch.ops import norm_kernel as NK
 
@@ -2481,16 +2551,9 @@ def _bwd_check(name, x, dy, s, b, slope):
                 ) * stats[:, None, None, :, 2]
         z = xhat * s + b
         dz = torch.where(z >= 0, dy, dy * slope) if slope is not None else dy
-        for k, (g_, w_, mag) in enumerate(zip(
-                got[1:], want[1:], ((dz * xhat).abs().sum((0, 1, 2)),
-                                    dz.abs().sum((0, 1, 2))))):
-            ratio = ((g_ - w_).abs() / mag).max().item()
-            ok = ratio <= DPARAM_TOL
-            print(f"  {name} d{'gamma' if k == 0 else 'beta'}: max "
-                  f"|err|/sum|term| {ratio:.2e} (tol {DPARAM_TOL:.0e}) "
-                  f"{'ok' if ok else 'FAIL'}")
-            if not ok:
-                raise AssertionError(f"{name}: dparam error ratio {ratio}")
+        _dparam_check(name, got[1:], want[1:],
+                      ((dz * xhat).abs().sum((0, 1, 2)),
+                       dz.abs().sum((0, 1, 2))))
     return err
 
 
@@ -2616,12 +2679,10 @@ TRAIN_GRAD_RTOL = {"g": 3e-3, "d": 1e-4}
 TRAIN_GRAD_FLOOR = 1e-4
 
 
-def phase_train_cpu_match():
-    from renderloom_torch.cli.train_renderer import synthetic_batches
+def _tiny_train_cfg(compute_dtype="float32"):
+    """The 64×96, B = 2, L = 3 tiny-width training config of phases D
+    and D2."""
     from renderloom_torch.core import config as C
-    from renderloom_torch.train.gan import (create_gan_state,
-                                            make_gan_train_step,
-                                            make_perceptual)
 
     H, W, B, L = 64, 96, 2, 3
     # one layer fewer for the 8×8 hand crops, whose last norm would see a
@@ -2642,27 +2703,47 @@ def phase_train_cpu_match():
         data=C.RendererDataConfig(model_width=W, model_height=H,
                                   load_width=W, load_height=H,
                                   max_frames=L),
-        batch_size=B)
-    raw = next(synthetic_batches(np.random.default_rng(3), 1, B, L, H, W))
-    results = []
-    for device in ("cpu", "cuda"):
-        state = create_gan_state(cfg, device, seed=5)
-        grads = {}
-        for net, module in (("g", state.gen), ("d", state.dis)):
-            opt = getattr(state, f"opt_{net}")
-            names = [n for n, _ in module.named_parameters()]
+        batch_size=B, compute_dtype=compute_dtype)
+    return cfg
 
-            def step(gs, opt=opt, net=net, names=names):
-                grads.setdefault(net, {n: g.detach().cpu()
-                                       for n, g in zip(names, gs)})
-                return type(opt).step(opt, gs)
-            opt.step = step
-        fn = make_gan_train_step(cfg, make_perceptual(cfg, device, seed=5),
-                                 data_cfg=cfg.data)
-        metrics = fn(state, {k: torch.from_numpy(v).to(device)
-                             for k, v in raw.items()})
-        results.append(({k: float(v) for k, v in metrics.items()}, grads))
-    (m_cpu, g_cpu), (m_gpu, g_gpu) = results
+
+def _tiny_step(cfg, device):
+    """One train step of ``cfg`` on ``device`` from seed-5 weights and a
+    seed-3 raw window: its metrics, and each network's first-frame
+    gradients by parameter name (on the CPU)."""
+    from renderloom_torch.cli.train_renderer import synthetic_batches
+    from renderloom_torch.train.gan import (create_gan_state,
+                                            make_gan_train_step,
+                                            make_perceptual)
+
+    d = cfg.data
+    raw = next(synthetic_batches(np.random.default_rng(3), 1,
+                                 cfg.batch_size, d.max_frames,
+                                 d.model_height, d.model_width))
+    state = create_gan_state(cfg, device, seed=5)
+    grads = {}
+    for net, module in (("g", state.gen), ("d", state.dis)):
+        opt = getattr(state, f"opt_{net}")
+        names = [n for n, _ in module.named_parameters()]
+
+        def step(gs, opt=opt, net=net, names=names):
+            grads.setdefault(net, {n: g.detach().cpu()
+                                   for n, g in zip(names, gs)})
+            return type(opt).step(opt, gs)
+        opt.step = step
+    fn = make_gan_train_step(cfg, make_perceptual(cfg, device, seed=5),
+                             data_cfg=d)
+    metrics = fn(state, {k: torch.from_numpy(v).to(device)
+                         for k, v in raw.items()})
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def phase_train_cpu_match():
+    cfg = _tiny_train_cfg()
+    H, W = cfg.data.model_height, cfg.data.model_width
+    B, L = cfg.batch_size, cfg.data.max_frames
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = (_tiny_step(cfg, dev)
+                                      for dev in ("cpu", "cuda"))
     print(f"D. card training step vs CPU training step ({W}x{H}, B {B}, "
           f"L {L}, tiny widths, same weights and draws):")
     worst = 0.0
@@ -2707,6 +2788,328 @@ def phase_train_cpu_match():
 
 
 # ---------------------------------------------------------------------------
+# T. bf16 training at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_train_bf16(train):
+    """Phase C's step in bf16 compute, with do_checkpoint on (as phase C)
+    and off (the setting ``bench.py:bench_gan_train`` times), each beside
+    phase C's float32 numbers of this run."""
+    runs = {}
+    for ckpt in (True, False):
+        tag = "T" if ckpt else "T'"
+        runs[ckpt] = phase_train(
+            _train_cfg("bfloat16", ckpt), tag,
+            f"train_profile_bf16{'' if ckpt else '_nockpt'}.txt")
+    print("T. gan_train_windows_per_sec, this run: float32 (do_checkpoint "
+          f"on) {train['wps']:.4f}, bf16 do_checkpoint on "
+          f"{runs[True]['wps']:.4f}, off {runs[False]['wps']:.4f}; peak "
+          f"memory {train['peak_gib']:.2f}, {runs[True]['peak_gib']:.2f}, "
+          f"{runs[False]['peak_gib']:.2f} GiB; idle share of a profiled "
+          f"step {train['idle']:.1f}%, {runs[True]['idle']:.1f}%, "
+          f"{runs[False]['idle']:.1f}%")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# B2. K2b r3centered and K2 r3centered with residuals
+# ---------------------------------------------------------------------------
+
+# dx: one bf16 ulp of the larger of kernel and twin, plus 1e-6 of the
+# call's largest |dx| (where g − E[g] − x̂·E[g·x̂] cancels, float32
+# rounding of its terms is all that is left), elementwise, and at most
+# R3_BWD_NOT_EQUAL_MAX of elements not bit-equal: the kernel and its
+# twin differ only in their sums' order, which moves dx by a few float32
+# ulp and rounds it to the neighbouring bf16 value rarely.  Phase R's
+# 0.01% was the starting cap; at the bf16 step's 33 shapes on an NVIDIA
+# H100 80GB HBM3 at 700 W the readings were 0–0.0039%, and 0.0156% (4
+# of 25,600 elements) at (8, 5, 5, 128), where E[g] and E[g·x̂] are
+# means of 25 pixels, so the cap is 0.05%, about 3x the largest reading;
+# a kernel that skipped a rounding of the contract moves about 29% (g
+# not rounded) or all (dx in float32) of them.  dγ and dβ as phase B
+# (DPARAM_TOL of the sum of the terms' magnitudes).
+R3_BWD_NOT_EQUAL_MAX = 5e-4
+
+
+def _bwd_r3_inputs(shape, affine, seed, loc=0.0):
+    """bf16 x, a cotangent in the forward's output dtype (float32 with
+    affine), γ and β."""
+    x, s, b = _norm_inputs(shape, torch.bfloat16, affine, seed, loc=loc)
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    dy = torch.randn(shape, device="cuda", generator=g).to(
+        torch.float32 if affine else torch.bfloat16)
+    return x, dy, s, b
+
+
+def _r3_res_check(name, x, s, b, slope):
+    """K2 r3centered with residuals: its output as phase R holds it, s = 0
+    exactly, (m1, inv) within 1e-5 relative of the twin's, and the
+    residuals exactly those the forward used (the output recomputed
+    from them equals the kernel's bit for bit)."""
+    from renderloom_torch.ops import norm_kernel as NK
+
+    B, C = x.shape[0], x.shape[-1]
+    stats = torch.empty((B, C, 3), device="cuda")
+    got = NK.instance_norm_cuda(x, s, b, slope, 1e-5, stats, r3centered=True)
+    err = _r3_check(name, x, s, b, slope)
+    _, want = NK._plain_r3_forward(x, s, b, slope, 1e-5)
+    # m1 in units of the std (it may lie near 0), inv relative
+    rel = torch.stack([(stats[..., 1] - want[..., 1]) * want[..., 2],
+                       stats[..., 2] / want[..., 2] - 1]).abs()
+    m1, inv = (v[:, None, None, :] for v in stats[..., 1:].unbind(-1))
+    y = ((x.float() - m1) * inv).to(torch.bfloat16)
+    if s is not None:
+        y = y.float() * s
+        y = y + b
+    if slope is not None:
+        y = torch.where(y >= 0, y, y * slope)
+    same = torch.equal(y, got)
+    ok = bool((stats[..., 0] == 0).all()) and rel.max().item() <= 1e-5 \
+        and same
+    print(f"  {name} residuals: s = 0, m1 (x inv) and inv max rel "
+          f"{rel.max().item():.2e} (tol 1e-5), output from them bit for bit "
+          f"{same} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: residuals")
+    return err
+
+
+def _bwd_r3_check(name, x, dy, s, b, slope):
+    """K2b r3centered against its twin on the residuals K2 r3centered
+    wrote: dx to one ulp and the not-bit-equal cap, dγ and dβ as phase
+    B."""
+    from renderloom_torch.ops import norm_kernel as NK
+
+    B, C = x.shape[0], x.shape[-1]
+    stats = torch.empty((B, C, 3), device="cuda")
+    NK.instance_norm_cuda(x, s, b, slope, 1e-5, stats, r3centered=True)
+    got = NK.instance_norm_bwd_cuda(x, dy, stats, s, b, slope,
+                                    r3centered=True)
+    want = NK.instance_norm_bwd_plain(x, dy, stats, s, b, slope,
+                                      r3centered=True)
+    if got[0].dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: dx {got[0].dtype}")
+    g, w = got[0].float(), want[0].float()
+    diff = (g - w).abs()
+    tol = 2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + 1e-6 * w.abs().max()
+    over = (diff > tol).float().mean().item()
+    neq = (diff > 0).float().mean().item()
+    err = diff.max().item()
+    print(f"  {name} dx: max_abs_err {err:.3e} (tol one bf16 ulp + 1e-6 of "
+          f"max |dx|), not bit-equal {100 * neq:.4f}% "
+          f"{'ok' if not over and neq <= R3_BWD_NOT_EQUAL_MAX else 'FAIL'}")
+    if over or neq > R3_BWD_NOT_EQUAL_MAX:
+        raise AssertionError(f"{name}: {100 * over:.4f}% beyond one ulp, "
+                             f"{100 * neq:.4f}% not bit-equal")
+    if s is not None:
+        m1, inv = (v[:, None, None, :] for v in stats[..., 1:].unbind(-1))
+        n = ((x.float() - m1) * inv).to(torch.bfloat16).float()
+        z = n * s + b
+        dz = torch.where(z >= 0, dy, dy * slope) if slope is not None else dy
+        _dparam_check(name, got[1:], want[1:],
+                      ((dz * n).abs().sum((0, 1, 2)),
+                       dz.abs().sum((0, 1, 2))))
+    return err
+
+
+def _bwd_r3_library(x, dy, s, b, slope):
+    """Autograd through the library composition: ``F.instance_norm`` in
+    float32 → bf16 → float32 affine → leaky, dx in bf16 and dγ, dβ."""
+    xn = x.permute(0, 3, 1, 2).detach().requires_grad_()
+    w = bb = None
+    if s is not None:
+        w, bb = s.detach().requires_grad_(), b.detach().requires_grad_()
+    dyn = dy.permute(0, 3, 1, 2)
+
+    def fwd():
+        y = F.instance_norm(xn.float(), eps=1e-5).to(torch.bfloat16)
+        if w is not None:
+            y = y.float() * w[:, None, None] + bb[:, None, None]
+        return F.leaky_relu(y, slope) if slope is not None else y
+
+    def fwd_bwd():
+        torch.autograd.backward(fwd(), dyn)
+    return fwd, fwd_bwd
+
+
+def _bwd_r3_times(x, dy, s, b, slope, iters=5):
+    """(call, device, twin, library, bound) ms of one K2b r3centered
+    call, and what bounds it; raises unless the call is one kernel."""
+    from renderloom_torch.ops import norm_kernel as NK
+
+    B, C = x.shape[0], x.shape[-1]
+    stats = torch.empty((B, C, 3), device="cuda")
+    NK.instance_norm_cuda(x, s, b, slope, 1e-5, stats, r3centered=True)
+    f = lambda: NK.instance_norm_bwd_cuda(x, dy, stats, s, b, slope,
+                                          r3centered=True)
+    ms, dev = cuda_ms(f, iters), device_ms(f, 2 * iters)
+    one_kernel(f"K2b r3centered {tuple(x.shape)}", f, "norm_bwd_kernel")
+    plain = cuda_ms(lambda: NK.instance_norm_bwd_plain(
+        x, dy, stats, s, b, slope, r3centered=True), 2, 1)
+    fwd, fwd_bwd = _bwd_r3_library(x, dy, s, b, slope)
+    lib = max(cuda_ms(fwd_bwd, iters) - cuda_ms(fwd, iters), 0.0)
+    n = x.numel()
+    # x (bf16) and dy (float32 with affine, else bf16) read once, dx
+    # (bf16) written once; ~20 fp32 operations per element (x̂ 3, n and
+    # the leaky 4, g 2, four sums 6, dx 5)
+    bnd, by = bound_ms(n * (2 + dy.element_size() + 2), 20 * n)
+    return ms, dev, plain, lib, bnd, by
+
+
+def _bwd_r3_f64(x, dy, s, b, slope):
+    """The r3centered gradient's contract with float64 moments: n and g
+    rounded to bf16 as the contract rounds them, the rest in float64; dx
+    before its rounding to bf16."""
+    x64 = x.double()
+    m1 = x64.mean((1, 2), keepdim=True)
+    inv = 1.0 / torch.sqrt(x64.var((1, 2), unbiased=False, keepdim=True)
+                           + 1e-5)
+    xhat = (x64 - m1) * inv
+    n = xhat.to(torch.bfloat16).double()
+    z = n * s.double() + b.double()
+    dz = dy.double()
+    dz = torch.where(z >= 0, dz, dz * slope)
+    g = (dz * s.double()).to(torch.bfloat16).double()
+    return inv * (g - g.mean((1, 2), keepdim=True)
+                  - xhat * (g * xhat).mean((1, 2), keepdim=True))
+
+
+def phase_norm_bwd_r3(train16):
+    from renderloom_torch.ops import norm_kernel as NK
+
+    bwd = train16[True]["bwd"]
+    print(f"B2. K2b r3centered, kernel vs plain twin, at the {len(bwd)} "
+          f"shapes of one full-width bf16 training step (phase T):")
+    by_size = lambda d: sorted(d.items(), key=lambda kv: -np.prod(kv[0][0]))
+    bwd_entry = _sum_shapes(
+        "K2b r3centered", "step", by_size(bwd),
+        lambda i, key: _bwd_r3_inputs(key[0], key[1], 800 + i) + (key[2],),
+        lambda x, dy, s, b, slope: _bwd_r3_check("vs twin", x, dy, s, b,
+                                                 slope),
+        _bwd_r3_times, "library composition backward")
+    bwd_entry["shape"] = (f"{sum(bwd.values())} calls over {len(bwd)} "
+                          f"shapes, summed per bf16 step (do_checkpoint on)")
+    # two calls at the largest shape give the same bits
+    x, dy, s, b = _bwd_r3_inputs((4, 320, 480, 32), True, 850)
+    stats = torch.empty((4, 32, 3), device="cuda")
+    NK.instance_norm_cuda(x, s, b, LEAKY, 1e-5, stats, r3centered=True)
+    one, two = (NK.instance_norm_bwd_cuda(x, dy, stats, s, b, LEAKY,
+                                          r3centered=True)
+                for _ in range(2))
+    if not all(torch.equal(u, v) for u, v in zip(one, two)):
+        raise AssertionError("K2b r3centered: two calls differ")
+    print("  determinism: two calls at (4, 320, 480, 32) equal bit for bit "
+          "(dx, dgamma, dbeta) ok")
+    # mean 256, std 1: the edge of the unshifted contract (phase R)
+    x, dy, s, b = _bwd_r3_inputs((4, 40, 60, 256), True, 851, loc=256.0)
+    stats = torch.empty((4, 256, 3), device="cuda")
+    NK.instance_norm_cuda(x, s, b, LEAKY, 1e-5, stats, r3centered=True)
+    got = NK.instance_norm_bwd_cuda(x, dy, stats, s, b, LEAKY,
+                                    r3centered=True)[0]
+    _, tstats = NK._plain_r3_forward(x, s, b, LEAKY, 1e-5)
+    twin = NK.instance_norm_bwd_plain(x, dy, tstats, s, b, LEAKY,
+                                      r3centered=True)[0]
+    ref = _bwd_r3_f64(x, dy, s, b, LEAKY)
+    e_k = (got.double() - ref).abs().max().item()
+    e_t = (twin.double() - ref).abs().max().item()
+    ulp = 2.0 ** -7 * ref.abs().max().item()
+    print(f"  (4, 40, 60, 256) bfloat16 mean 256 std 1, affine + leaky: dx "
+          f"against the contract in float64: kernel {e_k:.3e}, twin "
+          f"{e_t:.3e} (held: kernel <= 1.5 x twin + {ulp:.2e})")
+    if not e_k <= 1.5 * e_t + ulp:
+        raise AssertionError(f"K2b r3centered at mean 256: kernel {e_k}, "
+                             f"twin {e_t}")
+    x, dy, _, _ = _bwd_r3_inputs((1, 4, 4, 32), False, 852)
+    stats = torch.empty((1, 32, 3), device="cuda")
+    NK.instance_norm_cuda(x, stats=stats, r3centered=True)
+    us = host_us(lambda: NK.instance_norm_bwd_cuda(x, dy, stats,
+                                                   r3centered=True))
+    print(f"  host time per call at (1, 4, 4, 32): {us:.1f} us")
+
+    fwd = train16[True]["fwd"]
+    print(f"  K2 r3centered with residuals at the step's {len(fwd)} forward "
+          f"shapes (kernel vs twin):")
+    fwd_entry = _sum_shapes(
+        "K2 r3centered (training)", "step", by_size(fwd),
+        lambda i, key: _norm_inputs(key[0], torch.bfloat16, key[1],
+                                    seed=900 + i) + (key[2],),
+        lambda x, s, b, slope: _r3_res_check("vs twin", x, s, b, slope),
+        lambda x, s, b, slope: _r3_times(x, s, b, slope, 5, True),
+        "library composition")
+    fwd_entry["shape"] = (f"{sum(fwd.values())} calls over {len(fwd)} "
+                          f"shapes, summed per bf16 step (do_checkpoint on)")
+    return fwd_entry, bwd_entry
+
+
+# ---------------------------------------------------------------------------
+# D2. card bf16 training step vs CPU bf16 training step
+# ---------------------------------------------------------------------------
+
+# bf16 on two devices rounds at other places (cuDNN, the kernels' sums),
+# and the random-weight networks amplify it (tests/test_torch_train_step.py:
+# JAX's own bf16 step lies a median 0.26 of each G parameter's largest
+# gradient from its float32 step).  So the card is held by mean errors,
+# each normalized as the CPU tests normalize them: the metrics by the CPU
+# float32 step's (mean over the metrics of |card − CPU bf16| / |CPU f32|),
+# the gradients of the first frame leaf by leaf by the CPU float32
+# gradient's largest |g| (mean over all elements of the leaves whose
+# float32 gradient is above 1e-4 of the network's largest).  Each limit
+# lies between the sound reading and a control, the card's bf16 step
+# against the CPU float32 step, which is printed each run and must lie
+# beyond it.  Readings on an NVIDIA H100 80GB HBM3 at 700 W: metrics
+# 3.59e-4 (control 4.97e-3), G 1.91e-2 (3.23e-2), D 1.12e-2 (4.48e-2);
+# the limits lie 1.3–2.8x above the readings and 1.3–5x below the
+# controls.
+TRAIN16_MEAN_TOL = {"metrics": 1e-3, "g": 2.5e-2, "d": 2e-2}
+
+
+def _grad_mean_err(got, want, ref) -> float:
+    """Mean |got − want| over the leaves whose ``ref`` gradient is above
+    1e-4 of the network's largest, each leaf over its own largest
+    |ref|."""
+    top = max(g.abs().max().item() for g in ref.values())
+    errs = [((got[n] - want[n]).abs() / ref[n].abs().max()).reshape(-1)
+            for n in ref if ref[n].abs().max().item() >= 1e-4 * top]
+    return torch.cat(errs).mean().item()
+
+
+def phase_train_bf16_cpu_match():
+    cfg32, cfg16 = _tiny_train_cfg(), _tiny_train_cfg("bfloat16")
+    H, W = cfg16.data.model_height, cfg16.data.model_width
+    (m32, g32), (m16, g16), (mgpu, ggpu) = (
+        _tiny_step(cfg32, "cpu"), _tiny_step(cfg16, "cpu"),
+        _tiny_step(cfg16, "cuda"))
+    print(f"D2. card bf16 training step vs CPU bf16 training step ({W}x{H}, "
+          f"B {cfg16.batch_size}, L {cfg16.data.max_frames}, tiny widths, "
+          f"same weights and draws):")
+    keys = [k for k in m32 if not k.startswith("notfinite")]
+    rel = lambda m, k: abs(m[k] - m16[k]) / max(abs(m32[k]), 1e-6)
+    if any(mgpu[k] for k in m32 if k.startswith("notfinite")):
+        raise AssertionError("an update was skipped as non-finite")
+    readings = {
+        "metrics": (np.mean([rel(mgpu, k) for k in keys]),
+                    np.mean([abs(mgpu[k] - m32[k]) / max(abs(m32[k]), 1e-6)
+                             for k in keys]))}
+    for net in ("g", "d"):
+        readings[net] = (_grad_mean_err(ggpu[net], g16[net], g32[net]),
+                         _grad_mean_err(ggpu[net], g32[net], g32[net]))
+    bad = []
+    for what, (sound, control) in readings.items():
+        tol = TRAIN16_MEAN_TOL[what]
+        ok = sound <= tol < control
+        print(f"  {what}: mean error card vs CPU bf16 {sound:.4e} (limit "
+              f"{tol:.1e}); control, card vs CPU float32 {control:.4e} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(what)
+    if bad:
+        raise AssertionError(f"D2: {bad} beyond the limit, or the control "
+                             f"within it")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2734,6 +3137,15 @@ def main() -> int:
     train = phase_train()
     norm_train, norm_bwd = phase_norm_bwd(train)
     phase_train_cpu_match()
+    t_new = time.perf_counter()
+    train16 = phase_train_bf16(train)
+    t_t = time.perf_counter()
+    r3_train, bwd_r3 = phase_norm_bwd_r3(train16)
+    t_b2 = time.perf_counter()
+    phase_train_bf16_cpu_match()
+    print(f"bf16 training phases: T {t_t - t_new:.1f} s, B2 "
+          f"{t_b2 - t_t:.1f} s, D2 {time.perf_counter() - t_b2:.1f} s")
+    t16 = {k: v["launches"] for k, v in train16.items()}
     kernels = [
         dict(name="rasterize", route="cuda",
              source="renderloom_torch/csrc/rasterize.cu",
@@ -2780,8 +3192,15 @@ def main() -> int:
              launches_by_path={"serve_clip_bf16": bf16["standard"]
                                ["launches"]["instance_norm_r3"],
                                "serve_clip_fastpath_bf16": bf16["fastpath"]
-                               ["launches"]["instance_norm_r3"]},
-             **r3),
+                               ["launches"]["instance_norm_r3"],
+                               "train_step_bf16_3_steps": t16[True]
+                               ["instance_norm_r3"],
+                               "train_step_bf16_nockpt_3_steps": t16[False]
+                               ["instance_norm_r3"]},
+             **r3,
+             train_step_bf16=dict(
+                 r3_train, launches_per_step=train16[True]["per_step"]
+                 ["instance_norm_r3"])),
         dict(name="rasterize_packed", route="cuda",
              source="renderloom_torch/csrc/rasterize.cu",
              replaces="renderloom/ops/rasterize_pallas.py:239 (_kernel_"
@@ -2809,12 +3228,27 @@ def main() -> int:
              launches_by_path={"train_3_steps": train["launches"]
                                ["instance_norm_bwd"]},
              **norm_bwd),
+        dict(name="instance_norm_bwd_r3centered", route="cuda",
+             source="renderloom_torch/csrc/instance_norm.cu",
+             replaces="renderloom/models/layers.py:226 (the gradient JAX's "
+                      "autodiff takes of the instance_norm bf16 dispatch "
+                      "r3centered; no Pallas kernel)",
+             launches=t16[True]["instance_norm_bwd_r3"],
+             launches_by_path={"train_step_bf16_3_steps": t16[True]
+                               ["instance_norm_bwd_r3"],
+                               "train_step_bf16_nockpt_3_steps": t16[False]
+                               ["instance_norm_bwd_r3"]},
+             launches_per_step=train16[True]["per_step"]
+             ["instance_norm_bwd_r3"],
+             **bwd_r3),
     ]
     print(f"e2e_interp_frames_per_sec {fps:.3f} (fastpath "
           f"{fast['fps']:.3f}; bf16 {bf16['standard']['fps']:.3f}, bf16 "
           f"fastpath {bf16['fastpath']['fps']:.3f}); "
           f"gan_train_windows_per_sec "
-          f"{train['wps']:.4f}; chip_smoke done in "
+          f"{train['wps']:.4f} (bf16 {train16[True]['wps']:.4f}, bf16 "
+          f"without do_checkpoint {train16[False]['wps']:.4f}); chip_smoke "
+          f"done in "
           f"{time.perf_counter() - tic:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

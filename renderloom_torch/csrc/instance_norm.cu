@@ -8,7 +8,9 @@
 // renderloom/models/layers.py:instance_norm (:226-236), which the JAX
 // package leaves to XLA (no Pallas kernel).
 // K2b replaces the custom VJP renderloom/models/layers.py:_in_bwd, which
-// the JAX package wrote by hand (jnp, no Pallas kernel).
+// the JAX package wrote by hand (jnp, no Pallas kernel), and in its
+// r3centered mode the gradient JAX's autodiff takes of the bf16 dispatch
+// (layers.py:226-236; no custom VJP there either).
 //
 // Bound on the H100: device-memory bytes.  A global normalization has to
 // see all of x before it can write anything, so the floor is one read and
@@ -78,23 +80,34 @@
 //    step 4 each block averages the four groups' moments of channels c,
 //    Cg+c, 2Cg+c, 3Cg+c.  Parity has no backward: the JAX kernel is
 //    inference-only.
-//  * r3centered (bf16 input, the standard layout; forward only): the
-//    bf16 contract of renderloom/models/layers.py:instance_norm.  The
-//    same chunks, sums and apply with s = 0 (unshifted fp32 moments), the
-//    normalized value rounded to bf16 (nearest even) before the affine,
-//    and, at an affine call site, n * gamma + beta (and the leaky) stored
-//    as float32: the instantiation with a float output (TO = float).
-//    Without affine it stores n as bf16.  Unshifted moments lose
-//    precision when |mean| >> std; that is the contract, which a bf16
-//    input cannot resolve past |mean| / std ~ 2^8 anyway.
+//  * r3centered (bf16 input, the standard layout): the bf16 contract of
+//    renderloom/models/layers.py:instance_norm.  The same chunks, sums
+//    and apply with s = 0 (unshifted fp32 moments), the normalized value
+//    rounded to bf16 (nearest even) before the affine, and, at an affine
+//    call site, n * gamma + beta (and the leaky) stored as float32: the
+//    instantiation with a float output (TO = float).  Without affine it
+//    stores n as bf16.  Unshifted moments lose precision when |mean| >>
+//    std; that is the contract, which a bf16 input cannot resolve past
+//    |mean| / std ~ 2^8 anyway.
 //  * Residuals (training): the block holding part 0 of a slab writes the
 //    per-(b, c) (s, m1, inv) that the backward reads, so the backward
-//    never recomputes the moments.
+//    never recomputes the moments (r3centered: s = 0).
 //  * Backward: the same chunks with x and dy on chip; the partials are of
 //    dz and dz * xhat, with xhat recomputed from x and the residuals and
 //    dz = dy through the fused leaky; dx = ((g - E[g]) - xhat * E[g*xhat])
 //    * inv with g = dz * gamma from shared memory; after a last barrier the
 //    grid sums dgamma and dbeta over b in a fixed order.
+//  * Backward, r3centered (what JAX's autodiff gives for the bf16 body):
+//    s = 0, dx in bf16, xhat recomputed unrounded and n = bf16(xhat) for
+//    the leaky's sign and for dgamma.  At an affine call site dy is the
+//    float32 cotangent of the float32 output (the instantiation with TD =
+//    float), and the cotangent of the bf16 n is rounded to bf16 again, g =
+//    bf16(dz * gamma), so gamma cannot be taken out of the sums: the
+//    partials are four per (b, c), g and g * xhat for dx, dz and dz * n
+//    for dbeta and dgamma (n_sums = 4; the scratch and the sum tables
+//    widen with it).  Without affine it is the bf16 backward with s = 0,
+//    and a fused leaky's negative side rounds dz to bf16, as the bf16
+//    multiply of the forward's bf16 output does.
 //  * Numerics follow the fp32 contract of renderloom/models/layers.py
 //    (_in_moments / _in_apply / _in_bwd), not the Pallas kernel's
 //    unshifted sums: moments of (x - s) in fp32, the centered apply
@@ -115,11 +128,14 @@ namespace cg = cooperative_groups;
 // A call's scalars, packed once per shape by ops/norm_kernel.py
 // (_Config): width > 0 selects the parity norm (C divisible by 4, `width`
 // the packed tensor's W, G = C, no residuals); the plan's split; r3 the
-// r3centered mode (bf16 input, width 0, no residuals) and out_f32 its
-// float32 output at affine call sites; the leaky's slope and eps.
+// r3centered mode (bf16 input, width 0), out_f32 its forward's float32
+// output and dy_f32 its backward's float32 dy at affine call sites, and
+// n_sums the partial sums per (b, c) (4 for that backward, else 2); the
+// leaky's slope and eps.
 struct Config {
   int width, B, n_px, C, G, is_bf16, vec, leaky, grid, parts, rows_per_part,
-      rows_cap, slabs_per_chunk, n_chunks, grid_reduce, r3, out_f32;
+      rows_cap, slabs_per_chunk, n_chunks, grid_reduce, r3, out_f32, n_sums,
+      dy_f32;
   float slope, eps;
 };
 
@@ -142,9 +158,10 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// V consecutive elements: 16 bytes on the vector path, one on the scalar.
+// V consecutive elements: 16 bytes on the vector path (32 for the float
+// dy of the r3centered backward, two 16-byte accesses), one on the scalar.
 template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
+struct alignas(sizeof(T) * V < 16 ? sizeof(T) * V : 16) Pack {
   T v[V];
 };
 
@@ -155,8 +172,8 @@ struct Args {
   const float* scale;    // null: no affine
   const float* bias;
   float* stats;          // (B, C, 3) s, m1, inv: written (fwd) or read (bwd)
-  float* scratch;        // partial (B, parts, 2, C), sums (B, 2, C), and
-                         // for parity the shifts (B, C / 4)
+  float* scratch;        // partial (B, parts, n_sums, C), sums (B, n_sums,
+                         // C), and for parity the shifts (B, C / 4)
   float* dscale;         // backward, with affine
   float* dbias;
   int B, n_px, C;
@@ -164,6 +181,8 @@ struct Args {
   int width;             // parity: packed W; 0: the standard norm
   int leaky;
   int r3;                // r3centered: s = 0, n rounded to bf16 first
+  int n_sums;            // partial sums per (b, c): 2, or 4 (r3 backward
+                         // with affine)
   float slope, eps;
   int parts, rows_per_part, rows_cap, slabs_per_chunk, n_chunks;
   int grid_reduce;       // 1: reduce_pairs and a second barrier
@@ -301,10 +320,10 @@ struct Work {
 
 // Grid reduction, after the chunk's barrier: the chunk's (b, c) pairs,
 // one warp each, lanes over the parts in stride, then a fixed shuffle
-// tree; lane 0's value is the sum.
+// tree; lane 0's values are the n_sums sums.
 __device__ void reduce_pairs(const Args& a, const float* partial,
                              float* sums, int chunk) {
-  const int C = a.C, G = a.G, ng = C / G;
+  const int C = a.C, G = a.G, ng = C / G, NS = a.n_sums;
   const int s0 = chunk * a.slabs_per_chunk;
   const int ns = min(a.slabs_per_chunk, a.B * ng - s0);
   const int lane = threadIdx.x & 31;
@@ -313,34 +332,34 @@ __device__ void reduce_pairs(const Args& a, const float* partial,
        pair += n_warps) {
     const int s = s0 + pair / G;
     const int b = s / ng, c = (s % ng) * G + pair % G;
-    const float* p = partial + (size_t)b * a.parts * 2 * C + c;
-    float s1 = 0.f, s2 = 0.f;
-    for (int k = lane; k < a.parts; k += 32) {
-      s1 += p[(size_t)k * 2 * C];
-      s2 += p[(size_t)k * 2 * C + C];
-    }
-    for (int off = 16; off > 0; off >>= 1) {
-      s1 += __shfl_down_sync(0xffffffffu, s1, off);
-      s2 += __shfl_down_sync(0xffffffffu, s2, off);
-    }
-    if (lane == 0) {
-      sums[(size_t)b * 2 * C + c] = s1;
-      sums[(size_t)b * 2 * C + C + c] = s2;
-    }
+    const float* p = partial + (size_t)b * a.parts * NS * C + c;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k = lane; k < a.parts; k += 32)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < NS) acc[q] += p[((size_t)k * NS + q) * C];
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        acc[q] += __shfl_down_sync(0xffffffffu, acc[q], off);
+    if (lane == 0)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (q < NS) sums[((size_t)b * NS + q) * C + c] = acc[q];
   }
 }
 
 // Block reduction, after the chunk's barrier: the per-channel sums of a
-// slab over its parts, into S[0, G) (first moment) and S[G, 2G)
-// (second), from the
-// slab's partial rows (row stride 2C).  Every block of the slab computes
-// them the same way, so they agree bit for bit: each thread sums the
-// parts of its group in order, then the groups are summed in order.
+// slab over its parts, into S[q G, (q + 1) G) for each of the NS sums
+// (forward: the first and second moments), from the slab's partial rows
+// (row stride NS C).  Every block of the slab computes them the same way,
+// so they agree bit for bit: each thread sums the parts of its group in
+// order, then the groups are summed in order.
 __device__ void block_sums(const float* partial, int parts, int C, int G,
-                           float* red, float* S) {
-  const int n = 2 * G, t = threadIdx.x;
+                           int NS, float* red, float* S) {
+  const int n = NS * G, t = threadIdx.x;
   auto at = [&](int p, int q) {
-    return partial[(size_t)p * 2 * C + (q / G) * C + q % G];
+    return partial[((size_t)p * NS + q / G) * C + q % G];
   };
   if (n >= kThreads) {
     for (int q = t; q < n; q += kThreads) {
@@ -365,22 +384,20 @@ __device__ void block_sums(const float* partial, int parts, int C, int G,
   __syncthreads();
 }
 
-// The sums of the block's slab into S (2G floats of shared memory): from
-// the grid's sum table, or reduced by the block itself.
+// The sums of the block's slab into S (n_sums * G floats of shared
+// memory): from the grid's sum table, or reduced by the block itself.
 __device__ void slab_sums(const Args& a, const float* partial,
                           const float* sums, const Work& w, float* red,
                           float* S) {
-  const int C = a.C, G = a.G;
+  const int C = a.C, G = a.G, NS = a.n_sums;
   if (a.grid_reduce) {
-    const float* sb = sums + (size_t)w.b * 2 * C + w.c0;
-    for (int k = threadIdx.x; k < G; k += kThreads) {
-      S[k] = sb[k];
-      S[G + k] = sb[C + k];
-    }
+    const float* sb = sums + (size_t)w.b * NS * C + w.c0;
+    for (int k = threadIdx.x; k < G; k += kThreads)
+      for (int q = 0; q < NS; ++q) S[q * G + k] = sb[(size_t)q * C + k];
     __syncthreads();
   } else {
-    block_sums(partial + (size_t)w.b * a.parts * 2 * C + w.c0, a.parts, C,
-               G, red, S);
+    block_sums(partial + (size_t)w.b * a.parts * NS * C + w.c0, a.parts, C,
+               G, NS, red, S);
   }
 }
 
@@ -560,63 +577,76 @@ __global__ void __launch_bounds__(kThreads, 1) norm_fwd_kernel(Args a) {
 }
 
 // dz: dy through the fused leaky, whose sign is the forward's pre-leaky
-// value recomputed bit for bit.
-__device__ __forceinline__ float leaky_grad(float d, float xhat, bool leaky,
-                                            bool affine, float gm, float be,
-                                            float slope) {
+// value recomputed bit for bit from n (xhat, or bf16(xhat) in the
+// r3centered mode).  The r3centered forward without affine applies the
+// leaky to its bf16 output, so there the negative side's dy * slope is a
+// bf16 multiply, rounded to bf16.
+__device__ __forceinline__ float leaky_grad(float d, float n, bool leaky,
+                                            bool affine, bool r3, float gm,
+                                            float be, float slope) {
   if (leaky) {
-    float z = xhat;
+    float z = n;
     if (affine) {
       z = z * gm;
       z = z + be;
     }
-    if (!(z >= 0.f)) d = d * slope;
+    if (!(z >= 0.f)) {
+      d = d * slope;
+      if (r3 && !affine) d = round_bf16(d);
+    }
   }
   return d;
 }
 
-// The backward.  Shared memory: the block's rows of x, then of dy, then
-// nine (G,) tables: s, m1, inv, gamma, beta, E[g], E[g * xhat] and the
-// slab's two sums.
-template <typename T, bool kVec>
+// The backward.  Shared memory: the block's rows of x, then of dy (from
+// the next multiple of dy's size), then 7 + n_sums (G,) tables: s, m1,
+// inv, gamma, beta, E[g], E[g * xhat] and the slab's n_sums sums.  TD is
+// dy's type: T, or float for the r3centered mode at an affine call site
+// (the cotangent of its float32 output).
+template <typename T, typename TD, bool kVec>
 __global__ void __launch_bounds__(kThreads, 1) norm_bwd_kernel(Args a) {
   constexpr int V = kVec ? 16 / sizeof(T) : 1;
   using P = Pack<T, V>;
+  using PD = Pack<TD, V>;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red1[kThreads], red2[kThreads];
   cg::grid_group grid = cg::this_grid();
 
-  const int B = a.B, n_px = a.n_px, C = a.C, G = a.G;
+  const int B = a.B, n_px = a.n_px, C = a.C, G = a.G, NS = a.n_sums;
   const T* x = static_cast<const T*>(a.x);
-  const T* dy = static_cast<const T*>(a.dy);
+  const TD* dy = static_cast<const TD*>(a.dy);
   T* dx = static_cast<T*>(a.out);
   float* partial = a.scratch;
-  float* sums = partial + (size_t)B * a.parts * 2 * C;
+  float* sums = partial + (size_t)B * a.parts * NS * C;
 
-  const size_t rows_bytes = (size_t)a.rows_cap * G * sizeof(T);
+  const size_t x_bytes = (size_t)a.rows_cap * G * sizeof(T);
+  const size_t dy_at = (x_bytes + sizeof(TD) - 1) / sizeof(TD) * sizeof(TD);
+  const size_t dy_end = dy_at + (size_t)a.rows_cap * G * sizeof(TD);
   T* xs = reinterpret_cast<T*>(smem);
-  T* ds = reinterpret_cast<T*>(smem + rows_bytes);
-  float* t_s =
-      reinterpret_cast<float*>(smem + (2 * rows_bytes + 15) / 16 * 16);
+  TD* ds = reinterpret_cast<TD*>(smem + dy_at);
+  float* t_s = reinterpret_cast<float*>(smem + (dy_end + 15) / 16 * 16);
   float* t_m1 = t_s + G;
   float* t_inv = t_m1 + G;
   float* t_g = t_inv + G;
   float* t_b = t_g + G;
   float* t_mg = t_b + G;
   float* t_mgx = t_mg + G;
-  float* t_S = t_mgx + G;  // 2G: the slab's sums
+  float* t_S = t_mgx + G;  // NS * G: the slab's sums
   const Cols g(G, V);
   const int Cv = C / V;  // packs per global row
   const bool affine = a.scale != nullptr;
   const bool leaky = a.leaky != 0;
+  const bool r3 = a.r3 != 0;
+  // r3centered with affine: g = bf16(dz * gamma), four sums (n_sums = 4)
+  const bool r3a = r3 && affine;
 
   for (int chunk = 0; chunk < a.n_chunks; ++chunk) {
     const Work w(a, chunk);
     const T* xg = x + w.off;
-    const T* dg = dy + w.off;
+    const TD* dg = dy + w.off;
     if (w.mine) {
       copy_in<T, kVec>(xs, xg, w.nr_s, G, C);
-      copy_in<T, kVec>(ds, dg, w.nr_s, G, C);
+      copy_in<TD, kVec>(ds, dg, w.nr_s, G, C);
       for (int k = threadIdx.x; k < G; k += kThreads) {
         const int c = w.c0 + k;
         const float* st = a.stats + ((size_t)w.b * C + c) * 3;
@@ -627,15 +657,15 @@ __global__ void __launch_bounds__(kThreads, 1) norm_bwd_kernel(Args a) {
         t_b[k] = affine ? a.bias[c] : 0.f;
       }
       copy_wait();
-      float* dst = partial + ((size_t)w.b * a.parts + w.part(a)) * 2 * C +
+      float* dst = partial + ((size_t)w.b * a.parts + w.part(a)) * NS * C +
                    w.c0;
       for (int j0 = 0; j0 < g.Cv; j0 += g.cols) {
         const int j = j0 + g.col;
         const bool active = g.rowi < g.rows_par && j < g.Cv;
-        float s1[V], s2[V], cs[V], cm[V], ci[V], cgm[V], cb[V];
+        float s1[V], s2[V], s3[V], s4[V], cs[V], cm[V], ci[V], cgm[V], cb[V];
         for (int k = 0; k < V; ++k) {
           const int c = active ? j * V + k : 0;
-          s1[k] = s2[k] = 0.f;
+          s1[k] = s2[k] = s3[k] = s4[k] = 0.f;
           cs[k] = t_s[c];
           cm[k] = t_m1[c];
           ci[k] = t_inv[c];
@@ -647,17 +677,29 @@ __global__ void __launch_bounds__(kThreads, 1) norm_bwd_kernel(Args a) {
             const bool on_chip = r < w.nr_s;
             const size_t i = on_chip ? (size_t)r * g.Cv + j : (size_t)r * Cv + j;
             const P px = reinterpret_cast<const P*>(on_chip ? xs : xg)[i];
-            const P pd = reinterpret_cast<const P*>(on_chip ? ds : dg)[i];
+            const PD pd = reinterpret_cast<const PD*>(on_chip ? ds : dg)[i];
             for (int k = 0; k < V; ++k) {
               const float xhat = ((load_f(px.v[k]) - cs[k]) - cm[k]) * ci[k];
-              const float d = leaky_grad(load_f(pd.v[k]), xhat, leaky,
-                                         affine, cgm[k], cb[k], a.slope);
-              s1[k] += d;
-              s2[k] += d * xhat;
+              const float n = r3 ? round_bf16(xhat) : xhat;
+              const float d = leaky_grad(load_f(pd.v[k]), n, leaky, affine,
+                                         r3, cgm[k], cb[k], a.slope);
+              if (r3a) {
+                const float gq = round_bf16(d * cgm[k]);
+                s1[k] += gq;
+                s2[k] += gq * xhat;
+                s3[k] += d;
+                s4[k] += d * n;
+              } else {
+                s1[k] += d;
+                s2[k] += d * xhat;
+              }
             }
           }
         }
         column_sums<V>(g, active, j0, s1, s2, red1, red2, dst, dst + C);
+        if (r3a)
+          column_sums<V>(g, active, j0, s3, s4, red1, red2, dst + 2 * C,
+                         dst + 3 * C);
       }
     }
     grid.sync();
@@ -669,12 +711,12 @@ __global__ void __launch_bounds__(kThreads, 1) norm_bwd_kernel(Args a) {
 
     slab_sums(a, partial, sums, w, red1, t_S);
     for (int k = threadIdx.x; k < G; k += kThreads) {
-      t_mg[k] = (t_g[k] * t_S[k]) / (float)n_px;        // E[g]
-      t_mgx[k] = (t_g[k] * t_S[G + k]) / (float)n_px;   // E[g * xhat]
-      if (!a.grid_reduce && w.part(a) == 0) {  // for dgamma and dbeta
-        sums[(size_t)w.b * 2 * C + w.c0 + k] = t_S[k];
-        sums[(size_t)w.b * 2 * C + C + w.c0 + k] = t_S[G + k];
-      }
+      const float gm = r3a ? 1.f : t_g[k];  // r3a: gamma is inside g
+      t_mg[k] = (gm * t_S[k]) / (float)n_px;        // E[g]
+      t_mgx[k] = (gm * t_S[G + k]) / (float)n_px;   // E[g * xhat]
+      if (!a.grid_reduce && w.part(a) == 0)  // for dgamma and dbeta
+        for (int q = 0; q < NS; ++q)
+          sums[((size_t)w.b * NS + q) * C + w.c0 + k] = t_S[q * G + k];
     }
     __syncthreads();
     P* og = reinterpret_cast<P*>(dx + w.off);
@@ -696,13 +738,16 @@ __global__ void __launch_bounds__(kThreads, 1) norm_bwd_kernel(Args a) {
         const bool on_chip = r < w.nr_s;
         const size_t i = on_chip ? (size_t)r * g.Cv + j : (size_t)r * Cv + j;
         const P px = reinterpret_cast<const P*>(on_chip ? xs : xg)[i];
-        const P pd = reinterpret_cast<const P*>(on_chip ? ds : dg)[i];
+        const PD pd = reinterpret_cast<const PD*>(on_chip ? ds : dg)[i];
         P o;
         for (int k = 0; k < V; ++k) {
           const float xhat = ((load_f(px.v[k]) - cs[k]) - cm[k]) * ci[k];
-          const float d = leaky_grad(load_f(pd.v[k]), xhat, leaky, affine,
+          const float n = r3 ? round_bf16(xhat) : xhat;
+          const float d = leaky_grad(load_f(pd.v[k]), n, leaky, affine, r3,
                                      cgm[k], cb[k], a.slope);
-          const float gg = affine ? d * cgm[k] : d;
+          const float gg = r3a     ? round_bf16(d * cgm[k])
+                           : affine ? d * cgm[k]
+                                    : d;
           store_f(o.v[k], ((gg - mg[k]) - xhat * mgx[k]) * ci[k]);
         }
         og[(size_t)r * Cv + j] = o;
@@ -712,15 +757,17 @@ __global__ void __launch_bounds__(kThreads, 1) norm_bwd_kernel(Args a) {
   }
 
   if (a.dscale) {
-    // dgamma = sum over (b, pixels) of dz * xhat, dbeta = sum of dz: the
-    // per-(b, c) sums in batch order, one thread per channel
+    // dbeta = sum over (b, pixels) of dz, dgamma = sum of dz * xhat (r3a:
+    // dz * n, sums 2 and 3): the per-(b, c) sums in batch order, one
+    // thread per channel
     grid.sync();
+    const int q = r3a ? 2 : 0;
     for (int c = blockIdx.x * kThreads + threadIdx.x; c < C;
          c += gridDim.x * kThreads) {
       float sdb = 0.f, sdg = 0.f;
       for (int bb = 0; bb < B; ++bb) {
-        sdb += sums[(size_t)bb * 2 * C + c];
-        sdg += sums[(size_t)bb * 2 * C + C + c];
+        sdb += sums[((size_t)bb * NS + q) * C + c];
+        sdg += sums[((size_t)bb * NS + q + 1) * C + c];
       }
       a.dbias[c] = sdb;
       a.dscale[c] = sdg;
@@ -728,33 +775,43 @@ __global__ void __launch_bounds__(kThreads, 1) norm_bwd_kernel(Args a) {
   }
 }
 
-// [bwd * 4 + is_bf16 * 2 + scalar], then the r3centered mode's float
-// output at affine call sites: [8 + scalar]
-void* const kKernels[10] = {
+// [bwd * 4 + is_bf16 * 2 + scalar], then the r3centered mode's mixed
+// types at affine call sites (bf16 x, float output or dy):
+// [8 + bwd * 2 + scalar]
+void* const kKernels[12] = {
     (void*)norm_fwd_kernel<float, float, true>,
     (void*)norm_fwd_kernel<float, float, false>,
     (void*)norm_fwd_kernel<__nv_bfloat16, __nv_bfloat16, true>,
     (void*)norm_fwd_kernel<__nv_bfloat16, __nv_bfloat16, false>,
-    (void*)norm_bwd_kernel<float, true>,
-    (void*)norm_bwd_kernel<float, false>,
-    (void*)norm_bwd_kernel<__nv_bfloat16, true>,
-    (void*)norm_bwd_kernel<__nv_bfloat16, false>,
+    (void*)norm_bwd_kernel<float, float, true>,
+    (void*)norm_bwd_kernel<float, float, false>,
+    (void*)norm_bwd_kernel<__nv_bfloat16, __nv_bfloat16, true>,
+    (void*)norm_bwd_kernel<__nv_bfloat16, __nv_bfloat16, false>,
     (void*)norm_fwd_kernel<__nv_bfloat16, float, true>,
     (void*)norm_fwd_kernel<__nv_bfloat16, float, false>,
+    (void*)norm_bwd_kernel<__nv_bfloat16, float, true>,
+    (void*)norm_bwd_kernel<__nv_bfloat16, float, false>,
 };
 
 // The plan's invariants (ops/norm_kernel.py:_plan), checked before the
 // launch: a plan that breaks one would index outside its buffers.  The
-// r3centered mode takes a bf16 input in the standard layout, forward
-// only, and writes no residuals; only it writes float from bf16.
+// r3centered mode takes a bf16 input in the standard layout; only it
+// mixes types (float output, float dy), exactly at affine call sites, and
+// only its backward with affine takes four sums.
 bool plan_ok(const Args& a, int bwd, int itemsize, int vec, int grid,
-             int out_f32) {
-  if (a.r3 && (bwd || itemsize != 2 || a.width != 0 || a.stats))
+             int mixed) {
+  if (a.r3 && (itemsize != 2 || a.width != 0 ||
+               mixed != (a.scale != nullptr)))
     return false;
-  if (out_f32 && !a.r3) return false;
-  const int n_in = bwd ? 2 : 1, n_tables = bwd ? 9 : 7;
+  if (mixed && !a.r3) return false;
+  if (a.n_sums != (bwd && mixed ? 4 : 2)) return false;
+  const int dsz = mixed ? 4 : itemsize;  // dy's size (backward)
+  const int n_tables = bwd ? 7 + a.n_sums : 7;
+  const long long rx = (long long)a.rows_cap * a.G * itemsize;
   const long long rows =
-      ((long long)a.rows_cap * a.G * itemsize * n_in + 15) / 16 * 16;
+      bwd ? ((rx + dsz - 1) / dsz * dsz + (long long)a.rows_cap * a.G * dsz +
+             15) / 16 * 16
+          : (rx + 15) / 16 * 16;
   return a.G > 0 && a.C % a.G == 0 && (a.width == 0 || a.G == a.C) &&
          (!vec || (a.G * itemsize) % 16 == 0) && a.rows_cap > 0 &&
          rows + 4LL * n_tables * a.G <= kDynSmem &&
@@ -763,12 +820,12 @@ bool plan_ok(const Args& a, int bwd, int itemsize, int vec, int grid,
          (long long)a.slabs_per_chunk * a.n_chunks * a.G >= (long long)a.B * a.C;
 }
 
-int launch(int bwd, int is_bf16, int vec, int grid, int out_f32, Args& a,
+int launch(int bwd, int is_bf16, int vec, int grid, int mixed, Args& a,
            cudaStream_t stream) {
-  if (!plan_ok(a, bwd, is_bf16 ? 2 : 4, vec, grid, out_f32))
+  if (!plan_ok(a, bwd, is_bf16 ? 2 : 4, vec, grid, mixed))
     return static_cast<int>(cudaErrorInvalidValue);
-  void* fn = out_f32 ? kKernels[8 + (vec ? 0 : 1)]
-                     : kKernels[bwd * 4 + is_bf16 * 2 + (vec ? 0 : 1)];
+  void* fn = mixed ? kKernels[8 + bwd * 2 + (vec ? 0 : 1)]
+                   : kKernels[bwd * 4 + is_bf16 * 2 + (vec ? 0 : 1)];
   void* params[] = {&a};
   cudaError_t err = cudaLaunchCooperativeKernel(
       fn, dim3(grid), dim3(kThreads), params, kDynSmem, stream);
@@ -788,6 +845,7 @@ Args args(const Config& k) {
   a.width = k.width;
   a.leaky = k.leaky;
   a.r3 = k.r3;
+  a.n_sums = k.n_sums;
   a.slope = k.slope;
   a.eps = k.eps;
   a.parts = k.parts;
@@ -828,6 +886,7 @@ extern "C" int rl_norm_device(int* n_sms, int* blocks_per_sm,
 
 // scratch: B * parts * 2 * C + B * 2 * C floats, plus B * C / 4 for
 // parity.  out: x's type, or float for the r3centered mode with affine.
+// stats (or null): the residuals (B, C, 3), written.
 extern "C" int rl_instance_norm(const void* x, void* out, const void* scale,
                                 const void* bias, void* stats, void* scratch,
                                 const Config* k, void* stream) {
@@ -842,7 +901,8 @@ extern "C" int rl_instance_norm(const void* x, void* out, const void* scale,
                 static_cast<cudaStream_t>(stream));
 }
 
-// scratch: B * parts * 2 * C + B * 2 * C floats.
+// scratch: B * parts * n_sums * C + B * n_sums * C floats.  dy: x's type,
+// or float for the r3centered mode with affine; dx: x's type.
 extern "C" int rl_instance_norm_bwd(const void* x, const void* dy,
                                     const void* stats, const void* scale,
                                     const void* bias, void* dx, void* dscale,
@@ -858,6 +918,6 @@ extern "C" int rl_instance_norm_bwd(const void* x, const void* dy,
   a.scratch = static_cast<float*>(scratch);
   a.dscale = static_cast<float*>(dscale);
   a.dbias = static_cast<float*>(dbias);
-  return launch(1, k->is_bf16, k->vec, k->grid, 0, a,
+  return launch(1, k->is_bf16, k->vec, k->grid, k->dy_f32, a,
                 static_cast<cudaStream_t>(stream));
 }

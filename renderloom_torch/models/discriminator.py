@@ -11,10 +11,14 @@ Port of the JAX package's ``renderloom/models/discriminator.py``:
   generated human), 'face' and 'hand' on heatmap-driven crops.
 
 NHWC.  Channel counts are fixed at construction from the config, as
-flax infers them at init.  Spectral norm takes its training form from
-:func:`renderloom_torch.models.layers.enable_spectral_norm`; with
-``update_stats`` every call of a net advances its ``u`` from the value
-the previous call left, so the calls run in the JAX module's order.
+flax infers them at init.  ``DiscriminatorSet(cfg, dtype)`` computes in
+``dtype`` as the flax module's ``dtype`` (its convolutions cast their
+inputs and float32 kernels to it; the affine norms return float32); the
+hand crops' ``weight`` stays float32.  Spectral norm takes its training
+form from :func:`renderloom_torch.models.layers.enable_spectral_norm`;
+with ``update_stats`` every call of a net advances its ``u`` from the
+value the previous call left, so the calls run in the JAX module's
+order.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ import torch
 import torch.nn as nn
 
 from renderloom_torch.core.config import DiscriminatorConfig, PatchDiscConfig
-from renderloom_torch.models.layers import ConvBlock, SNConv
+from renderloom_torch.models.layers import (ConvBlock, SNConv,
+                                            set_compute_dtype)
 from renderloom_torch.ops.crops import face_crop, hand_crops
 from renderloom_torch.ops.image import resize_bilinear
 
@@ -85,7 +90,8 @@ class DiscriminatorSet(nn.Module):
     MultiPatch output dict.  ``raw`` is the un-composited generated
     image; ``fg_mask`` (B, H, W, 1) gates the raw pass."""
 
-    def __init__(self, cfg: DiscriminatorConfig):
+    def __init__(self, cfg: DiscriminatorConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.use_face, self.use_hand = cfg.use_face, cfg.use_hand
         self.net_d = MultiPatchDiscriminator(
@@ -96,6 +102,7 @@ class DiscriminatorSet(nn.Module):
         if cfg.use_hand:
             self.net_d_hand = MultiPatchDiscriminator(cfg.hand,
                                                       cfg.input_image_nc)
+        set_compute_dtype(self, dtype)
 
     def forward(self, label, real, fake, raw, fg_mask,
                 update_stats: bool = False) -> Dict:

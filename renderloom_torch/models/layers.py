@@ -29,10 +29,14 @@ and a convolution casts its input and its kernel (and bias) to its
 accumulates in float32 and returns the compute dtype.  Under bfloat16
 an instance norm takes the r3centered contract (:mod:`renderloom_torch.
 ops.norm_kernel`): an affine norm returns float32, which the next
-convolution casts back, a norm without affine returns bf16.
-:func:`cast_weights_` casts the convolutions' weights once for
-inference (the same numbers as the cast at each call, half the bytes);
-the norms' γ, β stay float32.
+convolution casts back, a norm without affine returns bf16.  In
+training the spectral norm runs in float32 on the float32 kernel, as
+flax's ``SpectralNorm`` with float32 parameters does, and the
+normalized kernel is cast at the convolution, so every gradient comes
+back through the casts to the float32 parameters; the r3centered norm's
+gradient is K2b's r3centered mode.  :func:`cast_weights_` casts the
+convolutions' weights once for inference (the same numbers as the cast
+at each call, half the bytes); the norms' γ, β stay float32.
 
 Parameter names follow the flax param tree (``conv``, ``norm``,
 ``spade0``, ...), so :mod:`renderloom_torch.convert` loads a JAX tree by
@@ -244,7 +248,9 @@ class SpadeResBlock(nn.Module):
     keeping its activations, as the JAX block's ``nn.remat`` does.  The
     spectral-normalized kernels and the ``u`` update are computed before
     the checkpointed region, so the recompute neither updates ``u`` a
-    second time nor convolves with other weights than the forward."""
+    second time nor convolves with other weights than the forward; K2
+    sums in a fixed order, so its recompute gives the forward's bits in
+    float32 and in bf16."""
 
     def __init__(self, in_ch: int, features: int, cond_ch: int,
                  kernel: int = 3, spade_kernel: int = 1,

@@ -15,6 +15,12 @@ biases, :func:`renderloom_torch.convert.random_init_`), the JAX
 package's fallback, or with a flax tree loaded through
 :func:`renderloom_torch.convert.load_flax_params` (the tests load the
 one the JAX package drew).
+
+``PerceptualLoss(..., compute_dtype)`` runs the trunk in that dtype, as
+the flax module's ``dtype``: the renormalized input and the float32
+kernels are cast to it at each convolution, and each tap's L1 is
+reduced in float32.  :meth:`PerceptualLoss.lpips` is the JAX package's
+uncalibrated LPIPS-style distance.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from renderloom_torch.models.layers import Conv
+from renderloom_torch.models.layers import Conv, set_compute_dtype
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -74,10 +80,11 @@ class PerceptualLoss(nn.Module):
     """L1 perceptual criterion: ``loss(pred, target)`` over the taps."""
 
     def __init__(self, layers: Sequence[str] = DEFAULT_LAYERS,
-                 weights: Sequence[float] = DEFAULT_WEIGHTS):
+                 weights: Sequence[float] = DEFAULT_WEIGHTS,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.weights = tuple(weights)
-        self.model = VGG19Features(layers)
+        self.model = set_compute_dtype(VGG19Features(layers), compute_dtype)
         self.register_buffer("mean", torch.tensor(IMAGENET_MEAN),
                              persistent=False)
         self.register_buffer("std", torch.tensor(IMAGENET_STD),
@@ -94,5 +101,25 @@ class PerceptualLoss(nn.Module):
             f_tgt = self.model(self.renormalize(target))
         loss = 0.0
         for name, w in zip(self.model.layers, self.weights):
-            loss = loss + w * (f_pred[name] - f_tgt[name]).abs().mean()
+            loss = loss + w * (f_pred[name] - f_tgt[name]).abs().float().mean()
         return loss
+
+    def lpips(self, pred: torch.Tensor,
+              target: torch.Tensor) -> torch.Tensor:
+        """LPIPS-style distance with uniform weights, one value per batch
+        element: the squared difference of channel-unit-normalized
+        features, averaged over H, W and C, summed over the taps and
+        divided by their count."""
+        f_pred = self.model(self.renormalize(pred))
+        f_tgt = self.model(self.renormalize(target))
+        dist = 0.0
+        for name in self.model.layers:
+            d = _unit_normalize(f_pred[name]) - _unit_normalize(f_tgt[name])
+            dist = dist + (d * d).mean(dim=(1, 2, 3))
+        return dist / len(self.model.layers)
+
+
+def _unit_normalize(feat: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+    """Each pixel's channel vector scaled to unit L2 norm (NHWC)."""
+    norm = torch.sqrt((feat * feat).sum(dim=-1, keepdim=True))
+    return feat / (norm + eps)

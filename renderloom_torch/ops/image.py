@@ -1,10 +1,12 @@
 """Image ops of the serving and training paths: the window affine
 (ShiftScaleRotate matrices, inverse-map bilinear warp, keypoint
-transform), separable resize, bilinear sampling, gaussian blur and the
-bilinear resize of ``jax.image.resize``.
+transform), separable resize, bilinear sampling, gaussian blur, the
+bilinear resize of ``jax.image.resize``, and the metrics (PSNR, SSIM,
+the masked metric protocol).
 
 Port of the parts of the JAX package's ``renderloom/ops/image.py`` that
-the clip pipeline and the training preparation run.  Images are NHWC
+the clip pipeline, the training preparation and the train step's
+``ssim_w`` term run.  Images are NHWC
 (or HWC) float32; affine matrices are (..., 2, 3) with
 ``[x', y']ᵀ = M @ [x, y, 1]ᵀ``.
 """
@@ -12,7 +14,7 @@ the clip pipeline and the training preparation run.  Images are NHWC
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -198,8 +200,67 @@ def resize_bilinear(img: torch.Tensor, height: int,
     ``jax.image.resize(..., "bilinear")``: half-pixel centers, and a
     triangle filter widened by the scale when downsampling (antialiased;
     plain ``F.interpolate`` is not, and differs by up to 1.17 on a 4×
-    downsample)."""
+    downsample).  A bf16 image is resized in float32 and rounded back
+    (torch has no antialiased bf16 resize on the CPU; JAX's rounds its
+    weights and a partial product to bf16, a rounding-level
+    difference)."""
     x = img.permute(0, 3, 1, 2)
-    y = F.interpolate(x, size=(height, width), mode="bilinear",
+    y = F.interpolate(x.float(), size=(height, width), mode="bilinear",
                       align_corners=False, antialias=True)
-    return y.permute(0, 2, 3, 1)
+    return y.to(img.dtype).permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# PSNR / SSIM (piq-compatible)
+# ---------------------------------------------------------------------------
+
+
+def psnr(pred: torch.Tensor, target: torch.Tensor,
+         data_range: float = 1.0) -> torch.Tensor:
+    """Mean PSNR over the batch; inputs (..., H, W, C) in [0, range]."""
+    dims = tuple(range(1, pred.dim())) if pred.dim() > 3 else None
+    err = (pred - target) ** 2
+    mse = err.mean(dim=dims) if dims else err.mean()
+    val = 10.0 * torch.log10(data_range ** 2 / torch.clamp(mse, min=1e-12))
+    return val.mean()
+
+
+def ssim(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0,
+         kernel_size: int = 11, sigma: float = 1.5) -> torch.Tensor:
+    """Mean SSIM (gaussian 11×11 window, σ 1.5, k1 = .01, k2 = .03, VALID
+    depthwise filtering).  NHWC or HWC."""
+    if pred.dim() == 3:
+        pred, target = pred[None], target[None]
+    k = gaussian_kernel1d(sigma, kernel_size // 2, device=pred.device)
+    C = pred.shape[-1]
+    win = torch.outer(k, k).to(pred.dtype).expand(C, 1, -1, -1)
+
+    def filt(x):
+        return F.conv2d(x.permute(0, 3, 1, 2), win, groups=C)
+
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+    mu_x, mu_y = filt(pred), filt(target)
+    mu_x2, mu_y2, mu_xy = mu_x ** 2, mu_y ** 2, mu_x * mu_y
+    sigma_x = filt(pred * pred) - mu_x2
+    sigma_y = filt(target * target) - mu_y2
+    sigma_xy = filt(pred * target) - mu_xy
+    ssim_map = (((2 * mu_xy + c1) * (2 * sigma_xy + c2))
+                / ((mu_x2 + mu_y2 + c1) * (sigma_x + sigma_y + c2)))
+    return ssim_map.mean()
+
+
+def denorm_to_unit(x: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] → clamped [0, 1]."""
+    return torch.clamp(x * 0.5 + 0.5, 0.0, 1.0)
+
+
+def masked_metrics(pred: torch.Tensor, target: torch.Tensor,
+                   fg_mask: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's metric protocol: denormalize, clamp, mask by the
+    foreground, then PSNR and SSIM at data range 1."""
+    p, t = denorm_to_unit(pred), denorm_to_unit(target)
+    if fg_mask is not None:
+        p, t = p * fg_mask, t * fg_mask
+    return psnr(p, t), ssim(p, t)

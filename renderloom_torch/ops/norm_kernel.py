@@ -5,12 +5,13 @@ plain PyTorch twins, and the ``autograd.Function`` that joins them.
 K2 replaces the TPU kernel ``renderloom/ops/norm_pallas.py:
 instance_norm_fused`` (forward, ``parity=False`` and ``parity=True``).
 K2b is the backward the JAX package wrote as a custom VJP
-(``renderloom/models/layers.py:_in_bwd``).  On the H100 both are bound
-by device-memory bytes.  Each call is one cooperative launch of a
-persistent grid that copies its chunk of the input into shared memory,
-reads it from device memory once, reduces the per-(B, C) sums in a
-fixed order (no float atomics, so two calls give the same bits) and
-writes the output from shared memory.  :func:`_plan`
+(``renderloom/models/layers.py:_in_bwd``), and in its r3centered mode
+the gradient JAX's autodiff takes of the bf16 dispatch.  On the H100
+both are bound by device-memory bytes.  Each call is one cooperative
+launch of a persistent grid that copies its chunk of the input into
+shared memory, reads it from device memory once, reduces the per-(B, C)
+sums in a fixed order (no float atomics, so two calls give the same
+bits) and writes the output from shared memory.  :func:`_plan`
 sizes the chunks; see the source for the design.
 
 Numerics are the fp32 contract of the JAX package's
@@ -38,14 +39,21 @@ moments ``m1 = E[x]``, ``m2 = E[x²]``, ``n = bf16((x − m1)·rsqrt(var +
 eps))`` rounded to nearest even, and, at an affine call site, ``n·γ +
 β`` (then the fused leaky) returned in float32; without affine ``n`` in
 bf16.  It is K2's forward with the shift 0 and the rounding before the
-affine, forward only until the bf16 training slice gives it a backward.
+affine; its residuals are ``(0, m1, inv)``.  JAX has no custom VJP
+there and differentiates the body, whose gradient K2b's r3centered mode
+computes in closed form: with ``x̂ = (x − m1)·inv`` unrounded and ``n =
+bf16(x̂)``, dz = dy through the leaky (its sign from ``n·γ + β``), at
+an affine call site (dy float32) ``g = bf16(dz·γ)`` — the transpose of
+the cast of n rounds its cotangent — else ``g = dz`` (dy bf16), ``dx =
+bf16(inv·(g − E[g] − x̂·E[g·x̂]))``, ``dγ = Σ dz·n``, ``dβ = Σ dz``.
 
 :func:`instance_norm` picks the contract by the input, as the JAX
 dispatch does: r3centered for a bf16 tensor in the standard layout, the
 shifted fp32 contract otherwise, the parity norm when asked.  It runs
 the kernels for a CUDA tensor and the twins for a CPU tensor, through
-:class:`InstanceNormFunction` whenever a gradient is wanted; it never
-falls back from one device's path to the other's.
+:class:`InstanceNormFunction` whenever a gradient is wanted (the
+shifted and the r3centered contract; the parity norm is inference-only);
+it never falls back from one device's path to the other's.
 """
 
 from __future__ import annotations
@@ -61,7 +69,8 @@ from renderloom_torch.ops import _build
 EPS = 1e-5
 _THREADS = 512          # csrc/instance_norm.cu kThreads
 _FWD_TABLES = 7         # per-channel fp32 tables in shared memory:
-_BWD_TABLES = 9         # csrc/instance_norm.cu norm_{fwd,bwd}_kernel
+_BWD_TABLES = 9         # csrc/instance_norm.cu norm_{fwd,bwd}_kernel,
+                        # the backward's with two sums (7 + n_sums)
 _BLOCK_SUMS_DEPTH = 40  # partial values one thread may add in a block
 
 
@@ -113,20 +122,29 @@ def _plain_parity(x, scale, bias, slope, eps):
     return out.to(x.dtype)
 
 
-def _plain_r3centered(x, scale, bias, slope, eps):
-    """``layers.instance_norm``'s bf16 body (``r3centered``) + the fused
-    leaky: bf16 ``n`` without affine, float32 ``n·γ + β`` with it."""
+def _plain_r3_forward(x, scale, bias, slope, eps):
+    """(out, stats): ``layers.instance_norm``'s bf16 body
+    (``r3centered``) + the fused leaky — bf16 ``n`` without affine,
+    float32 ``n·γ + β`` with it — and its (B, C, 3) residuals ``0, m1,
+    inv``."""
     x32 = x.float()
     m1 = x32.mean(dim=(1, 2), keepdim=True)
     m2 = (x32 * x32).mean(dim=(1, 2), keepdim=True)
     var = torch.clamp(m2 - m1 * m1, min=0.0)
-    out = ((x32 - m1) * torch.rsqrt(var + eps)).to(torch.bfloat16)
+    inv = torch.rsqrt(var + eps)
+    out = ((x32 - m1) * inv).to(torch.bfloat16)
     if scale is not None:
         out = out.float() * scale
         out = out + bias
     if slope is not None:
         out = torch.where(out >= 0, out, out * slope)
-    return out
+    stats = torch.stack([torch.zeros_like(m1), m1, inv], dim=-1)[:, 0, 0]
+    return out, stats
+
+
+def _plain_r3centered(x, scale, bias, slope, eps):
+    """:func:`_plain_r3_forward`'s output."""
+    return _plain_r3_forward(x, scale, bias, slope, eps)[0]
 
 
 def instance_norm_plain(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
@@ -147,27 +165,37 @@ def instance_norm_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
                             stats: torch.Tensor,
                             scale: Optional[torch.Tensor] = None,
                             bias: Optional[torch.Tensor] = None,
-                            slope: Optional[float] = None
+                            slope: Optional[float] = None,
+                            r3centered: bool = False
                             ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                        Optional[torch.Tensor]]:
     """The backward kernel's arithmetic in plain PyTorch, line for line
     ``_in_bwd``: (dx, dγ, dβ) from x, the output cotangent ``dy`` and
-    the forward's (B, C, 3) residuals; dγ/dβ are None without affine."""
+    the forward's (B, C, 3) residuals; dγ/dβ are None without affine.
+    ``r3centered``: the gradient of the bf16 contract (module docstring),
+    for a bf16 x and the residuals ``(0, m1, inv)``."""
     ct = _compute_dtype(x.dtype)
     s, m1, inv = (v[:, None, None, :] for v in stats.to(ct).unbind(-1))
     dyf = dy.to(ct)
     xhat = ((x.to(ct) - s) - m1) * inv
+    # the forward rounded x̂ to bf16 before the affine and the leaky
+    n = xhat.to(torch.bfloat16).to(ct) if r3centered else xhat
     if slope is not None:
-        z = xhat
+        z = n
         if scale is not None:
             z = z * scale
             z = z + bias
-        dyf = torch.where(z >= 0, dyf, dyf * slope)
+        dz = dyf * slope
+        if r3centered and scale is None:    # the leaky of a bf16 output
+            dz = dz.to(torch.bfloat16).to(ct)
+        dyf = torch.where(z >= 0, dyf, dz)
     g = dyf * scale if scale is not None else dyf
+    if r3centered and scale is not None:    # the cotangent of the bf16 n
+        g = g.to(torch.bfloat16).to(ct)
     mg = g.mean(dim=(1, 2), keepdim=True)
     mgx = (g * xhat).mean(dim=(1, 2), keepdim=True)
     dx = ((g - mg - xhat * mgx) * inv).to(x.dtype)
-    dscale = ((dyf * xhat).sum(dim=(0, 1, 2)).to(scale.dtype)
+    dscale = ((dyf * n).sum(dim=(0, 1, 2)).to(scale.dtype)
               if scale is not None else None)
     dbias = (dyf.sum(dim=(0, 1, 2)).to(bias.dtype)
              if bias is not None else None)
@@ -177,11 +205,14 @@ def instance_norm_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
 @functools.lru_cache(maxsize=None)
 def _plan(B: int, n_px: int, C: int, itemsize: int, n_inputs: int,
           n_sms: int, blocks_per_sm: int, smem_per_block: int,
-          parity: bool = False) -> dict:
+          parity: bool = False, dy_itemsize: Optional[int] = None,
+          n_sums: int = 2) -> dict:
     """The work split the kernel follows, for ``n_inputs`` (B, n_px, C)
     tensors of ``itemsize`` bytes (1: the forward, 2: the backward's x
-    and dy) on a grid of ``n_sms · blocks_per_sm`` blocks with
-    ``smem_per_block`` bytes of dynamic shared memory each.
+    and dy, dy of ``dy_itemsize`` bytes where that differs, with
+    ``n_sums`` partial sums per (b, c)) on a grid of ``n_sms ·
+    blocks_per_sm`` blocks with ``smem_per_block`` bytes of dynamic
+    shared memory each.
 
     The work unit is a slab: one batch element and ``group`` channels (a
     divisor of C), slab s being b = s // (C / group) and channels from
@@ -204,12 +235,17 @@ def _plan(B: int, n_px: int, C: int, itemsize: int, n_inputs: int,
     streaming).  The parity norm keeps group = C, so that the four
     parity groups of a channel sit in one slab."""
     grid = n_sms * blocks_per_sm
-    n_tables = _FWD_TABLES if n_inputs == 1 else _BWD_TABLES
+    n_tables = (_FWD_TABLES if n_inputs == 1
+                else _BWD_TABLES + n_sums - 2)
+    dsz = itemsize if dy_itemsize is None else dy_itemsize
+    row_bytes = itemsize if n_inputs == 1 else itemsize + dsz
+    # the tables start 16-byte aligned after the rows; a dy of another
+    # size starts at the next multiple of its size after x's rows
+    pad = 16 + (dsz if dsz != itemsize else 0)
 
     def plan(G):
-        # the tables start 16-byte aligned after the rows
-        rows_cap = ((smem_per_block - n_tables * G * 4 - 16)
-                    // (G * itemsize * n_inputs))
+        rows_cap = ((smem_per_block - n_tables * G * 4 - pad)
+                    // (G * row_bytes))
         if rows_cap < 1:
             return None
         n_slabs = B * (C // G)
@@ -224,7 +260,7 @@ def _plan(B: int, n_px: int, C: int, itemsize: int, n_inputs: int,
         n_chunks = -(-n_slabs // spc)
         spc = -(-n_slabs // n_chunks)       # the same chunk count, balanced
         parts, rows = split(spc)
-        n = 2 * G                           # sums per slab
+        n = n_sums * G                      # sums per slab
         depth = -(-parts // max(1, _THREADS // n)) * -(-n // _THREADS)
         return dict(grid=grid, group=G, slabs_per_chunk=spc,
                     n_chunks=n_chunks, parts=parts, rows_per_part=rows,
@@ -247,10 +283,13 @@ def _plan(B: int, n_px: int, C: int, itemsize: int, n_inputs: int,
                                     -p["group"]))
 
 
-def _scratch_floats(B: int, C: int, parts: int, parity: bool) -> int:
-    """fp32 scratch of one call: the partial sums (B, parts, 2, C), the
-    per-(B, C) sums (B, 2, C) and, for parity, the shifts (B, C / 4)."""
-    return B * parts * 2 * C + B * 2 * C + (B * C // 4 if parity else 0)
+def _scratch_floats(B: int, C: int, parts: int, parity: bool,
+                    n_sums: int = 2) -> int:
+    """fp32 scratch of one call: the partial sums (B, parts, n_sums, C),
+    the per-(B, C) sums (B, n_sums, C) and, for parity, the shifts
+    (B, C / 4)."""
+    return (B * parts * n_sums * C + B * n_sums * C
+            + (B * C // 4 if parity else 0))
 
 
 class _Config(ctypes.Structure):
@@ -259,7 +298,8 @@ class _Config(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "width", "B", "n_px", "C", "G", "is_bf16", "vec", "leaky", "grid",
         "parts", "rows_per_part", "rows_cap", "slabs_per_chunk",
-        "n_chunks", "grid_reduce", "r3", "out_f32")] + [
+        "n_chunks", "grid_reduce", "r3", "out_f32", "n_sums",
+        "dy_f32")] + [
             ("slope", ctypes.c_float), ("eps", ctypes.c_float)]
 
 
@@ -301,18 +341,22 @@ def _device(index: int) -> Tuple[int, int, int]:
 
 
 def _config(x: torch.Tensor, n_inputs: int, width: int, slope, eps: float,
-            vec: bool, r3: bool = False,
-            out_f32: bool = False) -> Tuple[_Config, int]:
+            vec: bool, r3: bool = False, out_f32: bool = False,
+            dy_f32: bool = False) -> Tuple[_Config, int]:
     """The packed scalars of a call on ``x`` and its scratch size in
-    floats, made once per (shape, dtype, device, options)."""
+    floats, made once per (shape, dtype, device, options).  ``dy_f32``:
+    the r3centered backward at an affine call site (a float32 dy, four
+    sums per (b, c))."""
     key = (x.shape, x.dtype, x.device.index, n_inputs, width, slope, eps,
-           vec, r3, out_f32)
+           vec, r3, out_f32, dy_f32)
     hit = _configs.get(key)
     if hit is None:
         B, H, W, C = x.shape
         isz = x.element_size()
+        n_sums = 4 if dy_f32 else 2
         p = _plan(B, H * W, C, isz, n_inputs, *_device(x.device.index),
-                  parity=width > 0)
+                  parity=width > 0, dy_itemsize=4 if dy_f32 else None,
+                  n_sums=n_sums)
         cfg = _Config(width, B, H * W, C, p["group"],
                       int(x.dtype == torch.bfloat16),
                       int(vec and p["group"] * isz % 16 == 0),
@@ -320,9 +364,9 @@ def _config(x: torch.Tensor, n_inputs: int, width: int, slope, eps: float,
                       p["rows_per_part"], p["rows_cap"],
                       p["slabs_per_chunk"], p["n_chunks"],
                       int(p["grid_reduce"]), int(r3), int(out_f32),
-                      float(slope or 0.0), float(eps))
+                      n_sums, int(dy_f32), float(slope or 0.0), float(eps))
         hit = _configs[key] = (cfg, _scratch_floats(B, C, p["parts"],
-                                                    width > 0))
+                                                    width > 0, n_sums))
     return hit
 
 
@@ -365,7 +409,8 @@ def instance_norm_cuda(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                        r3centered: bool = False) -> torch.Tensor:
     """Launch ``rl_instance_norm`` on the current stream.  With
     ``stats`` (a contiguous (B, C, 3) float32 CUDA tensor) the kernel
-    also writes the residuals ``s, m1, inv`` that the backward reads.
+    also writes the residuals ``s, m1, inv`` that the backward reads
+    (``s = 0`` in the r3centered mode).
     ``parity`` takes the parity shift and reduction (counted in
     ``instance_norm_cuda.parity_launches``); ``r3centered`` the bf16
     contract of ``layers.instance_norm`` (a bf16 x; float32 output with
@@ -377,10 +422,9 @@ def instance_norm_cuda(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
     if parity and (C % 4 or stats is not None):
         raise ValueError("the parity norm needs C divisible by 4 and "
                          "writes no residuals")
-    if r3centered and (parity or stats is not None
-                       or x.dtype != torch.bfloat16):
+    if r3centered and (parity or x.dtype != torch.bfloat16):
         raise ValueError("the r3centered norm takes a bfloat16 x in the "
-                         "standard layout and writes no residuals")
+                         "standard layout")
     if stats is not None and (stats.shape != (B, C, 3)
                               or stats.dtype != torch.float32
                               or stats.device != x.device
@@ -417,22 +461,32 @@ def instance_norm_bwd_cuda(x: torch.Tensor, dy: torch.Tensor,
                            stats: torch.Tensor,
                            scale: Optional[torch.Tensor] = None,
                            bias: Optional[torch.Tensor] = None,
-                           slope: Optional[float] = None
+                           slope: Optional[float] = None,
+                           r3centered: bool = False
                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                       Optional[torch.Tensor]]:
     """Launch ``rl_instance_norm_bwd`` on the current stream: (dx, dγ,
-    dβ) as :func:`instance_norm_bwd_plain` returns them."""
+    dβ) as :func:`instance_norm_bwd_plain` returns them.  ``r3centered``
+    (a bf16 x; dy float32 with affine, bf16 without, the dtype of the
+    forward's output) is counted in ``instance_norm_bwd_cuda.r3_launches``,
+    the shifted backward in ``.launches``."""
     _check_input(x, "instance_norm_bwd_cuda")
     _check_affine(x, scale, bias)
     B, H, W, C = x.shape
-    if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
+    if r3centered and x.dtype != torch.bfloat16:
+        raise ValueError("the r3centered backward takes a bfloat16 x")
+    dy_f32 = r3centered and scale is not None
+    dy_dtype = torch.float32 if dy_f32 else x.dtype
+    if (dy.shape != x.shape or dy.dtype != dy_dtype or dy.device != x.device
             or not dy.is_contiguous()):
-        raise ValueError("dy must be contiguous, with x's shape and dtype")
+        raise ValueError(f"dy must be contiguous {dy_dtype}, with x's "
+                         "shape")
     if (stats.shape != (B, C, 3) or stats.dtype != torch.float32
             or stats.device != x.device or not stats.is_contiguous()):
         raise ValueError(f"stats must be contiguous float32 ({B}, {C}, 3)")
     aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
-    cfg, n_scratch = _config(x, 2, 0, slope, 0.0, aligned)
+    cfg, n_scratch = _config(x, 2, 0, slope, 0.0, aligned, r3centered,
+                             dy_f32=dy_f32)
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale) if scale is not None else None
     dbias = torch.empty_like(bias) if bias is not None else None
@@ -445,28 +499,37 @@ def instance_norm_bwd_cuda(x: torch.Tensor, dy: torch.Tensor,
     if err != 0:
         raise RuntimeError(
             f"rl_instance_norm_bwd launch failed: CUDA error {err}")
-    instance_norm_bwd_cuda.launches += 1
+    if r3centered:
+        instance_norm_bwd_cuda.r3_launches += 1
+    else:
+        instance_norm_bwd_cuda.launches += 1
     return dx, dscale, dbias
 
 
-instance_norm_bwd_cuda.launches = 0  # kernel launches since the last reset
+# kernel launches since the last reset: shifted and r3centered
+instance_norm_bwd_cuda.launches = 0
+instance_norm_bwd_cuda.r3_launches = 0
 
 
 class InstanceNormFunction(torch.autograd.Function):
     """Instance norm with its hand-written backward: the forward saves x
-    and the (B, C, 3) residuals, the residual set of ``_in_fwd``.  CUDA
+    and the (B, C, 3) residuals, the residual set of ``_in_fwd``.  A
+    bf16 x takes the r3centered contract, forward and backward.  CUDA
     tensors run K2 and K2b, CPU tensors the twins."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, slope, eps):
+        r3 = x.dtype == torch.bfloat16
         if x.is_cuda:
             stats = torch.empty((x.shape[0], x.shape[-1], 3),
                                 dtype=torch.float32, device=x.device)
-            out = instance_norm_cuda(x, scale, bias, slope, eps, stats)
+            out = instance_norm_cuda(x, scale, bias, slope, eps, stats,
+                                     r3centered=r3)
         else:
-            out, stats = _plain_forward(x, scale, bias, slope, eps)
+            plain = _plain_r3_forward if r3 else _plain_forward
+            out, stats = plain(x, scale, bias, slope, eps)
         ctx.save_for_backward(x, stats, scale, bias)
-        ctx.slope = slope
+        ctx.slope, ctx.r3 = slope, r3
         return out
 
     @staticmethod
@@ -474,7 +537,7 @@ class InstanceNormFunction(torch.autograd.Function):
         x, stats, scale, bias = ctx.saved_tensors
         bwd = instance_norm_bwd_cuda if x.is_cuda else instance_norm_bwd_plain
         dx, dscale, dbias = bwd(x, dy.contiguous(), stats, scale, bias,
-                                ctx.slope)
+                                ctx.slope, ctx.r3)
         return dx, dscale, dbias, None, None
 
 
@@ -488,8 +551,8 @@ def instance_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
     as the JAX ``layers.instance_norm`` dispatches on the dtype.  When
     autograd records, the call goes through :class:`InstanceNormFunction`,
     so the gradient reaches x, γ and β on either device.  ``parity``: the
-    space-to-depth norm.  The parity and r3centered norms are inference
-    only: a call autograd would record raises."""
+    space-to-depth norm, inference only: a call autograd would record
+    raises."""
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {x.device}")
     r3 = x.dtype == torch.bfloat16 and not parity
@@ -500,9 +563,6 @@ def instance_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
         if parity:
             raise RuntimeError("the parity instance norm is inference-only: "
                                "it has no backward")
-        if r3:
-            raise RuntimeError("the bf16 (r3centered) instance norm is "
-                               "inference-only: it has no backward yet")
         return InstanceNormFunction.apply(x, scale, bias, slope, eps)
     if x.is_cuda:
         return instance_norm_cuda(x, scale, bias, slope, eps, parity=parity,

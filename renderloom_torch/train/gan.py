@@ -10,15 +10,17 @@ Port of the JAX package's ``renderloom/train/gan.py``:
   backpropagated into G only; the previous fused frame is detached, so
   no gradient crosses frames.  The JAX ``lax.scan`` over frames is a
   Python loop.  Two AMSGrad optimizers (TTUR) wrapped like
-  ``optax.apply_if_finite``, written out in :class:`AmsgradIfFinite`;
+  ``optax.apply_if_finite``, written out in :class:`AmsgradIfFinite`.
+  In the config's compute dtype: under bfloat16, G, D and VGG19 compute
+  in bf16 on float32 master parameters, the streamed frames are cast
+  once per step, the fused carry stays bf16, the losses reduce in
+  float32 and the gradients reach the float32 parameters;
 * inference (``make_inference_generator``, ``make_inference_pair``,
   ``make_rollout``, ``rollout_chunked``, ``make_segment_rollout``,
   ``segment_rollout_chunked``): the spectral-norm-folded generator in
   the config's compute dtype (float32 or bfloat16), optionally in the
   parity layout, the sequential and the segment-parallel rollouts, and
   their chunked forms for long clips.
-
-Training runs in float32 only (ROADMAP, Queue 1: bf16 training).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from renderloom_torch.models.layers import (cast_weights_,
                                             enable_spectral_norm)
 from renderloom_torch.models.perceptual import PerceptualLoss
 from renderloom_torch.models.renderer import Generator, composite
+from renderloom_torch.ops.image import denorm_to_unit, ssim
 from renderloom_torch.train.gan_losses import (feature_matching_loss,
                                                gan_loss,
                                                mask_regulation_loss,
@@ -174,18 +177,15 @@ def create_gan_state(cfg: RendererConfig, device, seed: int = 0,
                      trees: Optional[Dict[str, dict]] = None
                      ) -> GanTrainState:
     """Generator and discriminator set in their training form on
-    ``device`` with their optimizers.  Weights: the numpy flax trees
-    ``trees`` (``params_g``, ``stats_g``, ``params_d``, ``stats_d``) or,
-    without them, seeded random ones (G from ``seed``, D from
-    ``seed + 1``)."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype {cfg.compute_dtype!r}: the port trains in "
-            "float32 only; bf16 training is ROADMAP Queue 1's next item "
-            "(bf16 training)")
+    ``device`` with their optimizers, computing in the config's
+    ``compute_dtype`` on float32 parameters.  Weights: the numpy flax
+    trees ``trees`` (``params_g``, ``stats_g``, ``params_d``,
+    ``stats_d``) or, without them, seeded random ones (G from ``seed``, D
+    from ``seed + 1``)."""
     set_float32_precision()
-    gen = enable_spectral_norm(Generator(cfg.gen))
-    dis = enable_spectral_norm(DiscriminatorSet(cfg.dis))
+    dtype = torch_dtype(cfg.compute_dtype)
+    gen = enable_spectral_norm(Generator(cfg.gen, dtype))
+    dis = enable_spectral_norm(DiscriminatorSet(cfg.dis, dtype))
     if trees is None:
         random_init_(gen, seed)
         random_init_(dis, seed + 1)
@@ -200,13 +200,15 @@ def create_gan_state(cfg: RendererConfig, device, seed: int = 0,
 
 def make_perceptual(cfg: RendererConfig, device, seed: int = 0,
                     params: Optional[dict] = None) -> PerceptualLoss:
-    """The VGG19 perceptual loss on ``device``: the flax tree ``params``
-    (``PerceptualLoss().variables["params"]`` of the JAX package) or
-    fixed random weights from ``seed``."""
+    """The VGG19 perceptual loss on ``device`` in the config's compute
+    dtype: the flax tree ``params`` (``PerceptualLoss().variables
+    ["params"]`` of the JAX package) or fixed random weights from
+    ``seed``."""
     if cfg.perceptual.model != "vgg19":
         raise NotImplementedError(
             f"perceptual model {cfg.perceptual.model!r}: the port has VGG19")
-    vgg = PerceptualLoss(cfg.perceptual.layers, cfg.perceptual.weights)
+    vgg = PerceptualLoss(cfg.perceptual.layers, cfg.perceptual.weights,
+                         torch_dtype(cfg.compute_dtype))
     if params is None:
         random_init_(vgg, seed)
     else:
@@ -267,14 +269,15 @@ def make_gan_train_step(cfg: RendererConfig, perceptual: PerceptualLoss,
     train-mode preparation first, drawing its randomness from
     ``state.rng``.  Metrics are device scalars: each loss averaged over
     the L − 2 trained frames, and ``notfinite/g``/``notfinite/d``, the
-    optimizers' consecutive skipped updates.
+    optimizers' consecutive skipped updates.  The frames are cast to the
+    config's compute dtype once (the label after the preparation
+    rasterized it in float32); the metrics are float32.
 
     ``on_stage(name)``, when given, is called as each stage ends:
     ``"prep"`` once, then per frame ``"g_forward"``, ``"d_step"`` and
     ``"g_step"`` (a profiler synchronises and reads its clock there)."""
     stage = on_stage or (lambda name: None)
-    if cfg.ssim_w:
-        raise NotImplementedError("ssim_w: the port has no SSIM term yet")
+    cdtype = torch_dtype(cfg.compute_dtype)
     mode = cfg.gan_mode
     weights = _weights_dict(cfg)
 
@@ -284,15 +287,19 @@ def make_gan_train_step(cfg: RendererConfig, perceptual: PerceptualLoss,
         loss_gan, loss_fm = g_gan_losses(d_out, mode, weights, cfg.fm_w)
         loss_perc = (perceptual(fused, real) + perceptual(img * fg, real * fg)
                      ) * cfg.perceptual.weight
-        loss_l1 = ((fused - real).abs().mean()
+        loss_l1 = ((fused - real).abs().float().mean()
                    + masked_l1_image(img, fg, real)) * cfg.l1_w
         loss_mask = mask_regulation_loss(mask) * cfg.mask_w
         total = loss_gan + loss_fm + loss_perc + loss_l1 + loss_mask
         metrics = {"g/gan": loss_gan, "g/fm": loss_fm, "g/perc": loss_perc,
                    "g/l1": loss_l1, "g/mask": loss_mask}
+        if cfg.ssim_w:
+            loss_ssim = ssim_loss(fused, real, fg) * cfg.ssim_w
+            total = total + loss_ssim
+            metrics["g/ssim"] = loss_ssim
         if cfg.grad_w:
             # fg-masked L1 of forward differences, composite vs truth
-            fm, rm = fused * fg, real * fg
+            fm, rm = (fused * fg).float(), (real * fg).float()
             diff = lambda x, d: x.diff(dim=d)
             loss_grad = ((diff(fm, -3) - diff(rm, -3)).abs().mean()
                          + (diff(fm, -2) - diff(rm, -2)).abs().mean()
@@ -340,7 +347,8 @@ def make_gan_train_step(cfg: RendererConfig, perceptual: PerceptualLoss,
             batch = prepare_batch(batch, data_cfg,
                                   {k: v.to(dev) for k, v in draws.items()})
             stage("prep")
-        tm = lambda x: x.transpose(0, 1).float()        # (L, B, ...)
+        # (L, B, ...), cast to the compute dtype once
+        tm = lambda x: x.transpose(0, 1).to(cdtype)
         label, image = tm(batch["label"]), tm(batch["image"])
         back, fg = tm(batch["back"]), tm(batch["fg_mask"])
         L = label.shape[0]
@@ -360,6 +368,14 @@ def make_gan_train_step(cfg: RendererConfig, perceptual: PerceptualLoss,
         return out
 
     return train_step
+
+
+def ssim_loss(fused: torch.Tensor, real: torch.Tensor,
+              fg: torch.Tensor) -> torch.Tensor:
+    """``1 − SSIM`` of the fg-masked composite against the masked truth,
+    both mapped to [0, 1] in their own dtype and compared in float32."""
+    return 1.0 - ssim((denorm_to_unit(fused) * fg).float(),
+                      (denorm_to_unit(real) * fg).float())
 
 
 def make_inference_generator(cfg: RendererConfig) -> Generator:

@@ -1,13 +1,17 @@
-"""Readings behind the bf16 limits of tests/test_torch_bf16.py and
-tests/test_torch_pipeline.py: mean and largest |port − JAX bf16| of
-each held output, for the port as it is and for controls that depart
-from the bf16 function — the port in float32, and the three departures
-from the r3centered norm's contract that stay within one ulp of n
-(``test_torch_bf16.PLANTED``), planted at its affine call sites by
-swapping the norm's CPU twin.
+"""Readings behind the bf16 limits of tests/test_torch_bf16.py,
+tests/test_torch_pipeline.py and tests/test_torch_train_step.py: mean
+and largest |port − JAX bf16| of each held output, for the port as it
+is and for controls that depart from the bf16 function — the port in
+float32, and the three departures from the r3centered norm's contract
+that stay within one ulp of n (``test_torch_bf16.PLANTED``), planted at
+its affine call sites by swapping the norm's CPU twin; for the train
+step (``train``) the port as it is, in float32, and with the shifted
+contract's backward planted at the bf16 norms (the gradient twin
+called without ``r3centered``).
 
 Run from the repository root (minutes on one CPU thread):
-``JAX_PLATFORMS=cpu python tests/_bf16_controls.py [motion] [step] [pipeline]``.
+``JAX_PLATFORMS=cpu python tests/_bf16_controls.py [motion] [step]
+[pipeline] [train]``.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import renderloom.core.config as JC  # noqa: E402
 import renderloom_torch.core.config as TC  # noqa: E402
 import test_torch_bf16 as TB  # noqa: E402
 import test_torch_pipeline as TP  # noqa: E402
+import test_torch_train_step as TS  # noqa: E402
 from _torch_parity import (bf16, generator_trees, motion_cfg,  # noqa: E402
                            motion_tree, renderer_cfg, t)
 from renderloom_torch import convert  # noqa: E402
@@ -140,7 +145,35 @@ def pipeline():
                    f"{run}, fused frames", got, want, want_f32)
 
 
+def train():
+    trees = TS.make_trees()
+    steps = TS.run_steps(trees)
+    before, after, metrics, vgg = TS.jax_step(trees, "bfloat16")
+    sound_bwd = NK.instance_norm_bwd_plain
+    shifted_bwd = (lambda x, dy, stats, s=None, b=None, slope=None,
+                   r3centered=False: sound_bwd(x, dy, stats, s, b, slope))
+    for run, dtype, bwd in (("sound", "bfloat16", sound_bwd),
+                            ("float32", "float32", sound_bwd),
+                            ("shifted backward at the bf16 norms",
+                             "bfloat16", shifted_bwd)):
+        NK.instance_norm_bwd_plain = bwd
+        try:
+            bf16_steps = (before, after, metrics) + TS.port_step(
+                trees, vgg, dtype)
+        finally:
+            NK.instance_norm_bwd_plain = sound_bwd
+        vecs = {"metrics": TS.bf16_metric_vectors(steps, bf16_steps)}
+        for net in ("g", "d"):
+            vecs[net] = TS.bf16_grad_vectors(steps, bf16_steps, net)[:3]
+        for name, (got, want, ref) in vecs.items():
+            print(f"train, {run}, {name}: mean |port - JAX bf16| "
+                  f"{np.abs(got - want).mean():.4e}; largest from float32 "
+                  f"{np.abs(got - ref).max():.4e}, JAX bf16's "
+                  f"{np.abs(want - ref).max():.4e}", flush=True)
+
+
 if __name__ == "__main__":
     torch.set_num_threads(1)
-    for part in sys.argv[1:] or ["motion", "step", "pipeline"]:
-        {"motion": motion, "step": step, "pipeline": pipeline}[part]()
+    for part in sys.argv[1:] or ["motion", "step", "pipeline", "train"]:
+        {"motion": motion, "step": step, "pipeline": pipeline,
+         "train": train}[part]()

@@ -1,8 +1,9 @@
 """bfloat16 compute in the PyTorch port against the JAX package's
 bfloat16 configuration on the CPU, on the same numpy-seeded weights and
 inputs: the r3centered instance norm (K2's bf16 mode, through its plain
-twin), the motion transformer, and one generator step of the standard
-and of the parity-layout generator.
+twin) and its gradient (K2b's r3centered mode, through its twin, against
+``jax.vjp``), the motion transformer, and one generator step of the
+standard and of the parity-layout generator.
 
 Tolerances.
 * r3centered twin against ``layers.instance_norm`` on bf16 input: one
@@ -14,6 +15,15 @@ Tolerances.
   At affine call sites also at most 1% of elements not bit-equal: the
   twin equals JAX at every element there, and each planted departure
   that stays within the ulp (``PLANTED``) moves nearly every element.
+* r3centered backward twin against ``jax.vjp`` of ``layers.instance_norm``
+  (and ``layers.leaky``) on bf16 x at mean 0.7, std 1.5: dx in bf16,
+  within one bf16 ulp (``2⁻⁷·max(|dx|)`` elementwise) and bit-equal but
+  for at most 0.1% of elements — the readings are 0.008% (affine +
+  leaky), 0.020% (affine) and 0.012% (no affine), a few float32 ulp of
+  another algebra (autodiff goes through m1 and var) rounding dx to the
+  neighbouring bf16 value; each planted fault (``PLANTED_BWD``) moves
+  29% of elements or more, or dγ by 1.6e-3 of its largest.  dγ and dβ
+  within 1e-5 of their largest (readings 5e-7).
 * Models: bf16 evaluations that round at other places differ by
   rounding noise that the network amplifies; with these seeded weights
   the JAX bf16 image itself lies tenths from the JAX float32 image at
@@ -146,8 +156,9 @@ def test_r3centered_check_rejects_a_planted_fault(fault):
 
 def test_bf16_norm_contracts_and_no_fallback():
     """A bf16 x takes r3centered in the standard layout and the parity
-    contract when packed; r3centered has no backward yet; the CUDA
-    wrapper refuses a CPU tensor without counting a launch."""
+    contract when packed; under autograd r3centered goes through
+    ``InstanceNormFunction`` and the parity norm raises; the CUDA
+    wrappers refuse a CPU tensor without counting a launch."""
     x = t(np.random.default_rng(1).normal(size=(2, 4, 6, 8)).astype(
         np.float32)).bfloat16()
     torch.testing.assert_close(
@@ -156,14 +167,185 @@ def test_bf16_norm_contracts_and_no_fallback():
     torch.testing.assert_close(
         norm_kernel.instance_norm(x, parity=True),
         norm_kernel.instance_norm_plain(x, parity=True), rtol=0, atol=0)
+    y = norm_kernel.instance_norm(x.clone().requires_grad_())
+    assert type(y.grad_fn).__name__ == "InstanceNormFunctionBackward"
     with pytest.raises(RuntimeError, match="inference-only"):
-        norm_kernel.instance_norm(x.clone().requires_grad_())
-    before = norm_kernel.instance_norm_cuda.r3_launches
+        norm_kernel.instance_norm(x.clone().requires_grad_(), parity=True)
+    before = (norm_kernel.instance_norm_cuda.r3_launches,
+              norm_kernel.instance_norm_bwd_cuda.r3_launches)
     with pytest.raises(ValueError):
         norm_kernel.instance_norm_cuda(x, r3centered=True)
     with pytest.raises(ValueError):
         norm_kernel.instance_norm_cuda(x.float(), r3centered=True)
-    assert norm_kernel.instance_norm_cuda.r3_launches == before
+    stats = torch.zeros((2, 8, 3))
+    with pytest.raises(ValueError):
+        norm_kernel.instance_norm_bwd_cuda(x, x, stats, r3centered=True)
+    assert (norm_kernel.instance_norm_cuda.r3_launches,
+            norm_kernel.instance_norm_bwd_cuda.r3_launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the r3centered backward
+# ---------------------------------------------------------------------------
+
+R3_BWD_NOT_EQUAL_MAX = 1e-3     # readings 0.008%–0.020% (module docstring)
+R3_BWD_PARAM_RTOL = 1e-5        # of the largest |dγ|, |dβ|; readings 5e-7
+
+
+def r3_bwd_case(affine, act):
+    """bf16 x (2, 16, 24, 32) drawn at mean 0.7, std 1.5, γ and β, the
+    leaky's slope, a cotangent in the output's dtype (float32 with
+    affine, bf16 without), the forward's residuals from the twin, and
+    JAX's gradients (``jax.vjp`` of ``instance_norm`` then ``leaky``)."""
+    rng = np.random.default_rng(4)
+    shape = (2, 16, 24, 32)
+    x = jnp.asarray(rng.normal(0.7, 1.5, shape), jnp.bfloat16)
+    s = (1.0 + 0.5 * rng.normal(size=32)).astype(np.float32) \
+        if affine else None
+    b = rng.normal(size=32).astype(np.float32) if affine else None
+
+    def f(x, *sb):
+        y = instance_norm(x, scale=sb[0] if sb else None,
+                          bias=sb[1] if sb else None)
+        return leaky(y) if act else y
+    args = (x,) + ((jnp.asarray(s), jnp.asarray(b)) if affine else ())
+    y, vjp = jax.vjp(f, *args)
+    dy = jnp.asarray(rng.normal(size=shape), y.dtype)
+    want = [np.asarray(g, np.float32) for g in vjp(dy)]
+    tx = t(np.asarray(x, np.float32)).bfloat16()
+    ts, tb = (None, None) if not affine else (t(s), t(b))
+    slope = LEAKY_SLOPE if act else None
+    _, stats = norm_kernel._plain_r3_forward(tx, ts, tb, slope,
+                                             norm_kernel.EPS)
+    tdy = t(np.asarray(dy, np.float32)).to(
+        torch.float32 if affine else torch.bfloat16)
+    return tx, tdy, stats, ts, tb, slope, want
+
+
+def held_r3_bwd(got, want) -> bool:
+    """``got`` (dx, dγ, dβ) against ``want`` (numpy): dx in bf16 within
+    one bf16 ulp and bit-equal but for at most R3_BWD_NOT_EQUAL_MAX of
+    elements; dγ and dβ within R3_BWD_PARAM_RTOL of their largest."""
+    if got[0].dtype != torch.bfloat16:
+        return False
+    dx, w = got[0].float().numpy(), want[0]
+    ok = (np.abs(dx - w) <= 2.0 ** -7 * np.maximum(np.abs(dx),
+                                                   np.abs(w))).all()
+    ok &= (dx != w).mean() <= R3_BWD_NOT_EQUAL_MAX
+    for g_, w_ in zip(got[1:], want[1:]):
+        ok &= (np.abs(g_.numpy() - w_) <= R3_BWD_PARAM_RTOL
+               * np.abs(w_).max()).all()
+    return bool(ok)
+
+
+@pytest.mark.parametrize("affine,act", [(True, True), (True, False),
+                                        (False, False)],
+                         ids=["affine-leaky", "affine", "plain"])
+def test_r3centered_backward_twin_matches_jax(affine, act):
+    """The twin of K2b's r3centered mode equals JAX's autodiff of the bf16
+    norm (within ``held_r3_bwd``), and torch autograd of the forward twin
+    as well."""
+    tx, tdy, stats, s, b, slope, want = r3_bwd_case(affine, act)
+    got = norm_kernel.instance_norm_bwd_plain(tx, tdy, stats, s, b, slope,
+                                              r3centered=True)
+    assert got[0].dtype == torch.bfloat16
+    assert held_r3_bwd(got, want)
+    leaves = [tx.clone().requires_grad_()] + (
+        [s.clone().requires_grad_(), b.clone().requires_grad_()]
+        if affine else [])
+    y = norm_kernel._plain_r3centered(
+        *leaves, *([] if affine else [None, None]), slope, norm_kernel.EPS)
+    auto = torch.autograd.grad(y, leaves, tdy)
+    assert held_r3_bwd(auto, [g_.float().numpy() for g_ in got
+                              if g_ is not None])
+
+
+def _r3_bwd_by_hand(x, dy, stats, s, b, slope, round_g, dgamma_of_n):
+    """The r3centered backward at an affine call site written out, with
+    the rounding of g and the rounding of x̂ in dγ as switches."""
+    m1, inv = (v[:, None, None, :] for v in stats[..., 1:].unbind(-1))
+    xhat = (x.float() - m1) * inv
+    n = xhat.bfloat16().float()
+    z = n * s + b
+    dz = dy if slope is None else torch.where(z >= 0, dy, dy * slope)
+    g = dz * s
+    if round_g:
+        g = g.bfloat16().float()
+    dx = (g - g.mean((1, 2), keepdim=True)
+          - xhat * (g * xhat).mean((1, 2), keepdim=True)) * inv
+    return (dx.bfloat16(), (dz * (n if dgamma_of_n else xhat)).sum((0, 1, 2)),
+            dz.sum((0, 1, 2)))
+
+
+def _shifted_residuals(x, dy, stats, s, b, slope):
+    """The shifted forward's residuals (K2 outside its r3centered mode:
+    s = x[b, 0, 0, c], m1 = E[x − s]) read by the r3centered backward,
+    which takes s = 0."""
+    _, shifted = norm_kernel._plain_forward(x, s, b, slope, norm_kernel.EPS)
+    shifted[..., 0] = 0.0
+    return norm_kernel.instance_norm_bwd_plain(x, dy, shifted, s, b, slope,
+                                               r3centered=True)
+
+
+PLANTED_BWD = {
+    "g not rounded to bf16": lambda *a: _r3_bwd_by_hand(*a, False, True),
+    "dgamma from unrounded xhat": lambda *a: _r3_bwd_by_hand(*a, True,
+                                                             False),
+    "shifted residuals": _shifted_residuals,
+    "dx returned in float32": lambda x, *a: norm_kernel.
+        instance_norm_bwd_plain(x.float(), *a, r3centered=True),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(PLANTED_BWD))
+def test_r3centered_backward_check_rejects_a_planted_fault(fault):
+    """Each planted departure from the gradient's contract fails
+    ``held_r3_bwd`` at the affine + leaky call site, where the written-out
+    backward without a fault passes it."""
+    tx, tdy, stats, s, b, slope, want = r3_bwd_case(True, True)
+    assert held_r3_bwd(_r3_bwd_by_hand(tx, tdy, stats, s, b, slope, True,
+                                       True), want)
+    assert not held_r3_bwd(PLANTED_BWD[fault](tx, tdy, stats, s, b, slope),
+                           want)
+
+
+def test_instance_norm_function_bf16_on_cpu():
+    """Under autograd a bf16 norm (affine + leaky, without affine, and
+    without affine with the leaky, whose negative side the forward
+    rounds to bf16) runs the r3centered forward and backward twins: the
+    gradient reaches x in bf16 and γ, β in float32, equal to the
+    backward twin on the forward's residuals and within
+    ``held_r3_bwd`` of torch autograd through the forward twin."""
+    rng = np.random.default_rng(6)
+    x = t(rng.normal(0.7, 1.5, (2, 5, 7, 16)).astype(np.float32)).bfloat16()
+    s = t((1.0 + 0.3 * rng.normal(size=16)).astype(np.float32))
+    b = t(rng.normal(size=16).astype(np.float32))
+    for affine, slope in ((True, LEAKY_SLOPE), (False, None),
+                          (False, LEAKY_SLOPE)):
+        leaves = [x.clone().requires_grad_()] + (
+            [s.clone().requires_grad_(), b.clone().requires_grad_()]
+            if affine else [])
+        y = norm_kernel.instance_norm(*leaves, slope=slope)
+        assert type(y.grad_fn).__name__ == "InstanceNormFunctionBackward"
+        assert y.dtype == (torch.float32 if affine else torch.bfloat16)
+        dy = t(rng.normal(size=y.shape).astype(np.float32)).to(y.dtype)
+        got = torch.autograd.grad(y, leaves, dy)
+        assert [g_.dtype for g_ in got] == [torch.bfloat16] + (
+            [torch.float32] * 2 if affine else [])
+        _, stats = norm_kernel._plain_r3_forward(
+            x, s if affine else None, b if affine else None, slope,
+            norm_kernel.EPS)
+        want = norm_kernel.instance_norm_bwd_plain(
+            x, dy, stats, s if affine else None, b if affine else None,
+            slope, r3centered=True)
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_, w_)
+        leaves = [v.detach().clone().requires_grad_() for v in leaves]
+        y = norm_kernel._plain_r3centered(
+            *leaves, *([] if affine else [None, None]), slope,
+            norm_kernel.EPS)
+        auto = torch.autograd.grad(y, leaves, dy)
+        assert held_r3_bwd(got, [g_.float().numpy() for g_ in auto])
 
 
 # ---------------------------------------------------------------------------

@@ -87,6 +87,29 @@ def test_hand_crops_match_jax():
     assert got_v.tolist() == [[True, True], [True, False], [False, True]]
 
 
+def test_crops_of_bf16_images_match_jax():
+    """bf16 images and labels, as the bf16 train step passes them: both
+    sides crop in bf16 (JAX's ``scale_and_translate`` rounds its weights
+    to the image's dtype, as the port's einsum does) and agree bit for
+    bit here; the face crop lies 0.40 from its float32 one."""
+    lbl = t(label_with_parts()).bfloat16()
+    img = t(np.random.default_rng(1).uniform(-1, 1, (3, H, W, 5)).astype(
+        np.float32)).bfloat16()
+    jnp16 = lambda v: jnp.asarray(v.float().numpy(), jnp.bfloat16)
+    want = JCrops.face_crop(jnp16(img), jnp16(lbl))
+    got = TCrops.face_crop(img, lbl)
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+    (want_h, want_v), (got_h, got_v) = (
+        JCrops.hand_crops(jnp16(img[..., :3]), jnp16(lbl)),
+        TCrops.hand_crops(img[..., :3], lbl))
+    assert got_h.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got_h.float().numpy(),
+                                  np.asarray(want_h, np.float32))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+
+
 @pytest.fixture(scope="module")
 def dis_trees():
     lbl = jnp.zeros((1, H, W, 22))

@@ -120,13 +120,16 @@ H100 = (132, 1, 200 * 1024)
 GRIDS = [H100, (108, 2, 96 * 1024)]
 
 
-def _check_plan(shape, itemsize, n_inputs, grid, parity):
+def _check_plan(shape, itemsize, n_inputs, grid, parity, dy_itemsize=None,
+                n_sums=2):
     """Every (b, c, pixel) covered once, each block's share within its
-    shared memory unless the plan streams, and the kernel's invariants."""
+    shared memory unless the plan streams, and the kernel's invariants
+    (``plan_ok`` in csrc/instance_norm.cu)."""
     B, H, W, C = shape
     n_px = H * W
     p = norm_kernel._plan(B, n_px, C, itemsize, n_inputs, *grid,
-                          parity=parity)
+                          parity=parity, dy_itemsize=dy_itemsize,
+                          n_sums=n_sums)
     G, parts, rows = p["group"], p["parts"], p["rows_per_part"]
     assert C % G == 0
     assert G == C or (G * itemsize % 16 == 0 and G * itemsize >= 32)
@@ -134,8 +137,12 @@ def _check_plan(shape, itemsize, n_inputs, grid, parity):
         assert G == C and C % 4 == 0
     assert p["grid"] == grid[0] * grid[1]
     assert p["slabs_per_chunk"] * parts <= p["grid"]
-    n_tables = 7 if n_inputs == 1 else 9
-    data = -(-p["rows_cap"] * G * itemsize * n_inputs // 16) * 16
+    n_tables = 7 if n_inputs == 1 else 7 + n_sums
+    dsz = dy_itemsize or itemsize
+    x_bytes = p["rows_cap"] * G * itemsize
+    row_bytes = x_bytes if n_inputs == 1 else (
+        -(-x_bytes // dsz) * dsz + p["rows_cap"] * G * dsz)
+    data = -(-row_bytes // 16) * 16
     assert p["rows_cap"] >= 1 and data + 4 * n_tables * G <= grid[2]
     assert p["streaming"] == (rows > p["rows_cap"])
     assert isinstance(p["grid_reduce"], bool)
@@ -161,12 +168,18 @@ def _check_plan(shape, itemsize, n_inputs, grid, parity):
     + [(s, "train") for s in TRAIN_SHAPES] + [(STREAM_SHAPE, "stream")]))
 def test_plan_covers_every_element_once(shape, kind, dtype):
     """``_plan`` at every main-path shape, forward (x) and backward (x
-    and dy; the parity norm has none), on two grids.  On the H100's grid
-    no main-path call streams, so each input is read once."""
+    and dy; the parity norm has none), on two grids; for bf16 also the
+    r3centered backward at an affine call site (float32 dy, four sums).
+    On the H100's grid no main-path call streams, so each input is read
+    once."""
     itemsize = 4 if dtype == "float32" else 2
-    for n_inputs in (1,) if kind == "parity" else (1, 2):
+    cases = [(1, None, 2)] if kind == "parity" else [(1, None, 2),
+                                                     (2, None, 2)]
+    if dtype == "bfloat16" and kind != "parity":
+        cases.append((2, 4, 4))
+    for n_inputs, dy_itemsize, n_sums in cases:
         for grid in GRIDS:
             p = _check_plan(shape, itemsize, n_inputs, grid,
-                            kind == "parity")
+                            kind == "parity", dy_itemsize, n_sums)
             if grid == H100:
                 assert p["streaming"] == (kind == "stream"), p

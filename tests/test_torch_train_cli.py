@@ -1,7 +1,8 @@
 """The port's training entry point on the CPU at a tiny size: raw
 synthetic windows through the train-mode preparation and the GAN step,
 metrics to ``metrics.jsonl``, a ``torch.save`` checkpoint, and a resume
-that continues from the saved step."""
+that continues from the saved step; and a config with ``compute_dtype:
+bfloat16``, which trains in bf16 on float32 parameters."""
 
 import json
 import os
@@ -45,3 +46,22 @@ def test_train_save_and_resume(tmp_path):
     assert ca["gen"].keys() == cb["gen"].keys()
     assert int(cb["opt_g"]["count"]) == 2
     assert any(k.endswith("sn_u") for k in ca["dis"])
+
+
+def test_train_with_a_bf16_config(tmp_path):
+    """The yaml key ``compute_dtype: bfloat16`` trains: finite metrics,
+    no skipped update, float32 parameters in the checkpoint."""
+    with open(os.path.join(ROOT, "configs", "smoke_hsm.yaml")) as f:
+        text = f.read()
+    config = tmp_path / "smoke_bf16.yaml"
+    config.write_text(text + "\ncompute_dtype: bfloat16\n")
+    out = str(tmp_path / "bf16")
+    args = [a if a != ARGS[ARGS.index("--config") + 1] else str(config)
+            for a in ARGS]
+    train_renderer.main(args + ["--epochs", "1", "--out-dir", out])
+    (line,) = _lines(out)
+    assert line["notfinite/g"] == line["notfinite/d"] == 0.0
+    assert all(v == v for v in line.values())
+    ckpt = torch.load(os.path.join(out, "checkpoint.pt"))
+    assert all(v.dtype == torch.float32 for v in ckpt["gen"].values())
+    assert ckpt["opt_g"]["flat"].dtype == torch.float32

@@ -211,9 +211,10 @@ def _gen_inputs(B, seed):
     return label, imgs[0], imgs[1]
 
 
-def _train_generator(trees, remat: bool):
+def _train_generator(trees, remat: bool, dtype=torch.float32):
     cfg = renderer_cfg(TC, H, W)
-    gen = Generator(dataclasses.replace(cfg.gen, do_checkpoint=remat))
+    gen = Generator(dataclasses.replace(cfg.gen, do_checkpoint=remat),
+                    dtype)
     TL.enable_spectral_norm(gen)
     return convert.load_flax_params(gen, *trees)
 
@@ -267,5 +268,28 @@ def test_remat_generator_same_gradients_and_one_u_update(trees):
     for n in g0:
         np.testing.assert_allclose(g1[n].numpy(), g0[n].numpy(), rtol=1e-5,
                                    atol=1e-7, err_msg=n)
+    for n in u0:
+        assert torch.equal(u0[n], u1[n]), n
+
+
+def test_remat_generator_bf16_same_gradients_and_one_u_update(trees):
+    """In bf16 compute the recomputed SPADE branches give the forward's
+    bits (the r3centered norm's sums have one order), so do_checkpoint
+    gives the plain run's gradients bit for bit, in float32 on the
+    float32 parameters, and moves every u exactly once."""
+    label, back, prev = (t(a).bfloat16() for a in _gen_inputs(1, 2))
+    runs = []
+    for remat in (False, True):
+        gen = _train_generator(trees, remat, torch.bfloat16)
+        img, mask = gen(label, label, back, prev, update_stats=True)
+        assert img.dtype == mask.dtype == torch.bfloat16
+        (img.float().square().mean() + mask.float().mean()).backward()
+        grads = {n: p.grad.clone() for n, p in gen.named_parameters()}
+        assert all(g.dtype == torch.float32 for g in grads.values())
+        runs.append((grads, {n: b.clone() for n, b in gen.named_buffers()}))
+    (g0, u0), (g1, u1) = runs
+    assert g0.keys() == g1.keys() and u0.keys() == u1.keys()
+    for n in g0:
+        assert torch.equal(g0[n], g1[n]), n
     for n in u0:
         assert torch.equal(u0[n], u1[n]), n

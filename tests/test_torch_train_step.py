@@ -33,6 +33,27 @@ rounding of 0 (3e-7 in one) whose sign the two sides round apart, which
 moves that element's gradient by 0.8·g and the leaves below it by up to
 5e-3 of their largest |g|.  That is float32, not the port: the same
 port in float64 agrees with JAX's float32 gradients there to 6e-5.
+
+The same step in bf16 compute (``compute_dtype: bfloat16``: G, D and
+VGG19 in bf16 on float32 parameters) against JAX's bf16 step.  Two bf16
+evaluations that round at other places differ by rounding noise the
+random-weight networks amplify: JAX's own bf16 gradients lie a median
+0.26 (G) and 0.20 (D) of each leaf's largest from its float32 ones, and
+its d/face metric 10% from float32's.  So bf16 is held as serving is
+(``_torch_parity.hold_bf16``'s two conditions), on vectors normalized
+by the JAX float32 step: the metrics each over |its float32 value|, the
+gradients of the leaves above 1e-4 of their network's largest (float32)
+each over its float32 largest |g|.  (1) the mean |port − JAX bf16|
+within about 1.35× the port's reading (``BF16_MEAN_TOL``: metrics
+3.08e-3, G 3.04e-2, D 2.10e-2); (2) the largest distance to JAX float32
+at most 1.5× JAX bf16's own + 1e-3.  Control (``tests/_bf16_controls.py
+train``): the port in float32 reads 1.43e-2, 4.48e-2 and 5.62e-2, beyond
+each limit; a planted gradient fault in the norm (the shifted
+contract's backward at the bf16 norms) reads as the sound port, which
+only the norm's own check (``tests/test_torch_bf16.py``) sees.  The
+leaves whose float32 gradient vanishes hold bf16 noise in both
+implementations (up to 1.8e-3 of the net's largest here): each within
+1.5× JAX bf16's largest + 1e-4 of the net's largest (reading 1.0×).
 """
 
 import dataclasses
@@ -45,8 +66,8 @@ import torch
 
 import renderloom.core.config as JC
 import renderloom_torch.core.config as TC
-from _torch_parity import (fill_tree, generator_trees, renderer_cfg,  # noqa: F401
-                           single_thread, t)
+from _torch_parity import (fill_tree, generator_trees, hold_bf16,  # noqa: F401
+                           renderer_cfg, single_thread, t)
 from renderloom.models.discriminator import DiscriminatorSet as JDis
 from renderloom.models.perceptual import PerceptualLoss as JPerceptual
 from renderloom.models.renderer import Generator as JGenerator
@@ -99,41 +120,73 @@ def make_batch(seed=0):
             "fg_mask": fg}
 
 
-@pytest.fixture(scope="module")
-def steps():
-    """(JAX state before, JAX state after, JAX metrics, port state after,
-    port metrics)."""
+def make_trees():
+    """The G and D flax trees both sides start from."""
     jcfg = cfg(JC)
     params_g, stats_g = generator_trees(jcfg, H, W)
     z = lambda c: jnp.zeros((1, H, W, c))
     shapes = jax.eval_shape(JDis(jcfg.dis).init, jax.random.PRNGKey(0),
                             z(22), z(3), z(3), z(3), z(1))
     rng = np.random.default_rng(1)
-    params_d = fill_tree(shapes["params"], rng)
-    stats_d = fill_tree(shapes["batch_stats"], rng)
+    return {"params_g": params_g, "stats_g": stats_g,
+            "params_d": fill_tree(shapes["params"], rng),
+            "stats_d": fill_tree(shapes["batch_stats"], rng)}
+
+
+def jax_step(trees, compute_dtype="float32"):
+    """One JAX step on ``trees`` and :func:`make_batch` in
+    ``compute_dtype``: (state before, state after, metrics, the VGG19
+    tree)."""
+    jcfg = dataclasses.replace(cfg(JC), compute_dtype=compute_dtype)
+    jdt = jnp.bfloat16 if compute_dtype == "bfloat16" else jnp.float32
     tx_g, tx_d = JG.make_gan_optimizers(jcfg)
     state = JG.GanTrainState(
-        params_g=params_g, params_d=params_d, stats_g=stats_g,
-        stats_d=stats_d, opt_g=tx_g.init(params_g), opt_d=tx_d.init(params_d),
+        params_g=trees["params_g"], params_d=trees["params_d"],
+        stats_g=trees["stats_g"], stats_d=trees["stats_d"],
+        opt_g=tx_g.init(trees["params_g"]), opt_d=tx_d.init(trees["params_d"]),
         step=jnp.zeros((), jnp.int32), key=jax.random.PRNGKey(0))
-    perceptual = JPerceptual()
-    step = JG.make_gan_train_step(JGenerator(jcfg.gen), JDis(jcfg.dis),
-                                  (tx_g, tx_d), jcfg, perceptual)
+    perceptual = JPerceptual(compute_dtype=compute_dtype)
+    step = JG.make_gan_train_step(JGenerator(jcfg.gen, jdt),
+                                  JDis(jcfg.dis, jdt), (tx_g, tx_d), jcfg,
+                                  perceptual)
     batch = make_batch()
     before = jax.tree.map(np.array, state)
     new_state, metrics = step(state, batch)
-
-    trees = {"params_g": params_g, "stats_g": stats_g,
-             "params_d": params_d, "stats_d": stats_d}
-    tcfg = cfg(TC)
-    tstate = TG.create_gan_state(tcfg, "cpu", trees=trees)
-    vgg = TG.make_perceptual(tcfg, "cpu", params=jax.device_get(
-        perceptual.variables["params"]))
-    tmetrics = TG.make_gan_train_step(tcfg, vgg)(
-        tstate, {k: t(v) for k, v in batch.items()})
     return (before, jax.device_get(new_state),
-            {k: float(v) for k, v in metrics.items()}, tstate,
-            {k: float(v) for k, v in tmetrics.items()})
+            {k: float(v) for k, v in metrics.items()},
+            jax.device_get(perceptual.variables["params"]))
+
+
+def port_step(trees, vgg_params, compute_dtype="float32"):
+    """The port's step on the same: (state after, metrics)."""
+    tcfg = dataclasses.replace(cfg(TC), compute_dtype=compute_dtype)
+    tstate = TG.create_gan_state(tcfg, "cpu", trees=trees)
+    vgg = TG.make_perceptual(tcfg, "cpu", params=vgg_params)
+    tmetrics = TG.make_gan_train_step(tcfg, vgg)(
+        tstate, {k: t(v) for k, v in make_batch().items()})
+    return tstate, {k: float(v) for k, v in tmetrics.items()}
+
+
+def run_steps(trees, compute_dtype="float32"):
+    """(JAX state before, JAX state after, JAX metrics, port state
+    after, port metrics) of one step in ``compute_dtype``."""
+    before, after, metrics, vgg = jax_step(trees, compute_dtype)
+    return (before, after, metrics) + port_step(trees, vgg, compute_dtype)
+
+
+@pytest.fixture(scope="module")
+def trees():
+    return make_trees()
+
+
+@pytest.fixture(scope="module")
+def steps(trees):
+    return run_steps(trees)
+
+
+@pytest.fixture(scope="module")
+def bf16_steps(trees):
+    return run_steps(trees, "bfloat16")
 
 
 def test_metrics_match_jax(steps):
@@ -238,3 +291,81 @@ def test_parameters_and_stats_after_the_step_match_jax(steps, net, lr,
         np.testing.assert_allclose(got_s[k], want_s[k], rtol=1e-4,
                                    atol=1e-5, err_msg=k)
     assert int(getattr(tstate, f"opt_{net}").count) == 1
+
+
+# ---------------------------------------------------------------------------
+# the step in bf16 compute
+# ---------------------------------------------------------------------------
+
+# about 1.35x the port's readings (module docstring)
+BF16_MEAN_TOL = {"metrics": 4.2e-3, "g": 4.1e-2, "d": 2.8e-2}
+
+
+def bf16_metric_vectors(steps, bf16_steps):
+    """(port bf16, JAX bf16, JAX float32) metrics, each over |JAX
+    float32|, the skip counters left out."""
+    want32, (_, _, want, _, got) = steps[2], bf16_steps
+    keys = [k for k in want32 if not k.startswith("notfinite")]
+    vec = lambda m: np.array([m[k] / abs(want32[k]) for k in keys])
+    return vec(got), vec(want), vec(want32)
+
+
+def bf16_grad_vectors(steps, bf16_steps, net):
+    """(port bf16, JAX bf16, JAX float32) gradients of the leaves whose
+    float32 gradient does not vanish, each over its float32 largest |g|,
+    concatenated; and the vanishing leaves' (port, JAX bf16) largest |g|
+    over the net's largest float32 |g|."""
+    tstate = bf16_steps[3]
+    got = _port_grads(tstate.gen if net == "g" else tstate.dis,
+                      getattr(tstate, f"opt_{net}"))
+    b1 = tstate.opt_g.b1
+    want = _jax_grads(bf16_steps[1], net, b1)
+    want32 = _jax_grads(steps[1], net, b1)
+    vanishing = _vanishing(want32)
+    top = max(np.abs(v).max() for v in want32.values())
+    keep = [k for k in want32 if k not in vanishing]
+    vec = lambda g: np.concatenate([(g[k] / np.abs(want32[k]).max()).ravel()
+                                    for k in keep])
+    noise = {k: (np.abs(got[k]).max() / top, np.abs(want[k]).max() / top)
+             for k in vanishing}
+    return vec(got), vec(want), vec(want32), noise
+
+
+def test_bf16_metrics_match_jax(steps, bf16_steps):
+    got, want, want32 = bf16_metric_vectors(steps, bf16_steps)
+    hold_bf16("bf16 step metrics", got, want, want32,
+              BF16_MEAN_TOL["metrics"])
+    m = bf16_steps[4]
+    assert m["notfinite/g"] == m["notfinite/d"] == 0.0
+    assert m["g/perc"] > 0 and m["d/hand"] > 0
+
+
+@pytest.mark.parametrize("net", ["g", "d"])
+def test_bf16_gradients_of_the_step_match_jax(steps, bf16_steps, net):
+    got, want, want32, noise = bf16_grad_vectors(steps, bf16_steps, net)
+    hold_bf16(f"bf16 {net} gradients", got, want, want32,
+              BF16_MEAN_TOL[net])
+    for k, (port, jax_bf16) in noise.items():
+        assert port <= 1.5 * jax_bf16 + 1e-4, (k, port, jax_bf16)
+
+
+def test_bf16_step_dtypes(bf16_steps):
+    """Parameters, power-iteration state and the applied gradients stay
+    float32; G, D and VGG19 compute in bf16 (the affine norms' outputs,
+    D's features, are float32, as in JAX)."""
+    tstate = bf16_steps[3]
+    for opt in (tstate.opt_g, tstate.opt_d):
+        assert opt.flat.dtype == opt.mu.dtype == torch.float32
+    for module in (tstate.gen, tstate.dis):
+        assert all(p.dtype == torch.float32 for p in module.parameters())
+        assert all(b.dtype == torch.float32 for b in module.buffers())
+    batch = {k: t(v)[:, 0].bfloat16() for k, v in make_batch().items()}
+    with torch.no_grad():
+        img, mask = tstate.gen(batch["label"], batch["label"], batch["back"],
+                               batch["image"])
+        out = tstate.dis(batch["label"], batch["image"], img, img,
+                         batch["fg_mask"])
+    assert img.dtype == mask.dtype == torch.bfloat16
+    assert all(o.dtype == torch.bfloat16 for o in out["fuse"]["pred_fake"]
+               ["output"])
+    assert out["hand"]["weight"].dtype == torch.float32
