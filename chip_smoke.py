@@ -8,7 +8,9 @@ CUDA device and the CUDA toolkit (``nvcc``); it builds the kernels from
 1. prints the card, its power limit, and the torch/CUDA versions,
    builds every kernel (build time, registers and spills printed), and
    counts K1's operations per term in its machine code
-   (``k1_ops_from_sass``);
+   (``k1_ops_from_sass``); then probes the file layer's host packages
+   (PIL, h5py, imageio), ``g++`` and the port's native image decoder
+   (``phase_probe``), which decide what phases V and Q run;
 2. holds the instance-norm kernel (K2) against its plain twin at the
    generator's full-width shapes, and times kernel, twin and
    ``F.instance_norm``; checks that two calls at the largest shape give
@@ -88,6 +90,29 @@ O. holds ``make_rollout`` and ``segment_rollout_chunked`` (2 segments
    29-frame clip, and the first segment chunk and ``rollout_chunked``
    (8 frames a chunk) against the unchunked rollouts of the same frames
    bit for bit;
+
+then serving from files and evaluation:
+
+V. writes phase 4's weights as the port's ``torch.save`` checkpoints and
+   its keyframes and keyframe poses as PNGs and openpose JSONs, and runs
+   the pipeline CLI (``renderloom_torch.cli.pipeline``) on them at full
+   width in float32 and with both configs in bf16 (where PIL is missing:
+   ``render_folder``'s array core on the same arrays, on a printed
+   line): checks the frame and JSON counts, the keyframes, K1 (once per
+   render chunk, masks off, held bit for bit on the run's tables) and
+   K2 / K2 r3centered launches against the derived counts, and the
+   motion stage against ``MotionInterpolator._run``; prints each stage's
+   seconds and the files-in/frames-out rate; holds the card's CLI
+   against the CPU's at 64x96 in PNG levels, with a planted control;
+Q. runs ``evaluate_h5`` at full width (hsm.yaml, 81- and 80-frame clips:
+   the segment and the sequential rollout) with LPIPS, in float32 and
+   in bf16, through a real ``HsmReader`` where h5py and PIL import, else
+   an in-memory reader: checks K1 (once per clip, masks on) and K2 / K2
+   r3centered launches against the derived counts, finite metrics and
+   ``DAIN_*`` identical in both runs, holds K1 and K2 at the run's
+   shapes against their twins, prints seconds per clip by stage, frames
+   evaluated per second and peak memory; holds the card against the
+   CPU at 64x96 with a planted control;
 
 then the training slice:
 
@@ -3112,6 +3137,646 @@ def phase_train_bf16_cpu_match():
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# probe: the host packages of the file layer
+# ---------------------------------------------------------------------------
+
+HOST_PACKAGES = ("PIL", "h5py", "imageio")
+# the device the file phases (V, Q) drive; a rehearsal on the CPU sets
+# it to "cpu" with counting fakes in place of the kernel wrappers
+DEVICE = "cuda"
+
+
+def phase_probe() -> dict:
+    """Which of the file layer's host packages import, whether ``g++`` is
+    on PATH, and which image decoder runs: the port's C++ decoder where
+    it builds (``g++`` and the libpng/libjpeg headers), else PIL.  Each
+    file phase decides what it runs from this, never by catching a
+    failure."""
+    import importlib.util
+    import shutil
+
+    from renderloom_torch import native
+
+    have = {m: importlib.util.find_spec(m) is not None
+            for m in HOST_PACKAGES}
+    gxx = shutil.which("g++")
+    decoder = native.native_available()
+    print("probe: " + ", ".join(f"{m} {'imports' if ok else 'missing'}"
+                                for m, ok in have.items())
+          + f"; g++ {gxx or 'missing'}; native decoder "
+          + ("built" if decoder else "not built (PIL decodes)"))
+    return dict(have, gxx=bool(gxx), native_decoder=decoder)
+
+
+def _skip_line(phase: str, part: str, missing) -> bool:
+    """Print the line of a part that a missing host package keeps from
+    running; True where it runs."""
+    if missing:
+        print(f"phase {phase} {part}: not run, {', '.join(missing)} "
+              f"missing")
+    return not missing
+
+
+# ---------------------------------------------------------------------------
+# V. serving from files
+# ---------------------------------------------------------------------------
+
+# The CLI's Predict_motion joints against the library motion stage
+# (MotionInterpolator._run on the same keyframes and weights, as phase 4
+# runs it), in pixels (openpose_scale 512).  The keyframe joints reach
+# the CLI through JSON unchanged (x·512 + 256 is exact in float64 for a
+# float32 x), so the two runs are the same computation on the same card
+# but for the hand rows, read back as the mean of 21 copies.  Reading on
+# an NVIDIA H100 80GB HBM3 at 700 W: 0 px in float32 and in bf16; the
+# limit is the CPU tests' (tests/test_torch_infer_cli.py).
+MOTION_PX_TOL = 1e-3
+# The card's pipeline CLI against the CPU's at 64x96 (tiny widths, same
+# checkpoints and files), in PNG levels: the largest |card - CPU| and the
+# share of values not equal.  Card and CPU differ by float32 rounding
+# (cuDNN and the kernels sum in other orders; phase 5 holds the frames
+# to 1e-3, a quarter of a level), which moves a value that lies near a
+# level boundary to the next level, in the LK backgrounds and in the
+# generated frames (2 of the 5; the keyframes pass through).  Reading on
+# an NVIDIA H100 80GB HBM3 at 700 W: 1 level, 4.00% of values (the
+# backgrounds 1 level, 0.03%); the limits are one level more and twice
+# the share.  The planted control (the card's frames rendered on the
+# background at t-1) reads 201 levels, 43.4%, and must lie beyond both.
+FILES_MAX_LEVELS = 2
+FILES_SHARE_TOL = 0.08
+
+
+def _png_dir(path) -> np.ndarray:
+    from PIL import Image
+
+    return np.stack([np.asarray(Image.open(os.path.join(path, f)))
+                     for f in sorted(os.listdir(path))])
+
+
+def _yaml_cfg(path: str, cfg) -> str:
+    """Write a motion or renderer config as yaml in the nested layout;
+    raises unless the port's loader reads it back equal."""
+    import dataclasses
+
+    import yaml
+
+    from renderloom_torch.core import config as C
+
+    with open(path, "w") as f:
+        yaml.safe_dump(json.loads(json.dumps(dataclasses.asdict(cfg))), f)
+    load = (C.load_motion_config if isinstance(cfg, C.MotionConfig)
+            else C.load_renderer_config)
+    if load(path) != cfg:
+        raise AssertionError(f"{path} does not load as the config written")
+    return path
+
+
+def _serve_files_inputs(work, keys_u8, motion, conf, mcfg):
+    """Keyframe PNGs and their BODY25 openpose JSONs (the normalized
+    motion denormalized by the config's openpose scale and offset)."""
+    from PIL import Image
+
+    from renderloom_torch.data.openpose import write_openpose_dir
+
+    frames = os.path.join(work, "frames")
+    os.makedirs(frames)
+    for i, key in enumerate(keys_u8):
+        Image.fromarray(key).save(os.path.join(frames, f"{i:03d}.png"))
+    poses = os.path.join(work, "poses")
+    d = mcfg.dataset
+    write_openpose_dir(motion, conf, poses, d.openpose_scale,
+                       d.openpose_offset)
+    return frames, poses
+
+
+def _serve_by_files(work, inputs, ckpts, cfg_paths, mcfg, rate, device):
+    """``renderloom_torch.cli.pipeline.main`` on the files; returns the
+    frames, the Predict_motion joints (normalized), the DAIN backgrounds
+    and pixel poses it rendered from, the file counts and the stage
+    seconds."""
+    import shutil
+
+    from renderloom_torch.cli import pipeline as pipeline_cli
+    from renderloom_torch.data.openpose import read_openpose_dir
+
+    out = os.path.join(work, f"out_{device}")
+    shutil.rmtree(out, ignore_errors=True)
+    seconds = pipeline_cli.main([
+        "--frames-dir", inputs[0], "--pose-dir", inputs[1],
+        "--motion-ckpt", ckpts[0], "--renderer-ckpt", ckpts[1],
+        "--motion-config", cfg_paths[0], "--renderer-config", cfg_paths[1],
+        "--out-dir", out, "--rate", str(rate), "--device", device])
+    d = mcfg.dataset
+    pm = os.path.join(out, "Predict_motion")
+    pred = read_openpose_dir(pm, d.openpose_scale, d.openpose_offset)[0]
+    px, pconf, _ = read_openpose_dir(pm, 1.0, 0.0)
+    return dict(frames=_png_dir(os.path.join(out, "Generated_frames")),
+                pred=pred, dain=_png_dir(os.path.join(out, "DAIN")),
+                poses=np.concatenate([px, pconf], 1).transpose(2, 0, 1),
+                n_frames=len(os.listdir(os.path.join(out,
+                                                     "Generated_frames"))),
+                n_json=len(os.listdir(pm)), seconds=seconds)
+
+
+def _serve_by_arrays(keys_u8, motion, conf, m_params, g_trees, mcfg, rcfg,
+                     rate, device):
+    """The CLI's stages on arrays, where PIL is missing: the motion stage
+    (``interpolate_motion``, zero/one statistics as the CLI finds no
+    cached ones), the LK backgrounds at the CLI's settings quantized as
+    its PNGs are, and ``render_folder``'s array core."""
+    from renderloom_torch.eval.motion_infer import make_interpolator
+    from renderloom_torch.eval.render_eval import render_frames
+    from renderloom_torch.ops.flow import upsample_background
+    from renderloom_torch.train.gan import make_inference_pair
+
+    tic = time.perf_counter()
+    interp = make_interpolator(mcfg, m_params, None, None, device)
+    pred, _, dconf = interp.interpolate_motion(motion, conf, rate)
+    with torch.inference_mode():
+        dense = upsample_background(torch.from_numpy(
+            keys_u8.astype(np.float32) / 255.0).to(device), rate)
+        dain = (dense.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
+    d = mcfg.dataset
+    poses = np.concatenate([pred * d.openpose_scale + d.openpose_offset,
+                            dconf], axis=1).transpose(2, 0, 1)
+    gen = make_inference_pair(rcfg, *g_trees, device)
+    frames = np.concatenate([f for _, f in render_frames(
+        gen, rcfg, keys_u8, dain, poses, rate, device)])
+    return dict(frames=frames, pred=pred, dain=dain, poses=poses,
+                seconds={"arrays": time.perf_counter() - tic})
+
+
+def _levels(got: np.ndarray, want: np.ndarray):
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    return int(diff.max()), float((diff > 0).mean())
+
+
+def phase_serve_files(serve, bf16, probe):
+    """The pipeline CLI at full width on phase 4's weights written as the
+    port's checkpoints, in float32 and with both configs in bf16."""
+    import shutil
+
+    from renderloom_torch.convert import flax_trees
+    from renderloom_torch.eval.motion_infer import (bucket_length,
+                                                    make_interpolator)
+    from renderloom_torch.models.layers import InstanceNorm, Spade
+
+    mcfg, rcfg, rate, K = (serve[k] for k in ("mcfg", "rcfg", "rate", "K"))
+    H, W = rcfg.data.model_height, rcfg.data.model_width
+    L = (K - 1) * rate + 1
+    files = _skip_line("V", "files", [m for m in ("PIL",) if not probe[m]])
+    print(f"V. serving from files: {W}x{H}, rate {rate}, {K} keyframes "
+          f"(L = {L}), motion.yaml + hsm.yaml, phase 4's weights as "
+          f"torch.save checkpoints; "
+          + ("pipeline CLI (renderloom_torch.cli.pipeline)" if files else
+             "render_folder's array core (no PIL)"))
+    work = os.path.join(ROOT, "build", "chip_smoke_files")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    m_model, gen = serve["interp"].model, serve["gen"]
+    ckpts = (os.path.join(work, "motion.pt"),
+             os.path.join(work, "renderer.pt"))
+    torch.save(m_model.state_dict(), ckpts[0])
+    torch.save({"step": 0, "gen": gen.state_dict()}, ckpts[1])
+    m_params, g_trees = flax_trees(m_model)[0], flax_trees(gen)
+    motion_t, conf_t, keys_t = serve["inputs"]
+    keys_u8 = (keys_t[0] * 255).round().to(torch.uint8).cpu().numpy()
+    motion = motion_t[0].double().cpu().numpy()
+    conf = conf_t[0].double().cpu().numpy()
+    if files:
+        inputs = _serve_files_inputs(work, keys_u8, motion, conf, mcfg)
+    # K2 launches per generator step, from the module structure: one per
+    # InstanceNorm and per SPADE; render chunks of render_frames'
+    # max(min(16, S), 64 // rate) segments (one chunk of the 7 here)
+    per_step = sum(isinstance(m, (InstanceNorm, Spade))
+                   for m in gen.modules())
+    S = (L - 1) // rate
+    chunks = -(-S // max(min(16, S), 64 // rate))
+
+    out = {}
+    for tag, m_cfg, r_cfg in (("serve_files", mcfg, rcfg),
+                              ("serve_files_bf16", _bf16(mcfg),
+                               _bf16(rcfg))):
+        in_bf16 = tag.endswith("bf16")
+        cfg_paths = (
+            _yaml_cfg(os.path.join(work, f"{tag}_motion.yaml"), m_cfg),
+            _yaml_cfg(os.path.join(work, f"{tag}_renderer.yaml"), r_cfg))
+        run = ((lambda: _serve_by_files(work, inputs, ckpts, cfg_paths,
+                                        m_cfg, rate, DEVICE))
+               if files else
+               (lambda: _serve_by_arrays(keys_u8, motion, conf, m_params,
+                                         g_trees, m_cfg, r_cfg, rate,
+                                         DEVICE)))
+        if not in_bf16:
+            run()                       # warm-up (first file I/O, imports)
+        _reset_launches()
+        calls = []
+        restore = _raster_recorder(calls)
+        try:
+            res = run()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        launches = _serve_launches()
+        norm = chunks * (rate - 1) * per_step
+        want = {"rasterize": chunks, "rasterize_packed": 0,
+                "instance_norm": 0 if in_bf16 else norm,
+                "instance_norm_parity": 0,
+                "instance_norm_r3": norm if in_bf16 else 0}
+        print(f"  {tag}: launches {launches}; derived {want} ({chunks} "
+              f"render chunk, {per_step} norms per generator step x "
+              f"{rate - 1} steps); K1 masks "
+              f"{sorted({c[0][6] for c in calls})}")
+        if launches != want or any(c[0][6] for c in calls):
+            raise AssertionError(f"{tag}: kernel launches {launches}")
+        frames = res["frames"]
+        if frames.shape != (L, H, W, 3) or frames.dtype != np.uint8:
+            raise AssertionError(f"{tag}: frames {frames.shape}")
+        if files and (res["n_frames"], res["n_json"]) != (L, L):
+            raise AssertionError(f"{tag}: {res['n_frames']} frames, "
+                                 f"{res['n_json']} Predict_motion JSONs")
+        key_err = _levels(frames[::rate], keys_u8)[0]
+        lib = make_interpolator(m_cfg, m_params, None, None, DEVICE)
+        with torch.inference_mode():
+            pred = lib._run(motion_t, conf_t, rate, int(np.log2(rate)),
+                            bucket_length(L, rate))[0][0, ..., :L]
+        px = np.abs(res["pred"] - pred.double().cpu().numpy()).max() \
+            * mcfg.dataset.openpose_scale
+        print(f"    {L} frames" + (f", {res['n_json']} Predict_motion "
+                                   f"JSONs" if files else "")
+              + f"; keyframes within {key_err} level of the input; "
+              f"Predict_motion vs the library motion stage: max {px:.3e} "
+              f"px (tol {MOTION_PX_TOL})")
+        if key_err > 1 or not px <= MOTION_PX_TOL:
+            raise AssertionError(f"{tag}: keyframes {key_err} levels, "
+                                 f"motion {px} px")
+        total = sum(res["seconds"].values())
+        mem_fps = (bf16["standard"]["fps"] if in_bf16 else serve["fps"])
+        print("    seconds: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in res["seconds"].items())
+            + f"; files-in/frames-out {L / total:.3f} frames/s beside the "
+            f"in-memory pipeline's {mem_fps:.3f} of this run ({card_line()})")
+        if calls:
+            _k1_check(f"{tag} K1 on the run's tables", calls[0][0][:3], H,
+                      W, torch.float32, False, "nhwc")
+        out[tag] = dict(launches=launches, seconds=res["seconds"],
+                        fps=L / total)
+
+    _serve_files_cpu_match(work, files)
+    return out
+
+
+def _serve_files_cpu_match(work, files):
+    """The card's serving CLI (or its array core) against the CPU's at
+    64x96, rate 2, 3 keyframes, tiny widths, identical checkpoints."""
+    import dataclasses
+
+    from renderloom_torch.convert import flax_trees
+    from renderloom_torch.data.amass import stats_paths
+    from renderloom_torch.eval.motion_infer import make_interpolator
+    from renderloom_torch.eval.render_eval import render_frames
+    from renderloom_torch.train.gan import make_inference_pair
+
+    mcfg, rcfg, rate, K, stats, (motion, conf, keys) = _tiny_serving_case()
+    tiny = os.path.join(work, "tiny")
+    os.makedirs(os.path.join(tiny, "stats"))
+    mcfg = dataclasses.replace(mcfg, dataset=dataclasses.replace(
+        mcfg.dataset, data_root=os.path.join(tiny, "stats")))
+    for path, arr in zip(stats_paths(mcfg.dataset),
+                         (stats["mean"], stats["std"])):
+        np.save(path, arr)
+    interp = make_interpolator(mcfg, None, None, None, "cpu")
+    gen = make_inference_pair(rcfg, None, None, "cpu")
+    ckpts = (os.path.join(tiny, "motion.pt"),
+             os.path.join(tiny, "renderer.pt"))
+    torch.save(interp.model.state_dict(), ckpts[0])
+    torch.save({"step": 0, "gen": gen.state_dict()}, ckpts[1])
+    keys_u8 = (keys[0] * 255).round().astype(np.uint8)
+    runs = {}
+    if files:
+        inputs = _serve_files_inputs(tiny, keys_u8, motion[0], conf[0], mcfg)
+        cfg_paths = (_yaml_cfg(os.path.join(tiny, "motion.yaml"), mcfg),
+                     _yaml_cfg(os.path.join(tiny, "renderer.yaml"), rcfg))
+        for dev in ("cpu", DEVICE):
+            runs[dev] = _serve_by_files(tiny, inputs, ckpts, cfg_paths, mcfg,
+                                        rate, dev)
+    else:
+        m_params, g_trees = flax_trees(interp.model)[0], flax_trees(gen)
+        for dev in ("cpu", DEVICE):
+            runs[dev] = _serve_by_arrays(keys_u8, motion[0], conf[0],
+                                         m_params, g_trees, mcfg, rcfg, rate,
+                                         dev)
+    card, cpu = runs[DEVICE], runs["cpu"]
+    worst, share = _levels(card["frames"], cpu["frames"])
+    back = _levels(card["dain"], cpu["dain"])
+    # planted control: the card's frames on the background at t-1
+    shifted = np.concatenate([card["dain"][:1], card["dain"][:-1]])
+    card_gen = make_inference_pair(rcfg, *flax_trees(gen), DEVICE)
+    control = np.concatenate([f for _, f in render_frames(
+        card_gen, rcfg, keys_u8, shifted, card["poses"], rate, DEVICE)])
+    c_worst, c_share = _levels(control, cpu["frames"])
+    print(f"  card vs CPU {'pipeline CLI' if files else 'array core'} "
+          f"(64x96, rate {rate}, {K} keyframes, tiny widths, same "
+          f"checkpoints): frames max {worst} levels, {100 * share:.4f}% of "
+          f"values not equal (limits {FILES_MAX_LEVELS}, "
+          f"{100 * FILES_SHARE_TOL:.2f}%); LK backgrounds max {back[0]} "
+          f"levels, {100 * back[1]:.4f}%; control (background at t-1) "
+          f"{c_worst} levels, {100 * c_share:.4f}%")
+    if worst > FILES_MAX_LEVELS or share > FILES_SHARE_TOL:
+        raise AssertionError("card vs CPU serving out of bounds")
+    if c_worst <= FILES_MAX_LEVELS or c_share <= FILES_SHARE_TOL:
+        raise AssertionError("the planted control lies within the limits")
+
+
+# ---------------------------------------------------------------------------
+# Q. evaluation over HumanSloMo test clips
+# ---------------------------------------------------------------------------
+
+# The card's evaluate_h5 against the CPU's at 64x96 (tiny widths, the
+# same generator and VGG19 weights): every metric to EVAL_RTOL relative
+# in float32, as the CPU tests hold the port to JAX (reading on an NVIDIA
+# H100 80GB HBM3 at 700 W: 7.3e-6).  In bf16 every metric within
+# EVAL_BF16_RTOL relative, set from the reading (1.15e-3).  The metrics
+# average thousands of pixels, so they cannot tell a bf16 clip from a
+# float32 one (on the CPU the port's bf16 metrics lie as far from JAX
+# bf16 as JAX float32 does; on the card, bf16 against the CPU's float32
+# reads 6.6e-4, below the bf16 reading), and that float32 control is
+# printed, not held.  Each limit has a planted control that must lie
+# beyond it: the same evaluation with every background taken at t-1
+# (1.56 relative).
+EVAL_RTOL = 1e-4
+EVAL_BF16_RTOL = 2e-3
+EVAL_KEYS = ("DAIN_PSNR", "DAIN_SSIM", "OURS_PSNR", "OURS_SSIM",
+             "DAIN_LPIPS", "OURS_LPIPS")
+
+
+class _ArrayReader:
+    """The three members of ``HsmReader`` that ``evaluate_h5`` reads
+    (``video_list``, ``n_frames``, ``read_test_frame``) over clips held in
+    memory: the reader where ``h5py`` is missing."""
+
+    def __init__(self, clips: dict):
+        self.clips = clips
+        self.video_list = list(clips)
+        self.n_frames = {k: len(v["image"]) for k, v in clips.items()}
+
+    def read_test_frame(self, vid, index):
+        c = self.clips[vid]
+        return {"image": c["image"][index], "dain": c["dain"][index],
+                "pose": c["pose"][index]}
+
+
+def _eval_clips(lengths: dict, H: int, W: int, seed: int,
+                shift_back: bool = False) -> dict:
+    """Test clips of ``_person_poses``: a textured frame with a bright
+    figure at the person, its DAIN frame the same with noise (taken from
+    frame t-1 with ``shift_back``, the planted fault)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
+    base = (96 + 48 * np.sin(xx / 7) * np.cos(yy / 11))[..., None]
+    clips = {}
+    for i, (name, n) in enumerate(lengths.items()):
+        coords, conf = _person_poses(n, H, W, seed + i, device="cpu")
+        coords, conf = coords.numpy(), conf.numpy()
+        images = np.empty((n, H, W, 3), np.uint8)
+        for t in range(n):
+            cx, cy = coords[t].mean(axis=0)
+            blob = np.exp(-((xx - cx) ** 2 / (W / 8) ** 2
+                            + (yy - cy) ** 2 / (H / 4) ** 2))[..., None]
+            images[t] = np.clip(base + 120 * blob * rng.uniform(
+                0.6, 1.0, 3), 0, 255).astype(np.uint8)
+        dain = np.clip(images.astype(np.int16) + rng.integers(
+            -16, 17, images.shape), 0, 255).astype(np.uint8)
+        if shift_back:
+            dain = np.concatenate([dain[:1], dain[:-1]])
+        clips[name] = dict(image=images, dain=dain, pose=np.concatenate(
+            [coords, conf[..., None]], axis=-1).astype(np.float32))
+    return clips
+
+
+def _h5_of(path: str, clips: dict) -> str:
+    """The clips as a HumanSloMo h5 (``gt_images``/``gt_dain`` PNG rows,
+    ``gt_poses``), for the real reader."""
+    import io
+
+    import h5py
+    from PIL import Image
+
+    def png(img):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG")
+        return np.frombuffer(buf.getvalue(), np.uint8)
+
+    with h5py.File(path, "w") as f:
+        for name, c in clips.items():
+            grp = f.create_group(name)
+            for key in ("image", "dain"):
+                ds = grp.create_dataset(f"gt_{key}s" if key == "image"
+                                        else "gt_dain", (len(c[key]),),
+                                        dtype=h5py.vlen_dtype(np.uint8))
+                for i, img in enumerate(c[key]):
+                    ds[i] = png(img)
+            grp.create_dataset("gt_poses", data=c["pose"].astype(np.float64))
+    return path
+
+
+def _eval_readers(clips: dict, real: bool, path: str):
+    """A function of clip names → a reader over those clips: the real
+    ``HsmReader`` over an h5 of the clips written once to ``path``, or
+    the in-memory one."""
+    from renderloom_torch.data.hsm import HsmReader
+
+    if real:
+        _h5_of(path, clips)
+        return lambda names: HsmReader(path, list(names), "test")
+    return lambda names: _ArrayReader({k: clips[k] for k in names})
+
+
+def _eval_timers(seconds: Counter, reader, vgg):
+    """Time ``evaluate_h5``'s stages by wrapping what it calls (each call
+    synchronised): reading, preparation, rollout, metrics, LPIPS.
+    Returns the function that unwraps them."""
+    from renderloom_torch.eval import render_eval as TE
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[name] += time.perf_counter() - tic
+            return out
+        return run
+
+    names = {"prepare_batch": "preparation",
+             "segment_rollout_chunked": "rollout",
+             "rollout_chunked": "rollout", "masked_metrics": "metrics"}
+    saved = {n: getattr(TE, n) for n in names}
+    for n, stage in names.items():
+        setattr(TE, n, timed(stage, saved[n]))
+    reader.read_test_frame = timed("reading", reader.read_test_frame)
+    vgg.lpips = timed("LPIPS", vgg.lpips)
+
+    def restore():
+        for n, fn in saved.items():
+            setattr(TE, n, fn)
+        del reader.read_test_frame, vgg.lpips
+    return restore
+
+
+def phase_eval(serve, probe):
+    """``evaluate_h5`` at full width (hsm.yaml, eval_frames 40: 81 frames
+    a clip) on phase 4's generator weights, LPIPS on seeded random VGG19
+    weights, in float32 and in bf16."""
+    from renderloom_torch.convert import flax_trees
+    from renderloom_torch.eval.render_eval import evaluate_h5
+    from renderloom_torch.train.gan import (make_inference_generator,
+                                            make_perceptual)
+
+    rcfg = serve["rcfg"]
+    H, W = rcfg.data.model_height, rcfg.data.model_width
+    n_keys = rcfg.data.eval_frames
+    # 81 frames: (81 - 1) % 2 == 0, the segment rollout; 80: sequential
+    lengths = {"eval_seg": 2 * n_keys + 1, "eval_seq": 2 * n_keys}
+    real = _skip_line("Q", "h5 file", [m for m in ("h5py", "PIL")
+                                       if not probe[m]])
+    video = _skip_line("Q", "grid video", [] if probe["imageio"]
+                       else ["imageio"])
+    print(f"Q. evaluate_h5: {W}x{H}, clips of {lengths} frames "
+          f"(_person_poses), chunk 64 (32 segments, the generator at "
+          f"B = 32), LPIPS on random VGG19 weights; reader: "
+          + ("HsmReader over an h5 written here" if real else
+             "in-memory (video_list, n_frames, read_test_frame)"))
+    tic = time.perf_counter()
+    clips = _eval_clips(lengths, H, W, seed=20)
+    make_reader = _eval_readers(clips, real, os.path.join(
+        ROOT, "build", "chip_smoke_eval.h5"))
+    print(f"  made the clips in {time.perf_counter() - tic:.1f} s")
+    g_trees = flax_trees(serve["gen"])
+    vgg = make_perceptual(rcfg, DEVICE, seed=0)     # float32 in both runs
+    per_step = _count_norms(make_inference_generator(rcfg))
+    S = lengths["eval_seg"] // 2
+    steps = -(-S // 32) + lengths["eval_seq"] // 2
+    out = {}
+    for tag, cfg in (("eval_h5", rcfg), ("eval_h5_bf16", _bf16(rcfg))):
+        in_bf16 = tag.endswith("bf16")
+        _reset_launches()
+        calls, seen = [], Counter()
+        restore_norms = _norm_kind_recorder(seen)
+        restore = _raster_recorder(calls)
+        try:
+            res = evaluate_h5(*g_trees, cfg, make_reader(lengths),
+                              perceptual=vgg, device=DEVICE,
+                              video_dir=OUT_DIR if video and not in_bf16
+                              else None)
+        finally:
+            restore()
+            restore_norms()
+        launches = _serve_launches()
+        norm = steps * per_step
+        want = {"rasterize": len(lengths), "rasterize_packed": 0,
+                "instance_norm": 0 if in_bf16 else norm,
+                "instance_norm_parity": 0,
+                "instance_norm_r3": norm if in_bf16 else 0}
+        print(f"  {tag}: launches {launches}; derived {want} (K1 once a "
+              f"clip with masks; {per_step} norms per generator step x "
+              f"{steps} steps: {-(-S // 32)} segment chunks of up to 32 "
+              f"and {lengths['eval_seq'] // 2} sequential frames); K1 "
+              f"masks {sorted({c[0][6] for c in calls})}")
+        if launches != want or not all(c[0][6] for c in calls):
+            raise AssertionError(f"{tag}: kernel launches {launches}")
+        print("    " + ", ".join(f"{k} {res[k]:.6f}" for k in EVAL_KEYS))
+        if sorted(res) != sorted(EVAL_KEYS) or not all(
+                np.isfinite(v) for v in res.values()):
+            raise AssertionError(f"{tag}: metrics {res}")
+        # the kernels at the shapes this run gave them, against their twins
+        for i, c in enumerate(calls):
+            _k1_check(f"{tag} K1 clip {i}", c[0][:3], H, W, torch.float32,
+                      True, "nhwc")
+        err = 0.0
+        for i, key in enumerate(sorted(seen, key=str)):
+            x, s, b = _norm_inputs(*key[:3], seed=300 + i)
+            check = _r3_check if key[4] == "r3centered" else _norm_check
+            err = max(err, check(f"{tag} {key[:4]}", x, s, b, key[3]))
+        # seconds per clip by stage, and the peak memory of the clip whose
+        # segments run at B = 32
+        per_clip = {}
+        for name in lengths:
+            seconds = Counter()
+            reader = make_reader([name])
+            restore = _eval_timers(seconds, reader, vgg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tic = time.perf_counter()
+            try:
+                evaluate_h5(*g_trees, cfg, reader, perceptual=vgg,
+                            device=DEVICE)
+                torch.cuda.synchronize()
+            finally:
+                restore()
+            total = time.perf_counter() - tic
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            gen_frames = lengths[name] // 2
+            print(f"    {name}: {total:.3f} s ("
+                  + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+                  + f"), {gen_frames / total:.2f} generated frames "
+                  f"evaluated/s, peak memory {peak:.2f} GiB")
+            per_clip[name] = dict(seconds=total, stages=dict(seconds),
+                                  frames_per_s=gen_frames / total,
+                                  peak_gib=peak)
+        out[tag] = dict(launches=launches, metrics=res, per_clip=per_clip,
+                        norm_err=err)
+    dain = {k: (out["eval_h5"]["metrics"][k],
+                out["eval_h5_bf16"]["metrics"][k])
+            for k in EVAL_KEYS if k.startswith("DAIN")}
+    print(f"  DAIN_* float32 vs bf16 (must be identical): {dain}")
+    if any(a != b for a, b in dain.values()):
+        raise AssertionError("DAIN metrics differ between float32 and bf16")
+    print(f"  ({card_line()})")
+    _eval_cpu_match(real)
+    return out
+
+
+def _eval_cpu_match(real: bool):
+    """The card's evaluate_h5 against the CPU's at 64x96, tiny widths,
+    identical weights, in float32 and in bf16."""
+    from renderloom_torch.eval.render_eval import evaluate_h5
+    from renderloom_torch.train.gan import make_perceptual
+
+    _, rcfg, _, _, _, _ = _tiny_serving_case()
+    H, W = rcfg.data.model_height, rcfg.data.model_width
+    lengths = {"tiny_seg": 7, "tiny_seq": 6}
+    readers = {shift: _eval_readers(
+        _eval_clips(lengths, H, W, seed=30, shift_back=shift), real,
+        os.path.join(ROOT, "build", f"chip_smoke_eval_tiny_{shift}.h5"))
+        for shift in (False, True)}
+
+    def run(cfg, device, shift_back=False):
+        return evaluate_h5(None, None, cfg, readers[shift_back](lengths),
+                           max_keyframes=3, perceptual=make_perceptual(
+                               rcfg, device, seed=0), device=device)
+
+    def rel(a, b):
+        return max(abs(a[k] - b[k]) / abs(b[k]) for k in EVAL_KEYS)
+
+    cpu32 = run(rcfg, "cpu")
+    for name, cfg, tol in (("float32", rcfg, EVAL_RTOL),
+                           ("bf16", _bf16(rcfg), EVAL_BF16_RTOL)):
+        card, cpu = run(cfg, DEVICE), run(cfg, "cpu")
+        control = run(cfg, DEVICE, shift_back=True)
+        err, c_err = rel(card, cpu), rel(control, cpu)
+        extra = (f"; float32 control, card bf16 vs CPU float32, "
+                 f"{rel(card, cpu32):.3e} (printed, not held)"
+                 if name == "bf16" else "")
+        print(f"  card vs CPU evaluate_h5 {name} (64x96, tiny widths, same "
+              f"weights): largest relative metric error {err:.3e} (tol "
+              f"{tol:.0e}); planted control (backgrounds at t-1) "
+              f"{c_err:.3e}{extra}")
+        if not (err <= tol < c_err):
+            raise AssertionError(f"evaluate_h5 {name}: card vs CPU out of "
+                                 f"bounds, or the control within them")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3119,6 +3784,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     tic = time.perf_counter()
     phase_build()
+    probe = phase_probe()
     conv_lines = fft_conv_report()
     phase_norm()
     raster = phase_raster()
@@ -3131,6 +3797,12 @@ def main() -> int:
     parity["serve_clip_fastpath_bf16"] = phase_norm_parity_bf16(bf16)
     phase_bf16_cpu_match()
     phase_rollouts(serve)
+    t_v = time.perf_counter()
+    files = phase_serve_files(serve, bf16, probe)
+    t_q = time.perf_counter()
+    evals = phase_eval(serve, probe)
+    print(f"file serving and evaluation phases: V {t_q - t_v:.1f} s, Q "
+          f"{time.perf_counter() - t_q:.1f} s")
     layouts = phase_raster_layouts(serve, fast)
     phase_cpu_match()
     raster_train = phase_raster_train()
@@ -3155,7 +3827,9 @@ def main() -> int:
                                "serve_clip_fastpath": fast["launches"]
                                ["rasterize"],
                                "train_3_steps": train["launches"]
-                               ["rasterize"]},
+                               ["rasterize"],
+                               **{k: v["launches"]["rasterize"]
+                                  for k, v in {**files, **evals}.items()}},
              **raster_train,
              serve=dict(shape=f"{F_RASTER}x{H_FULL}x{W_FULL}x22 f32 label, "
                               f"no masks", **raster),
@@ -3172,6 +3846,10 @@ def main() -> int:
                                "serve_clip_fastpath_bf16": bf16["fastpath"]
                                ["launches"]["instance_norm"],
                                "train_3_steps": train["launches"]
+                               ["instance_norm"],
+                               "serve_files": files["serve_files"]
+                               ["launches"]["instance_norm"],
+                               "eval_h5": evals["eval_h5"]["launches"]
                                ["instance_norm"]},
              **norm_train, serve=norm),
         dict(name="instance_norm_parity", route="cuda",
@@ -3196,7 +3874,11 @@ def main() -> int:
                                "train_step_bf16_3_steps": t16[True]
                                ["instance_norm_r3"],
                                "train_step_bf16_nockpt_3_steps": t16[False]
-                               ["instance_norm_r3"]},
+                               ["instance_norm_r3"],
+                               "serve_files_bf16": files["serve_files_bf16"]
+                               ["launches"]["instance_norm_r3"],
+                               "eval_h5_bf16": evals["eval_h5_bf16"]
+                               ["launches"]["instance_norm_r3"]},
              **r3,
              train_step_bf16=dict(
                  r3_train, launches_per_step=train16[True]["per_step"]
@@ -3244,7 +3926,9 @@ def main() -> int:
     ]
     print(f"e2e_interp_frames_per_sec {fps:.3f} (fastpath "
           f"{fast['fps']:.3f}; bf16 {bf16['standard']['fps']:.3f}, bf16 "
-          f"fastpath {bf16['fastpath']['fps']:.3f}); "
+          f"fastpath {bf16['fastpath']['fps']:.3f}; from files "
+          f"{files['serve_files']['fps']:.3f}, bf16 "
+          f"{files['serve_files_bf16']['fps']:.3f}); "
           f"gan_train_windows_per_sec "
           f"{train['wps']:.4f} (bf16 {train16[True]['wps']:.4f}, bf16 "
           f"without do_checkpoint {train16[False]['wps']:.4f}); chip_smoke "

@@ -33,6 +33,7 @@ import time
 import numpy as np
 import torch
 
+from renderloom_torch.cli import cli_device
 from renderloom_torch.core.config import RendererConfig, load_renderer_config
 from renderloom_torch.train.gan import (create_gan_state, make_gan_train_step,
                                         make_perceptual)
@@ -96,10 +97,7 @@ def main(argv=None):
     if not args.synthetic:
         raise SystemExit("train_renderer: only --synthetic is ported; the "
                          "HumanSloMo h5 reader is not")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train_renderer: no CUDA device; pass "
-                           "--device cpu to run on the CPU")
+    device = cli_device("train_renderer", args.device)
 
     cfg = load_renderer_config(args.config) if args.config \
         else RendererConfig()

@@ -17,9 +17,10 @@ folding, and seeded random weights.
   ``<conv>.sn_sigma``, for modules in the training form
   (:func:`renderloom_torch.models.layers.enable_spectral_norm`).  This
   loads the generator, the discriminator set and the VGG19 tree alike.
-* :func:`flax_trees` — the reverse direction: a module's parameters and
-  spectral-norm state as numpy flax trees, for comparing a trained
-  module with the JAX package's state.
+* :func:`flax_trees` — the reverse direction: a module's (or a saved
+  state dict's) parameters and spectral-norm state as numpy flax trees,
+  for comparing a trained module with the JAX package's state and for
+  serving from the port's checkpoints.
 * :func:`random_init_` — seeded weights for runs without a checkpoint:
   lecun-normal kernels (as flax's default), zero biases, unit norm
   scales, and, for serving modules, spectral convs divided by their
@@ -134,17 +135,22 @@ def _set(tree: dict, path: List[str], value: np.ndarray):
     tree[path[-1]] = value
 
 
-def flax_trees(module: nn.Module) -> Tuple[dict, dict]:
-    """(params, batch_stats) of ``module`` as numpy flax trees: the
+def flax_trees(module) -> Tuple[dict, dict]:
+    """(params, batch_stats) of ``module`` (an ``nn.Module``, or its
+    ``state_dict`` as read from a checkpoint) as numpy flax trees: the
     inverse of :func:`load_flax_params`."""
+    state = module.state_dict() if isinstance(module, nn.Module) else module
     params, stats = {}, {}
-    for name, t in module.state_dict().items():
+    for name, t in state.items():
         *path, leaf = name.split(".")
         v = t.detach().cpu().numpy()
         if leaf == "weight" and v.ndim == 4:           # OIHW → HWIO
-            _set(params, path + ["kernel"], v.transpose(2, 3, 1, 0))
+            # contiguous, as a JAX tree is: numpy's matmuls in the
+            # spectral-norm fold sum in an order that follows the layout
+            _set(params, path + ["kernel"],
+                 np.ascontiguousarray(v.transpose(2, 3, 1, 0)))
         elif leaf == "weight" and v.ndim == 2:         # (out, in) → (in, out)
-            _set(params, path + ["kernel"], v.T)
+            _set(params, path + ["kernel"], np.ascontiguousarray(v.T))
         elif leaf == "weight":
             _set(params, path + ["scale"], v)
         elif leaf == "bias":

@@ -4,9 +4,11 @@ yaml loaders.
 A copy of the renderer and motion parts of the JAX package's
 ``renderloom/core/config.py``, kept here so the port never imports the
 JAX package: the model architectures, the renderer's data settings,
-discriminators, optimizer, loss weights and ``compute_dtype``.  The
-motion stage's training sections (datasets, optimizer) are not copied
-yet; the motion loader skips their keys.  Defaults equal the
+discriminators, optimizer, loss weights and ``compute_dtype``, and the
+motion stage's ``dataset`` section (:class:`MotionDatasetConfig`, whose
+projection, statistics-file and openpose settings the serving CLIs
+read).  The motion optimizer section is not copied yet; the motion
+loader skips its keys.  Defaults equal the
 reference's shipped configs
 (``Human_Motion_Modelling/configs/config.yaml``,
 ``Pose_Guided_Neural_Rendering/configs/HSM.yaml``); yaml files in
@@ -87,11 +89,56 @@ class PosEncodeConfig:
 
 
 @dataclass(frozen=True)
+class MotionDatasetConfig:
+    """AMASS synthesis parameters (``configs/config.yaml:36-68``)."""
+
+    h5_file: str = "AMASS/AMASS_3D_joints.h5"
+    data_root: str = "data"
+    train_split: tuple = (
+        "CMU", "MPI_Limits", "TotalCapture", "Eyes_Japan_Dataset", "KIT",
+        "DFaust_67", "BMLhandball", "BMLmovi", "EKUT", "TCD_handMocap",
+        "BioMotionLab_NTroje", "ACCAD",
+    )
+    test_split: tuple = (
+        "Transitions_mocap", "SSM_synced", "HumanEva", "MPI_HDM05", "SFU",
+        "MPI_mosh",
+    )
+    return_type: str = "network"    # 'network' (2D) | '3D'
+
+    # noise augmentation (configs/config.yaml:46-51)
+    train_noise: bool = True
+    noise_weight: float = 0.5
+    noise_rate: int = 15
+    joint_drop_rate: int = 15
+    flip_rate: int = 8
+
+    # camera / projection (configs/config.yaml:54-61)
+    rotation_aug: bool = True
+    rotation_axes: tuple = (0.2, 0.0, 1.0)
+    camera_project: str = "perspective"
+    focal: float = 4.0
+    depth: float = 4.0
+    projection_noise: bool = True
+    frame_boarder: float = 10.0
+
+    # clip sampling (configs/config.yaml:64-68)
+    max_seq_length: int = 321       # = train_sample_rate * N + 1
+    train_sample_rate: int = 8
+    train_sample_size: int = 50
+    test_sample_rate: int = 16
+
+    evaluate_noise: bool = True
+    openpose_scale: float = 512.0
+    openpose_offset: float = 256.0
+
+
+@dataclass(frozen=True)
 class MotionConfig:
     """Full motion-stage configuration."""
 
     transformer: TransformerConfig = field(default_factory=TransformerConfig)
     pos_encode: PosEncodeConfig = field(default_factory=PosEncodeConfig)
+    dataset: MotionDatasetConfig = field(default_factory=MotionDatasetConfig)
     compute_dtype: str = "float32"
 
 
@@ -273,7 +320,13 @@ def load_yaml(path: str) -> dict:
 
 
 def motion_config_from_dict(raw: Mapping[str, Any]) -> MotionConfig:
-    return _update_dataclass(MotionConfig(), raw)
+    cfg = _update_dataclass(MotionConfig(), raw)
+    # the reference's flat layout keeps the dataset keys at the top level;
+    # a nested ``dataset:`` section wins over them
+    dataset = _update_dataclass(MotionDatasetConfig(), raw)
+    if isinstance(raw.get("dataset"), Mapping):
+        dataset = _update_dataclass(dataset, raw["dataset"])
+    return dataclasses.replace(cfg, dataset=dataset)
 
 
 def renderer_config_from_dict(raw: Mapping[str, Any]) -> RendererConfig:

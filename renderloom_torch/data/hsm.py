@@ -1,8 +1,17 @@
-"""Frame preparation for serving and training: [-1, 1] images and
-backgrounds, the 22-channel pose label, the human mask, and the zero
-frame-0 background.
+"""HumanSloMo h5 reading, and frame preparation for serving and
+training: [-1, 1] images and backgrounds, the 22-channel pose label, the
+human mask, and the zero frame-0 background.
 
-Port of the JAX package's ``renderloom/data/hsm.py:prepare_batch`` on
+Host side, :class:`HsmReader` (port of the JAX package's ``HsmReader``)
+reads the reference's ``HumanSlomo.h5`` layout — per-clip groups with
+variable-length PNG/JPEG byte datasets ``train_images``/``train_dain``/
+``train_poses`` and ``gt_*``
+(``HumanSloMo_Dataset/lib/gen_dataset_h5.py:57-174``) — and decodes the
+bytes to uint8 numpy arrays (:func:`decode_images`, the port's C++
+decoder in :mod:`renderloom_torch.native`).  ``h5py`` is imported only
+when a reader opens a file.
+
+Device side, port of the JAX package's ``prepare_batch`` on
 its fused-raster route: all B·F frames are rasterized in one call of
 the label kernel (:mod:`renderloom_torch.ops.rasterize_kernel`), which
 writes the NHWC label directly.  The deterministic branch serves; the
@@ -13,12 +22,13 @@ tables and masks, and pastes the gaussian-blurred background under the
 part mask.  Its randomness is drawn by
 :func:`draw_train_randomness` from an explicit ``torch.Generator`` and
 passed in, so the draws (small) can be made once on the CPU and shared
-by every device.  The HumanSloMo h5 reader is not ported yet.
+by every device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import io
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +41,139 @@ from renderloom_torch.ops.image import (affine_warp, compose_affine,
                                         transform_keypoints)
 from renderloom_torch.ops.rasterize_kernel import (draw_train_tables,
                                                    rasterize_frames_fused)
+
+
+def decode_image(buf: np.ndarray) -> np.ndarray:
+    from PIL import Image
+    return np.asarray(Image.open(io.BytesIO(buf.tobytes())).convert("RGB"))
+
+
+def decode_images(bufs: Sequence[np.ndarray]) -> np.ndarray:
+    """Decode same-sized PNG/JPEG byte buffers to (n, H, W, 3) uint8 with
+    the multithreaded C++ decoder (PIL where it cannot build)."""
+    from renderloom_torch import native
+    w, h = native.image_dims(bufs[0].tobytes())
+    return native.batch_decode(bufs, h, w)
+
+
+def process_shard(n: int, process_index: Optional[int] = None,
+                  process_count: Optional[int] = None) -> np.ndarray:
+    """Indices [0, n) this process reads: a strided slice of the global
+    sample order, so processes drawing the same permutation read
+    disjoint samples.  Without explicit arguments, the rank and world
+    size of the initialized ``torch.distributed`` process group, else
+    0 of 1 (the JAX package's ``parallel.process_shard`` over
+    ``jax.process_index()``)."""
+    if process_index is None or process_count is None:
+        dist = torch.distributed
+        live = dist.is_available() and dist.is_initialized()
+        if process_index is None:
+            process_index = dist.get_rank() if live else 0
+        if process_count is None:
+            process_count = dist.get_world_size() if live else 1
+    return np.arange(process_index, n, process_count)
+
+
+class HsmReader:
+    """Window sampler over the HumanSloMo h5 (train or test phase)."""
+
+    def __init__(self, h5_path: str, video_list: Sequence[str],
+                 phase: str = "train", max_frames: int = 4):
+        import h5py
+
+        self.h5_path = h5_path
+        self.phase = phase
+        self.max_frames = max_frames
+        self.video_list = list(video_list)
+        img_key = "train_images" if phase == "train" else "gt_images"
+        self.n_frames: Dict[str, int] = {}
+        self.samples: List[Tuple[str, int]] = []
+        with h5py.File(h5_path, "r") as f:
+            for vid in self.video_list:
+                if vid not in f:
+                    continue
+                n = len(f[vid][img_key])
+                self.n_frames[vid] = n
+                # safe sliding windows (the reference over-runs by 2:
+                # HSM_auto_dataset.py:94 — a latent bug, not reproduced)
+                for start in range(max(n - max_frames + 1, 0)):
+                    self.samples.append((vid, start))
+        self._file = None
+
+    def __len__(self):
+        return len(self.samples)
+
+    def set_max_frames(self, max_frames: int):
+        """Curriculum: regrow windows at a new length (the reference's
+        ``update_max_frame``, HSM_auto_dataset.py:339-358, minus its
+        ``videl_list``/``train_fake`` typos)."""
+        self.__init__(self.h5_path, self.video_list, self.phase,
+                      max_frames)
+
+    def close(self):
+        """Close the h5 handle that reads opened (reopened on demand)."""
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+
+    def _handle(self):
+        if self._file is None:
+            import h5py
+            self._file = h5py.File(self.h5_path, "r")
+        return self._file
+
+    def read_window(self, vid: str, start: int) -> Dict[str, np.ndarray]:
+        """Decode one window: images (F,H0,W0,3) u8, dain (F,H0,W0,3) u8
+        (entry i = DAIN frame start+i−1; entry for frame 0 of the clip is
+        zeros, HSM_auto_dataset.py:148-149,190-203), poses (F,19,3)."""
+        grp = self._handle()[vid]
+        key_img = "train_images" if self.phase == "train" else "gt_images"
+        key_dain = "train_dain" if self.phase == "train" else "gt_dain"
+        key_pose = "train_poses" if self.phase == "train" else "gt_poses"
+        idxs = list(range(start, start + self.max_frames))
+        bufs = [np.asarray(grp[key_img][i]) for i in idxs]
+        dain_idxs = [i - 1 for i in idxs if i > 0]
+        bufs += [np.asarray(grp[key_dain][i]) for i in dain_idxs]
+        decoded = decode_images(bufs)  # one parallel native decode
+        imgs = decoded[:len(idxs)]
+        dain_decoded = decoded[len(idxs):]
+        dains = np.zeros_like(imgs)
+        dains[len(idxs) - len(dain_idxs):] = dain_decoded
+        poses = np.asarray(grp[key_pose][start:start + self.max_frames],
+                           dtype=np.float32)
+        return {"images": imgs, "dain": dains, "poses": poses}
+
+    def read_test_frame(self, vid: str, index: int) -> Dict[str, np.ndarray]:
+        """Eval fetch (HSM_auto_dataset.py:361-399): gt image, same-index
+        gt DAIN frame, pose row."""
+        grp = self._handle()[vid]
+        return {
+            "image": decode_image(np.asarray(grp["gt_images"][index])),
+            "dain": decode_image(np.asarray(grp["gt_dain"][index])),
+            "pose": np.asarray(grp["gt_poses"][index], dtype=np.float32),
+        }
+
+    def batches(self, rng: np.random.Generator, batch_size: int,
+                shuffle: bool = True, drop_last: bool = True,
+                process_index: Optional[int] = None,
+                process_count: Optional[int] = None):
+        """Batches of :meth:`read_window` windows, stacked.  Every process
+        draws the same shuffled order (seeded ``rng``) and keeps its
+        strided slice (:func:`process_shard`), so processes read disjoint
+        windows; ``batch_size`` is per process."""
+        order = np.arange(len(self.samples))
+        if shuffle:
+            rng.shuffle(order)
+        order = order[process_shard(len(order), process_index,
+                                    process_count)]
+        buf = []
+        for idx in order:
+            buf.append(self.read_window(*self.samples[idx]))
+            if len(buf) == batch_size:
+                yield {k: np.stack([b[k] for b in buf]) for k in buf[0]}
+                buf = []
+        if buf and not drop_last:
+            yield {k: np.stack([b[k] for b in buf]) for k in buf[0]}
 
 
 def _to_unit(x: torch.Tensor) -> torch.Tensor:

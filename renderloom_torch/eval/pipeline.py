@@ -14,13 +14,10 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from renderloom_torch.convert import load_flax_params, random_init_
 from renderloom_torch.data.hsm import prepare_batch
 from renderloom_torch.eval.motion_infer import (MotionInterpolator,
-                                                bucket_length)
-from renderloom_torch.models.layers import cast_weights_
-from renderloom_torch.models.motion_transformer import (Dense,
-                                                        build_motion_model)
+                                                bucket_length,
+                                                make_interpolator)
 from renderloom_torch.ops.flow import upsample_background
 from renderloom_torch.ops.image import separable_resize
 from renderloom_torch.train.gan import (make_inference_pair,
@@ -125,18 +122,9 @@ def build_pipeline(mcfg, rcfg, rate: int, keyframes: int, *,
                            "device='cpu' to run on the CPU")
     set_float32_precision()
 
-    m_model = build_motion_model(mcfg)
-    if m_params is None:
-        random_init_(m_model, 0)
-    else:
-        load_flax_params(m_model, m_params)
-    m_model = cast_weights_(m_model.to(device).eval(), (Dense,))
-    interp = MotionInterpolator(
-        m_model, np.zeros((19, 2), np.float32) if mean is None else mean,
-        np.ones((19, 2), np.float32) if std is None else std, device)
-
+    interp = make_interpolator(mcfg, m_params, mean, std, device)
     gen = make_inference_pair(rcfg, g_params, g_stats, device, fastpath)
     fn = make_pipeline_fn(interp, make_segment_rollout(gen, rate),
                           rcfg.data, rate, keyframes, packed_label=fastpath,
                           label_bf16=fastpath, src_size=src_size)
-    return fn, m_model, gen
+    return fn, interp.model, gen

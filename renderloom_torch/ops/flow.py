@@ -1,11 +1,13 @@
 """Flow-based background interpolation: pyramidal Lucas-Kanade flow and
 the bidirectional blend that synthesizes every in-between background.
 
-Port of the serving branch of the JAX package's ``renderloom/ops/flow.py``
-(``upsample_background`` with ``flow_scale > 1``): flow is estimated at
-1/flow_scale resolution once per keyframe pair and direction, and the
-full-resolution frames are warped with the clipped separable
-shift-and-blend warp, reproduced exactly (not ``grid_sample``).  Images
+Port of the LK branch of the JAX package's ``renderloom/ops/flow.py``
+(``upsample_background``): flow is estimated once per keyframe pair and
+direction, at 1/flow_scale resolution for the serving pipeline, whose
+full-resolution frames are then warped with the clipped separable
+shift-and-blend warp, reproduced exactly (not ``grid_sample``), or at
+full resolution with the bilinear warp (``flow_scale=1``, the serving
+CLIs' backgrounds).  The learned-flow backend is not ported.  Images
 are batched NHWC (B, H, W, C); every function takes the batch the JAX
 code ``vmap``\\ s over.
 """
@@ -140,34 +142,42 @@ def estimate_flow(img0: torch.Tensor, img1: torch.Tensor, levels: int = 4,
 
 
 def upsample_background(frames: torch.Tensor, rate: int, levels: int = 4,
-                        iters: int = 3, flow_scale: int = 4,
+                        iters: int = 3, flow_scale: int = 1,
                         max_disp: int = 16) -> torch.Tensor:
     """(K, H, W, C) keyframes → ((K-1)·rate+1, H, W, C) backgrounds.
 
-    Flow is estimated once per keyframe pair in both directions at
-    1/flow_scale resolution; every in-between time t = j/rate blends the
-    two warped keyframes by (1−t, t), each weighted down by its
-    forward-backward consistency error (computed where the flow lives
-    and upsampled)."""
-    if flow_scale < 2:
-        raise ValueError("only the reduced-resolution flow branch "
-                         "(flow_scale > 1) is ported")
+    Flow is estimated once per keyframe pair in both directions; every
+    in-between time t = j/rate blends the two warped keyframes by
+    (1−t, t), each weighted down by its forward-backward consistency
+    error.  ``flow_scale > 1`` (the serving pipeline's setting) estimates
+    the flow and the errors at 1/flow_scale resolution, upsamples them,
+    and warps with the clipped shift warp (``max_disp``);
+    ``flow_scale == 1`` (the JAX function's default, which the serving
+    CLIs use) works at full resolution with the bilinear warp."""
     K, H, W, C = frames.shape
     if K < 2 or rate < 2:
         return frames
     p0, p1 = frames[:-1], frames[1:]
     a = torch.cat([p0, p1])
     b = torch.cat([p1, p0])
-    hs, ws = H // flow_scale, W // flow_scale
-    a_s = resize_bilinear(a, hs, ws)
-    b_s = resize_bilinear(b, hs, ws)
-    flows_s = estimate_flow(a_s, b_s, levels, iters)
-    flows = flow_scale * resize_bilinear(flows_s, H, W)
-    # low-res flow is in low-res pixels: the bound scales by 1/flow_scale
-    disp_s = max(1, -(-max_disp // flow_scale))
-    c_s = backward_warp_shift(b_s, flows_s, disp_s)
-    e_s = torch.abs(c_s - a_s).mean(dim=-1, keepdim=True)
-    errs = resize_bilinear(e_s, H, W)
+    if flow_scale > 1:
+        hs, ws = H // flow_scale, W // flow_scale
+        a_s = resize_bilinear(a, hs, ws)
+        b_s = resize_bilinear(b, hs, ws)
+        flows_s = estimate_flow(a_s, b_s, levels, iters)
+        flows = flow_scale * resize_bilinear(flows_s, H, W)
+        # low-res flow is in low-res pixels: the bound scales by
+        # 1/flow_scale
+        disp_s = max(1, -(-max_disp // flow_scale))
+        c_s = backward_warp_shift(b_s, flows_s, disp_s)
+        e_s = torch.abs(c_s - a_s).mean(dim=-1, keepdim=True)
+        errs = resize_bilinear(e_s, H, W)
+        warp = lambda x, f: backward_warp_shift(x, f, max_disp)
+    else:
+        flows = estimate_flow(a, b, levels, iters)
+        errs = torch.abs(backward_warp(b, flows) - a).mean(dim=-1,
+                                                           keepdim=True)
+        warp = backward_warp
     e0, e1 = errs[:K - 1], errs[K - 1:]
     f01, f10 = flows[:K - 1], flows[K - 1:]
 
@@ -176,8 +186,8 @@ def upsample_background(frames: torch.Tensor, rate: int, levels: int = 4,
          / rate).reshape(T, 1, 1, 1, 1)
     rep = lambda x: x[None].expand(T, *x.shape).reshape(-1, *x.shape[1:])
     flat = lambda x: x.reshape(T * (K - 1), *x.shape[2:])
-    w0 = backward_warp_shift(rep(p0), flat(t * f10), max_disp)
-    w1 = backward_warp_shift(rep(p1), flat((1.0 - t) * f01), max_disp)
+    w0 = warp(rep(p0), flat(t * f10))
+    w1 = warp(rep(p1), flat((1.0 - t) * f01))
     a0 = (1.0 - t) / (1.0 + e0)
     a1 = t / (1.0 + e1)
     w0 = w0.reshape(T, K - 1, H, W, C)

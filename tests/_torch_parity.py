@@ -138,3 +138,44 @@ def hold_bf16(name, got, jax_bf16, jax_f32, mean_tol):
     err, own = np.abs(got - ref).max(), np.abs(want - ref).max()
     assert err <= 1.5 * own + 1e-3, \
         f"{name}: {err} from float32, JAX bf16 {own}"
+
+
+def png_bytes(img: np.ndarray) -> np.ndarray:
+    """An (H, W, 3) uint8 image as PNG bytes, the h5's vlen-uint8 row."""
+    import io
+
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="PNG")
+    return np.frombuffer(buf.getvalue(), np.uint8)
+
+
+def write_hsm_h5(path: str, clips: dict, H: int, W: int, seed: int = 0,
+                 phases=("train", "gt")) -> str:
+    """A HumanSloMo h5 in the reference's layout
+    (``gen_dataset_h5.py:57-174``): per clip and phase, PNG frames
+    ``<phase>_images`` and ``<phase>_dain`` (the train DAIN has one row
+    fewer, as the reference's) and float64 ``<phase>_poses`` (n, 19, 3)
+    with joints inside the frame.  ``clips`` maps a clip name to its
+    frame count."""
+    import h5py
+
+    rng = np.random.default_rng(seed)
+    vlen = h5py.vlen_dtype(np.uint8)
+    with h5py.File(path, "w") as f:
+        for name, n in clips.items():
+            grp = f.create_group(name)
+            for phase in phases:
+                for key, rows in (("images", n), ("dain", n - (phase ==
+                                                               "train"))):
+                    ds = grp.create_dataset(f"{phase}_{key}", (rows,),
+                                            dtype=vlen)
+                    for i in range(rows):
+                        ds[i] = png_bytes(rng.integers(
+                            0, 256, (H, W, 3), dtype=np.uint8))
+                poses = np.stack([rng.uniform(5, W - 5, (n, 19)),
+                                  rng.uniform(5, H - 5, (n, 19)),
+                                  rng.uniform(0.5, 1.0, (n, 19))], axis=-1)
+                grp.create_dataset(f"{phase}_poses", data=poses)
+    return path

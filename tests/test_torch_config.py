@@ -42,3 +42,20 @@ def test_flat_reference_layout_loads_as_in_jax():
     port = TC.renderer_config_from_dict(raw)
     assert port.gen.spade_kernel_size == 3 and port.data.load_width == 128
     _same_fields(port, JC.renderer_config_from_dict(raw))
+
+
+@pytest.mark.parametrize("name", ["motion.yaml", "smoke_motion.yaml"])
+def test_motion_dataset_config_loads_as_in_jax(name):
+    path = os.path.join(ROOT, "configs", name)
+    port = TC.load_motion_config(path).dataset
+    assert isinstance(port, TC.MotionDatasetConfig)
+    _same_fields(port, JC.load_motion_config(path).dataset, "dataset")
+
+
+def test_flat_motion_dataset_keys_load_as_in_jax():
+    raw = {"data_root": "stats", "focal": 5.0, "openpose_scale": 300.0,
+           "dataset": {"focal": 6.0, "camera_project": "orthogonal"}}
+    port = TC.motion_config_from_dict(raw).dataset
+    assert (port.data_root, port.focal, port.openpose_scale,
+            port.camera_project) == ("stats", 6.0, 300.0, "orthogonal")
+    _same_fields(port, JC.motion_config_from_dict(raw).dataset, "dataset")

@@ -1,6 +1,7 @@
 """Flow backgrounds and image ops of the PyTorch port against the JAX
 package: ``upsample_background(levels=3, iters=1, flow_scale=4)`` as the
-serving pipeline calls it, and the pieces it is built from.
+serving pipeline calls it, with its defaults (full-resolution flow) as
+the serving CLIs call it, and the pieces it is built from.
 
 Tolerances: 1e-5 for single ops on values in [0, 1] or pixel units;
 1e-4 for the whole background synthesis (float32 cumulative sums in the
@@ -51,12 +52,12 @@ def test_warps_and_lk_match_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
-def test_upsample_background_matches_jax():
+# the serving pipeline's setting, and the JAX default the CLIs use
+@pytest.mark.parametrize("flow", [dict(levels=3, iters=1, flow_scale=4), {}])
+def test_upsample_background_matches_jax(flow):
     keys = blobs(3, 64, 96, seed=2)
-    want = JF.upsample_background(jnp.asarray(keys), 4, levels=3, iters=1,
-                                  flow_scale=4)
-    got = TF.upsample_background(t(keys), 4, levels=3, iters=1,
-                                 flow_scale=4)
+    want = JF.upsample_background(jnp.asarray(keys), 4, **flow)
+    got = TF.upsample_background(t(keys), 4, **flow)
     assert got.shape == (9, 64, 96, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
     np.testing.assert_array_equal(got[::4].numpy(), keys)

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: importing every module of
-``renderloom_torch`` (the training CLI included) loads none of JAX,
-flax, optax or the JAX package, and ``chip_smoke.py`` imports none of
-them.  Its serving and training entry points run on the card unless
-told otherwise, and without a card they refuse rather than run on the
-CPU."""
+``renderloom_torch`` (the CLIs included) loads none of JAX, flax, optax
+or the JAX package, and ``chip_smoke.py`` imports none of them.  Its
+serving and training entry points run on the card unless told
+otherwise, and without a card they refuse rather than run on the CPU.
+The native decoder builds beside the CUDA kernels, not in the
+package."""
 
 import ast
 import json
@@ -16,6 +17,9 @@ import torch
 
 import renderloom_torch.core.config as TC
 from _torch_parity import motion_cfg, renderer_cfg
+from renderloom_torch import native
+from renderloom_torch.cli import infer_motion, infer_renderer
+from renderloom_torch.cli import pipeline as pipeline_cli
 from renderloom_torch.cli import train_renderer
 from renderloom_torch.eval import pipeline
 
@@ -38,7 +42,15 @@ def _port_modules():
 def test_port_imports_no_jax_and_no_jax_package():
     mods = _port_modules()
     assert {"renderloom_torch.eval.pipeline", "renderloom_torch.train.gan",
-            "renderloom_torch.cli.train_renderer"} <= set(mods)
+            "renderloom_torch.cli.train_renderer",
+            "renderloom_torch.cli.infer_motion",
+            "renderloom_torch.cli.infer_renderer",
+            "renderloom_torch.cli.pipeline",
+            "renderloom_torch.core.checkpoint",
+            "renderloom_torch.data.amass", "renderloom_torch.data.hsm",
+            "renderloom_torch.data.openpose",
+            "renderloom_torch.eval.render_eval", "renderloom_torch.native",
+            "renderloom_torch.utils.visualize"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(sys.modules)))")
@@ -79,3 +91,28 @@ def test_train_cli_defaults_to_the_card_and_never_falls_back(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_renderer.main(["--synthetic", "--epochs", "1"])
+
+
+@pytest.mark.parametrize("cli,argv", [
+    (infer_motion, ["--ckpt", "m.npz", "--pose-dir", ".", "--save-dir",
+                    "."]),
+    (infer_renderer, ["--ckpt", "r.pt", "--input-dir", "."]),
+    (pipeline_cli, ["--frames-dir", ".", "--pose-dir", ".",
+                    "--motion-ckpt", "m.npz", "--renderer-ckpt", "r.pt",
+                    "--out-dir", "."]),
+])
+def test_serving_clis_default_to_the_card_and_never_fall_back(
+        monkeypatch, cli, argv):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv)
+
+
+def test_native_decoder_builds_outside_the_package():
+    lib = native.library_path()
+    assert lib.parent == native.BUILD_DIR
+    assert native.BUILD_DIR.parts[-2:] == ("build", "renderloom_torch")
+    assert os.path.dirname(str(native.BUILD_DIR.parent)) == ROOT
+    assert native.native_available() and lib.exists()
+    pkg = os.path.join(ROOT, "renderloom_torch", "native")
+    assert not [f for f in os.listdir(pkg) if f.endswith(".so")]
