@@ -157,6 +157,39 @@ D2. holds one card bf16 step against the CPU bf16 step at 64×96 by
    over their float32 largest), with the card against the CPU float32
    step as a control that must read beyond each limit;
 
+then training from data (the JAX package's two training CLIs):
+
+W. runs the renderer CLI's epoch loop (``train_renderer.train``) at full
+   width (hsm.yaml, batch 4, 480×320, four discriminators, VGG19 loaded
+   from a ``.pth`` of seeded random values at the real shapes through
+   ``VGG19_NPZ``) for 4 epochs over two 7-frame train clips, the window
+   growing from 4 to 5 frames after epoch 2 (``update_frame_step`` 2),
+   then ``evaluate_h5`` on a 9-frame test clip with LPIPS, in float32
+   and in bf16, through a real ``HsmReader`` where h5py and PIL import,
+   else an in-memory one: checks the ``train/`` and ``eval/`` records
+   (finite, no skipped update), the checkpoint read back by
+   ``read_renderer`` and (float32) a ``--resume`` that continues from
+   its step, K1 (once a step with masks at 16 then 20 frames, then once
+   for the evaluation) and K2/K2b (or their r3centered modes) against
+   the counts derived from the module structure, and holds K1 at the
+   20-frame and evaluation tables and K2/K2b at every recorded shape
+   against their twins; prints windows/s per epoch, the share of the
+   loop spent waiting on the prefetcher and the evaluation's seconds;
+M. trains the motion transformer at full width (motion.yaml: B 16,
+   L 321, hidden 128, 6+6 layers, dropout 0.1) in float32 and bf16 on
+   ``bench_motion_train``'s inputs (3 warm-up, 20 timed steps): finite
+   metrics, moved parameters, no skipped update; prints
+   ``motion_train_seqs_per_sec``, peak memory and the idle share of a
+   profiled step; then runs the motion CLI's loop
+   (``train_motion.train``) over an in-memory AMASS split (short clips
+   padded, long ones cropped; statistics by ``compute_stats``) with one
+   ``MotionEvaluator`` pass, and prints its metrics and seconds;
+M2. holds the card's motion step against the CPU's at hidden 32, 2+2
+   layers, L 33, B 2, dropout 0, with identical weights and draws: in
+   float32 the losses, ``grad_norm`` and parameters after 3 steps; in
+   bf16 by mean error, with the card bf16 step against the CPU float32
+   step as a control that must read beyond each limit;
+
 and last prints the ``{"kernels": [...]}`` line, the card line, and the
 ``{"ok": true, "device": {...}}`` line.
 
@@ -3138,6 +3171,586 @@ def phase_train_bf16_cpu_match():
 
 
 # ---------------------------------------------------------------------------
+# W. renderer training from HumanSloMo windows through the CLI's loop
+# ---------------------------------------------------------------------------
+
+# two train clips of 7 frames: 8 windows of 4 frames (2 steps of B = 4),
+# then 6 windows of 5 frames (1 step); a 9-frame test clip (eval_frames 4)
+W_TRAIN = {"train_a": 7, "train_b": 7}
+W_TEST = {"test_a": 9}
+W_EPOCHS = 4
+
+
+def _array_hsm_reader(clips: dict, video_list, phase: str = "train",
+                      max_frames: int = 4):
+    """``HsmReader`` over clips held in memory (``image``, ``dain`` —
+    one row fewer in the train phase, row i − 1 being frame i's, as in
+    the h5 — and ``pose``): the reader where ``h5py`` is missing, its
+    windows those ``HsmReader`` reads from the same clips in an h5."""
+    from renderloom_torch.data.hsm import HsmReader
+
+    class ArrayHsmReader(HsmReader):
+        def __init__(self, clips, video_list, phase="train", max_frames=4):
+            # ``set_max_frames`` passes ``h5_path`` back in: the clips
+            self.h5_path = clips
+            self.phase, self.max_frames = phase, max_frames
+            self.video_list = list(video_list)
+            self.n_frames, self.samples = {}, []
+            for vid in self.video_list:
+                if vid in clips:
+                    n = len(clips[vid]["image"])
+                    self.n_frames[vid] = n
+                    self.samples += [(vid, s) for s in
+                                     range(max(n - max_frames + 1, 0))]
+            self._file = None
+
+        def read_window(self, vid, start):
+            c = self.h5_path[vid]
+            end = start + self.max_frames
+            dain = np.zeros_like(c["image"][start:end])
+            for j, i in enumerate(range(start, end)):
+                if i > 0:
+                    dain[j] = c["dain"][i - 1]
+            return {"images": c["image"][start:end], "dain": dain,
+                    "poses": c["pose"][start:end].astype(np.float32)}
+
+        def read_test_frame(self, vid, index):
+            c = self.h5_path[vid]
+            return {"image": c["image"][index], "dain": c["dain"][index],
+                    "pose": c["pose"][index]}
+
+    return ArrayHsmReader(clips, video_list, phase, max_frames)
+
+
+def _train_h5_of(path: str, clips: dict) -> str:
+    """Train clips as a HumanSloMo h5 (``train_images``, ``train_dain``
+    with one row fewer, ``train_poses``)."""
+    import io
+
+    import h5py
+    from PIL import Image
+
+    def png(img):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="PNG")
+        return np.frombuffer(buf.getvalue(), np.uint8)
+
+    with h5py.File(path, "w") as f:
+        for name, c in clips.items():
+            grp = f.create_group(name)
+            for key in ("images", "dain"):
+                rows = c["image" if key == "images" else "dain"]
+                ds = grp.create_dataset(f"train_{key}", (len(rows),),
+                                        dtype=h5py.vlen_dtype(np.uint8))
+                for i, img in enumerate(rows):
+                    ds[i] = png(img)
+            grp.create_dataset("train_poses",
+                               data=c["pose"].astype(np.float64))
+    return path
+
+
+def _vgg19_pth(path: str) -> str:
+    """A torchvision ``vgg19().features`` state dict of seeded random
+    values at the real shapes (lecun-scaled), saved as a ``.pth``."""
+    from renderloom_torch.models.perceptual import TORCHVISION_CONV_IDX
+
+    g = torch.Generator().manual_seed(19)
+    state, ch = {}, 3
+    for name, idx in TORCHVISION_CONV_IDX.items():
+        out = (64, 128, 256, 512, 512)[int(name.split("_")[1]) - 1]
+        state[f"features.{idx}.weight"] = torch.randn(
+            out, ch, 3, 3, generator=g) / (9 * ch) ** 0.5
+        state[f"features.{idx}.bias"] = 0.1 * torch.randn(out, generator=g)
+        ch = out
+    torch.save(state, path)
+    return path
+
+
+def _jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _hold_step_norms(tag, fwd: Counter, bwd: Counter, bf16: bool) -> float:
+    """K2 (with residuals) and K2b, or their r3centered modes, against
+    their twins at every (shape, affine, slope) a training run recorded;
+    the largest error."""
+    err = 0.0
+    for i, key in enumerate(sorted(fwd, key=lambda k: -np.prod(k[0]))):
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        x, s, b = _norm_inputs(key[0], dtype, key[1], seed=1000 + i)
+        check = _r3_res_check if bf16 else _norm_check
+        err = max(err, check(f"{tag} K2 {key[:3]}", x, s, b, key[2]))
+    for i, key in enumerate(sorted(bwd, key=lambda k: -np.prod(k[0]))):
+        inputs = _bwd_r3_inputs if bf16 else _bwd_inputs
+        x, dy, s, b = inputs(key[0], key[1], 1100 + i)
+        check = _bwd_r3_check if bf16 else _bwd_check
+        err = max(err, check(f"{tag} K2b {key[:3]}", x, dy, s, b, key[2]))
+    return err
+
+
+def phase_train_h5(probe):
+    """The renderer CLI's epoch loop (``train_renderer.train``) at full
+    width over HumanSloMo windows, in float32 and bf16."""
+    import dataclasses
+
+    from renderloom_torch.cli import train_renderer as TR
+    from renderloom_torch.convert import flax_trees
+    from renderloom_torch.core.checkpoint import read_renderer
+    from renderloom_torch.train.gan import make_inference_generator
+
+    real = _skip_line("W", "h5 file", [m for m in ("h5py", "PIL")
+                                       if not probe[m]])
+    work = os.path.join(ROOT, "build", "chip_smoke_w")
+    os.makedirs(work, exist_ok=True)
+    base = _train_cfg()
+    H, W = base.data.model_height, base.data.model_width
+    B = base.batch_size
+    print(f"W. renderer training through the CLI's loop: hsm.yaml at "
+          f"{W}x{H}, batch {B}, {W_EPOCHS} epochs over {W_TRAIN} "
+          f"(update_frame_step 2: 4-frame windows, then 5), evaluate_h5 "
+          f"on {W_TEST} with LPIPS after epoch 4, VGG19 from a .pth of "
+          f"random values at the real shapes; reader: "
+          + ("HsmReader over an h5 written here" if real else
+             "in-memory HsmReader (read_window, read_test_frame)"))
+    train_clips = {k: dict(v, dain=v["dain"][1:]) for k, v in _eval_clips(
+        W_TRAIN, H, W, seed=40).items()}
+    test_clips = _eval_clips(W_TEST, H, W, seed=41)
+    if real:
+        from renderloom_torch.data.hsm import HsmReader
+
+        path = _train_h5_of(os.path.join(work, "train.h5"), train_clips)
+        test_path = _h5_of(os.path.join(work, "test.h5"), test_clips)
+        readers = lambda: (HsmReader(path, list(W_TRAIN), "train", 4),
+                           HsmReader(test_path, list(W_TEST), "test", 4))
+    else:
+        readers = lambda: (_array_hsm_reader(train_clips, list(W_TRAIN)),
+                           _array_hsm_reader(test_clips, list(W_TEST),
+                                             "test"))
+    vgg = _vgg19_pth(os.path.join(work, "vgg19_random.pth"))
+    saved = (os.environ.get("VGG19_NPZ"), TR.TRAIN_LOG_EVERY)
+    os.environ["VGG19_NPZ"] = vgg
+    TR.TRAIN_LOG_EVERY = 1
+    out = {}
+    try:
+        for tag, dtype in (("train_h5", "float32"),
+                           ("train_h5_bf16", "bfloat16")):
+            cfg = dataclasses.replace(base, compute_dtype=dtype,
+                                      data=dataclasses.replace(
+                base.data, update_frame_step=2, eval_frames=4,
+                train_video_list=tuple(W_TRAIN),
+                test_video_list=tuple(W_TEST)))
+            cfg_path = _yaml_cfg(os.path.join(work, f"{tag}.yaml"), cfg)
+            run_dir = os.path.join(work, tag)
+            if os.path.isdir(run_dir):
+                import shutil
+                shutil.rmtree(run_dir)
+            argv = ["--config", cfg_path, "--device", DEVICE, "--seed", "0",
+                    "--out-dir", run_dir]
+            _reset_launches()
+            calls, fwd, bwd = [], Counter(), Counter()
+            restore_k1 = _raster_recorder(calls)
+            restore_norms = _norm_call_recorder(fwd, bwd)
+            tic = time.perf_counter()
+            try:
+                res = TR.train(TR.parse_args(argv + ["--epochs",
+                                                     str(W_EPOCHS)]),
+                               *readers())
+                torch.cuda.synchronize()
+            finally:
+                restore_norms()
+                restore_k1()
+            total = time.perf_counter() - tic
+            launches = _train_launches()
+            state, hist = res["state"], res["epochs"]
+            # derived: each step's counts at its window length, plus the
+            # evaluation's K1 (deterministic tables, masks) and one
+            # generator step (the 4 segments of the 9-frame clip at once)
+            want = Counter()
+            for e in hist:
+                per = derived_train_launches(cfg, state.gen, state.dis,
+                                             e["frames"] - 2)
+                for k, v in per.items():
+                    want[k] += e["steps"] * v
+            per_eval = _count_norms(make_inference_generator(cfg))
+            want["rasterize"] += 1
+            want["instance_norm_r3" if dtype == "bfloat16"
+                 else "instance_norm"] += per_eval
+            want = {k: want[k] for k in launches}
+            frames = [c[0][0].shape[0] for c in calls]
+            masks = {c[0][6] for c in calls}
+            steps = [e["steps"] for e in hist]
+            print(f"  {tag}: launches {launches}; derived {want}; K1 frames "
+                  f"per call {frames} (masks {sorted(masks)})")
+            want_frames = ([B * 4] * (steps[0] + steps[1])
+                           + [B * 5] * (steps[2] + steps[3])
+                           + [W_TEST["test_a"]])
+            if launches != want or frames != want_frames or masks != {True}:
+                raise AssertionError(f"{tag}: kernel launches {launches}, "
+                                     f"K1 frames {frames}")
+            lines = _jsonl(os.path.join(run_dir, "metrics.jsonl"))
+            train_rec = [r for r in lines if "train/g/total" in r]
+            eval_rec = [r for r in lines if "eval/OURS_PSNR" in r]
+            if [r["step"] for r in train_rec] != list(
+                    range(1, sum(steps) + 1)) or len(eval_rec) != 1:
+                raise AssertionError(f"{tag}: metrics.jsonl records "
+                                     f"{[r['step'] for r in lines]}")
+            for r in lines:
+                if not all(np.isfinite(v) for v in r.values()) or r.get(
+                        "train/notfinite/g", 0) or r.get(
+                        "train/notfinite/d", 0):
+                    raise AssertionError(f"{tag}: record {r}")
+            print("    last train record: " + ", ".join(
+                f"{k[6:]} {v:.4g}" for k, v in train_rec[-1].items()
+                if k.startswith("train/")))
+            print("    eval record: " + ", ".join(
+                f"{k[5:]} {v:.5f}" for k, v in eval_rec[0].items()
+                if k.startswith("eval/")))
+            for e in hist:
+                wps = e["steps"] * B / e["seconds"]
+                print(f"    epoch {e['epoch']}: {e['frames']}-frame windows, "
+                      f"{e['steps']} steps in {e['seconds']:.3f} s, "
+                      f"{wps:.3f} windows/s, waiting on the prefetcher "
+                      f"{100 * e['wait_seconds'] / e['seconds']:.2f}% of "
+                      f"the loop" + (f"; evaluate_h5 "
+                                     f"{e['eval_seconds']:.3f} s"
+                                     if "eval_seconds" in e else ""))
+            # the checkpoint reads back as the generator's trees
+            params, _ = read_renderer(os.path.join(run_dir, "checkpoint.pt"))
+            mine = flax_trees(state.gen)[0]
+            if params.keys() != mine.keys() or not np.array_equal(
+                    params["conv_img"]["conv"]["kernel"],
+                    mine["conv_img"]["conv"]["kernel"]):
+                raise AssertionError(f"{tag}: checkpoint does not read back")
+            # the kernels at the shapes this run gave them
+            err = 0.0
+            for i, c in enumerate(calls):
+                if frames[i] in (B * 5, W_TEST["test_a"]) and (
+                        i == 0 or frames[i - 1] != frames[i]):
+                    err = max(err, _k1_check(
+                        f"{tag} K1 {frames[i]} frames", c[0][:3], H, W,
+                        c[0][5], c[0][6], c[1]["layout"])[0])
+            err = max(err, _hold_step_norms(tag, fwd, bwd,
+                                            dtype == "bfloat16"))
+            out[tag] = dict(launches=launches, seconds=total, epochs=hist,
+                            steps=sum(steps), max_abs_err=err)
+            if dtype == "float32":
+                before = state.step
+                again = TR.train(TR.parse_args(
+                    argv + ["--epochs", str(W_EPOCHS), "--resume"]),
+                    *readers())
+                new = [r["step"] for r in _jsonl(os.path.join(
+                    run_dir, "metrics.jsonl")) if "train/g/total" in r]
+                print(f"    --resume: continued from step {before} to "
+                      f"{again['state'].step} (epochs "
+                      f"{[e['epoch'] for e in again['epochs']]})")
+                if new[len(train_rec)] != before + 1 or \
+                        again["state"].step <= before:
+                    raise AssertionError("resume did not continue")
+            print(f"    {tag}: {total:.1f} s for the run")
+    finally:
+        if saved[0] is None:
+            os.environ.pop("VGG19_NPZ", None)
+        else:
+            os.environ["VGG19_NPZ"] = saved[0]
+        TR.TRAIN_LOG_EVERY = saved[1]
+    print(f"  ({card_line()})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# M. motion training at full width
+# ---------------------------------------------------------------------------
+
+M_WARMUP, M_STEPS = 3, 20          # bench.py:bench_motion_train's
+
+
+def _amass_reader(motions: dict, splits):
+    """``AmassReader`` over (T, 52, 3) joint arrays held in memory,
+    ``{group: {motion: array}}``: the reader where ``h5py`` is
+    missing."""
+    from renderloom_torch.data.amass import AmassReader
+
+    class ArrayAmassReader(AmassReader):
+        def __init__(self, motions, splits):
+            self.h5_path, self.splits = None, tuple(splits)
+            self.motions = motions
+            self.samples = [(g, m) for g in splits if g in motions
+                            for m in motions[g]]
+            self._file = None
+
+        def read_motion(self, dataset_key, motion_key):
+            data = self.motions[dataset_key][motion_key]
+            return np.ascontiguousarray(data.transpose(1, 2, 0),
+                                        dtype=np.float32)
+
+    return ArrayAmassReader(motions, splits)
+
+
+def _amass_motions(groups: dict, seed: int) -> dict:
+    """Smooth random (T, 52, 3) joint paths around a standing body."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, lengths in groups.items():
+        out[name] = {}
+        for i, T in enumerate(lengths):
+            base = rng.normal(0, 0.3, (1, 52, 3))
+            base[:, [1, 16], 0] -= 0.3
+            base[:, [2, 17], 0] += 0.3
+            t = np.linspace(0, 4 * np.pi, T)[:, None, None]
+            out[name][f"m{i}"] = base + 0.1 * np.sin(
+                t + rng.uniform(0, 6, (1, 52, 3)))
+    return out
+
+
+def phase_motion_train():
+    import dataclasses
+
+    from renderloom_torch.cli import train_motion as TMC
+    from renderloom_torch.core.checkpoint import read_motion
+    from renderloom_torch.core.config import load_motion_config
+    from renderloom_torch.train.motion import (create_motion_state,
+                                               make_train_step)
+
+    cfg0 = load_motion_config(os.path.join(ROOT, "configs", "motion.yaml"))
+    B, L = cfg0.batch_size, cfg0.dataset.max_seq_length
+    t = cfg0.transformer
+    print(f"M. motion training at full width (motion.yaml: B {B}, L {L}, "
+          f"hidden {t.hidden_dim}, {t.enc_layers}+{t.dec_layers} layers, "
+          f"dropout {t.dropout}), bench_motion_train's inputs: "
+          f"{M_WARMUP} warm-up and {M_STEPS} timed steps")
+    rng = np.random.default_rng(0)
+    batch = {"motion3d": torch.from_numpy(rng.normal(
+                 0, 0.3, (B, 52, 3, L)).astype(np.float32)).to(DEVICE),
+             "pad_mask": torch.zeros((B, L), dtype=torch.bool).to(DEVICE)}
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(cfg0, compute_dtype=dtype)
+        state = create_motion_state(cfg, DEVICE, seed=0)
+        step = make_train_step(cfg, np.zeros((19, 2), np.float32),
+                               np.ones((19, 2), np.float32))
+        before = state.opt.flat.clone()
+        for _ in range(M_WARMUP):
+            metrics = step(state, batch)
+        float(metrics["loss/total"])
+        torch.cuda.reset_peak_memory_stats()
+        tic = time.perf_counter()
+        for _ in range(M_STEPS):
+            metrics = step(state, batch)
+        float(metrics["loss/total"])
+        wall = time.perf_counter() - tic
+        sps = M_STEPS * B / wall
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        vals = {k: float(v) for k, v in metrics.items()}
+        moved = (state.opt.flat != before).float().mean().item()
+        prof = _profile(step, (state, batch))
+        _write(f"motion_profile_{dtype}.txt", prof)
+        idle = _idle_share(prof)
+        print(f"  {dtype}: motion_train_seqs_per_sec {sps:.2f} ({M_STEPS} "
+              f"steps in {wall * 1e3:.1f} ms, {wall / M_STEPS * 1e3:.2f} ms "
+              f"a step); peak memory {peak:.3f} GiB; idle share of a "
+              f"profiled step {idle:.1f}%; {100 * moved:.2f}% of the "
+              f"parameters moved; last metrics " + ", ".join(
+                  f"{k} {v:.5g}" for k, v in vals.items()))
+        print("    " + "\n    ".join(prof.splitlines()[:8]))
+        if not all(np.isfinite(v) for v in vals.values()) or \
+                vals["notfinite"] or moved == 0:
+            raise AssertionError(f"motion {dtype}: metrics {vals}, moved "
+                                 f"{moved}")
+        out[dtype] = dict(seqs_per_sec=sps, peak_gib=peak, idle=idle,
+                          step_ms=wall / M_STEPS * 1e3)
+    print(f"  ({card_line()})")
+
+    # the CLI's loop over an in-memory AMASS split: short clips padded,
+    # long ones cropped; statistics computed; one evaluation
+    work = os.path.join(ROOT, "build", "chip_smoke_m")
+    if os.path.isdir(work):
+        import shutil
+        shutil.rmtree(work)
+    lengths = [120, 200, 321, 400, 650, 90, 333, 500] * 4
+    motions = _amass_motions({"CMU": lengths, "HumanEva": (150, 400, 321,
+                                                           260, 77, 500,
+                                                           180, 340)},
+                             seed=7)
+    cfg = dataclasses.replace(cfg0, eval_step=1, dataset=dataclasses.replace(
+        cfg0.dataset, data_root=os.path.join(work, "data")))
+    cfg_path = _yaml_cfg(os.path.join(ROOT, "build",
+                                      "chip_smoke_motion.yaml"), cfg)
+    saved = TMC.TRAIN_LOG_EVERY
+    TMC.TRAIN_LOG_EVERY = 1
+    tic = time.perf_counter()
+    try:
+        res = TMC.train(TMC.parse_args(
+            ["--config", cfg_path, "--device", DEVICE, "--epochs", "1",
+             "--out-dir", os.path.join(work, "run")]),
+            _amass_reader(motions, cfg.dataset.train_split),
+            _amass_reader(motions, cfg.dataset.test_split))
+        torch.cuda.synchronize()
+    finally:
+        TMC.TRAIN_LOG_EVERY = saved
+    total = time.perf_counter() - tic
+    (epoch,) = res["epochs"]
+    lines = _jsonl(os.path.join(work, "run", "metrics.jsonl"))
+    ev = [r for r in lines if "eval/mse_global" in r]
+    tr = [r for r in lines if "train/loss/total" in r]
+    print(f"  CLI loop, float32: {len(lengths)} train clips "
+          f"({sum(n < L for n in lengths)} padded), 8 test clips: "
+          f"{epoch['steps']} steps in {epoch['seconds']:.3f} s (waiting "
+          f"{100 * epoch['wait_seconds'] / epoch['seconds']:.2f}%), "
+          f"evaluation {epoch['eval_seconds']:.3f} s, the whole run with "
+          f"compute_stats {total:.2f} s")
+    print("    eval: " + ", ".join(f"{k[5:]} {v:.6g}" for k, v in
+                                   ev[0].items() if k.startswith("eval/")))
+    params = read_motion(os.path.join(work, "run", "checkpoint.pt"))
+    if len(ev) != 1 or len(tr) != epoch["steps"] or not all(
+            np.isfinite(v) for r in lines for v in r.values()) or \
+            set(params) != {n.split(".")[0] for n, _ in
+                            res["state"].model.named_parameters()}:
+        raise AssertionError(f"motion CLI loop: records {lines}")
+    out["cli"] = dict(seconds=total, eval_seconds=epoch["eval_seconds"],
+                      eval=ev[0])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# M2. card motion step vs CPU motion step
+# ---------------------------------------------------------------------------
+
+# float32: the losses and grad_norm of 3 steps to 1e-5 relative, the
+# parameters after them to 1e-6 but for elements AMSGrad moves by up to
+# lr either way (a clipped gradient near its eps; the k-projection
+# biases, whose gradient is rounding noise: tests/test_torch_motion_
+# train.py), whose share is held under 1% and their error under 2·lr.
+# bf16: mean relative error of the metrics and of the first step's
+# gradients (each over its leaf's float32 largest) against the CPU bf16
+# step, with the card bf16 step against the CPU float32 step as the
+# control that must read beyond each limit (as D2).  Reading on an
+# NVIDIA H100 80GB HBM3 at 700 W: 0 and 2.9e-9 (at these widths the
+# bf16 products round the same on both devices), the control 1.5e-3 and
+# 1.3e-3; the limits leave a card that rounds otherwise room, a tenth of
+# the control's reading.
+MOTION_MATCH_RTOL = 1e-5
+MOTION16_MEAN_TOL = {"metrics": 1e-4, "grads": 1e-4}
+
+
+def _tiny_motion_case():
+    from renderloom_torch.convert import flax_trees
+    from renderloom_torch.core import config as C
+    from renderloom_torch.ops import pose as P
+    from renderloom_torch.train.motion import create_motion_state
+
+    cfg = C.MotionConfig(
+        transformer=C.TransformerConfig(hidden_dim=32, nheads=4,
+                                        dim_feedforward=64, enc_layers=2,
+                                        dec_layers=2, dropout=0.0),
+        pos_encode=C.PosEncodeConfig(hidden_dim=32),
+        dataset=C.MotionDatasetConfig(max_seq_length=33, train_sample_rate=8,
+                                      train_sample_size=8, noise_rate=2,
+                                      joint_drop_rate=2, flip_rate=1))
+    params = flax_trees(create_motion_state(cfg, "cpu", seed=9).model)[0]
+    motions = _amass_motions({"x": (33, 33)}, seed=8)["x"]
+    raw = {"motion3d": torch.from_numpy(np.stack(
+               [m.transpose(1, 2, 0) for m in motions.values()]).astype(
+                   np.float32)),
+           "pad_mask": torch.zeros((2, 33), dtype=torch.bool)}
+    raw["pad_mask"][1, 25:] = True
+    g = torch.Generator().manual_seed(10)
+    draws = [P.draw_synthesis(g, 2, 33, P.synthesis_params(cfg.dataset))
+             for _ in range(3)]
+    rng = np.random.default_rng(11)
+    stats = (rng.normal(scale=0.1, size=(19, 2)).astype(np.float32),
+             rng.uniform(0.2, 1.0, (19, 2)).astype(np.float32))
+    return cfg, params, raw, draws, stats
+
+
+def _tiny_motion_run(case, device, dtype="float32"):
+    import dataclasses
+
+    from renderloom_torch.convert import flax_trees
+    from renderloom_torch.train.motion import (create_motion_state,
+                                               make_train_step)
+
+    cfg, params, raw, draws, (mean, std) = case
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+    state = create_motion_state(cfg, device, params=params)
+    step = make_train_step(cfg, mean, std)
+    names = [n for n, _ in state.model.named_parameters()]
+    grads = {}
+
+    def record(gs, opt=state.opt):
+        if not grads:
+            grads.update({n: g.detach().float().cpu()
+                          for n, g in zip(names, gs)})
+        return type(opt).step(opt, gs)
+
+    state.opt.step = record
+    batch = {k: v.to(device) for k, v in raw.items()}
+    metrics = [{k: float(v) for k, v in step(state, batch, d).items()}
+               for d in draws]
+    return metrics, grads, flax_trees(state.model)[0], state.opt
+
+
+def _flat_leaves(tree: dict, prefix: str = ""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def phase_motion_cpu_match():
+    case = _tiny_motion_case()
+    cfg = case[0]
+    lr = cfg.optim.lr
+    print("M2. card motion step vs CPU motion step (hidden 32, 2+2 layers, "
+          "L 33, B 2, dropout 0, same weights and draws):")
+    m_cpu, g_cpu, p_cpu, _ = _tiny_motion_run(case, "cpu")
+    m_gpu, g_gpu, p_gpu, _ = _tiny_motion_run(case, DEVICE)
+    err = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(m_gpu, m_cpu)
+              for k in b if k != "notfinite")
+    big, worst, n = 0, 0.0, 0
+    for (k, a), (_, b) in zip(_flat_leaves(p_gpu), _flat_leaves(p_cpu)):
+        d = np.abs(a - b)
+        big += int((d > 1e-6).sum())
+        n += d.size
+        worst = max(worst, float(d.max()))
+    print(f"  float32, 3 steps: losses and grad_norm largest relative error "
+          f"{err:.3e} (tol {MOTION_MATCH_RTOL:.0e}); parameters: "
+          f"{big}/{n} elements beyond 1e-6, the largest {worst:.3e} (held: "
+          f"share < 1%, largest <= 2 lr = {2 * lr:.1e})")
+    if not (err <= MOTION_MATCH_RTOL and big < 0.01 * n
+            and worst <= 2 * lr):
+        raise AssertionError("M2 float32: card vs CPU out of bounds")
+
+    m16c, g16c, _, _ = _tiny_motion_run(case, "cpu", "bfloat16")
+    m16g, g16g, _, opt = _tiny_motion_run(case, DEVICE, "bfloat16")
+    if opt.flat.dtype != torch.float32 or m16g[0]["notfinite"]:
+        raise AssertionError("M2 bf16: parameters or update")
+    keys = [k for k in m_cpu[0] if k != "notfinite"]
+    mrel = lambda a, b: np.mean([abs(a[k] - b[k]) / abs(m_cpu[0][k])
+                                 for k in keys])
+    top = {k: v.abs().max().item() for k, v in g_cpu.items()}
+    gerr = lambda a, b: np.mean(np.concatenate([
+        ((a[k] - b[k]).abs() / top[k]).flatten().numpy()
+        for k in a if top[k] > 0 and not k.endswith("k_proj.bias")]))
+    readings = {"metrics": (mrel(m16g[0], m16c[0]), mrel(m16g[0], m_cpu[0])),
+                "grads": (gerr(g16g, g16c), gerr(g16g, g_cpu))}
+    bad = []
+    for what, (sound, control) in readings.items():
+        tol = MOTION16_MEAN_TOL[what]
+        ok = sound <= tol < control
+        print(f"  bf16 {what}: mean error card vs CPU bf16 {sound:.4e} "
+              f"(limit {tol:.1e}); control, card bf16 vs CPU float32 "
+              f"{control:.4e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(what)
+    if bad:
+        raise AssertionError(f"M2: {bad} beyond the limit, or the control "
+                             f"within it")
+    return dict(rel_err=err, params_beyond=big, bf16=readings)
+
+
+# ---------------------------------------------------------------------------
 # probe: the host packages of the file layer
 # ---------------------------------------------------------------------------
 
@@ -3817,7 +4430,17 @@ def main() -> int:
     phase_train_bf16_cpu_match()
     print(f"bf16 training phases: T {t_t - t_new:.1f} s, B2 "
           f"{t_b2 - t_t:.1f} s, D2 {time.perf_counter() - t_b2:.1f} s")
+    t_w = time.perf_counter()
+    h5train = phase_train_h5(probe)
+    t_m = time.perf_counter()
+    motion = phase_motion_train()
+    t_m2 = time.perf_counter()
+    phase_motion_cpu_match()
+    print(f"training from data phases: W {t_m - t_w:.1f} s, M "
+          f"{t_m2 - t_m:.1f} s, M2 {time.perf_counter() - t_m2:.1f} s")
     t16 = {k: v["launches"] for k, v in train16.items()}
+    w32, w16 = (h5train[k]["launches"] for k in ("train_h5",
+                                                 "train_h5_bf16"))
     kernels = [
         dict(name="rasterize", route="cuda",
              source="renderloom_torch/csrc/rasterize.cu",
@@ -3829,7 +4452,9 @@ def main() -> int:
                                "train_3_steps": train["launches"]
                                ["rasterize"],
                                **{k: v["launches"]["rasterize"]
-                                  for k, v in {**files, **evals}.items()}},
+                                  for k, v in {**files, **evals}.items()},
+                               "train_h5": w32["rasterize"],
+                               "train_h5_bf16": w16["rasterize"]},
              **raster_train,
              serve=dict(shape=f"{F_RASTER}x{H_FULL}x{W_FULL}x22 f32 label, "
                               f"no masks", **raster),
@@ -3850,7 +4475,8 @@ def main() -> int:
                                "serve_files": files["serve_files"]
                                ["launches"]["instance_norm"],
                                "eval_h5": evals["eval_h5"]["launches"]
-                               ["instance_norm"]},
+                               ["instance_norm"],
+                               "train_h5": w32["instance_norm"]},
              **norm_train, serve=norm),
         dict(name="instance_norm_parity", route="cuda",
              source="renderloom_torch/csrc/instance_norm.cu",
@@ -3878,7 +4504,8 @@ def main() -> int:
                                "serve_files_bf16": files["serve_files_bf16"]
                                ["launches"]["instance_norm_r3"],
                                "eval_h5_bf16": evals["eval_h5_bf16"]
-                               ["launches"]["instance_norm_r3"]},
+                               ["launches"]["instance_norm_r3"],
+                               "train_h5_bf16": w16["instance_norm_r3"]},
              **r3,
              train_step_bf16=dict(
                  r3_train, launches_per_step=train16[True]["per_step"]
@@ -3908,7 +4535,8 @@ def main() -> int:
                       "VJP of the instance norm; no Pallas kernel)",
              launches=train["launches"]["instance_norm_bwd"],
              launches_by_path={"train_3_steps": train["launches"]
-                               ["instance_norm_bwd"]},
+                               ["instance_norm_bwd"],
+                               "train_h5": w32["instance_norm_bwd"]},
              **norm_bwd),
         dict(name="instance_norm_bwd_r3centered", route="cuda",
              source="renderloom_torch/csrc/instance_norm.cu",
@@ -3919,7 +4547,8 @@ def main() -> int:
              launches_by_path={"train_step_bf16_3_steps": t16[True]
                                ["instance_norm_bwd_r3"],
                                "train_step_bf16_nockpt_3_steps": t16[False]
-                               ["instance_norm_bwd_r3"]},
+                               ["instance_norm_bwd_r3"],
+                               "train_h5_bf16": w16["instance_norm_bwd_r3"]},
              launches_per_step=train16[True]["per_step"]
              ["instance_norm_bwd_r3"],
              **bwd_r3),
@@ -3931,7 +4560,9 @@ def main() -> int:
           f"{files['serve_files_bf16']['fps']:.3f}); "
           f"gan_train_windows_per_sec "
           f"{train['wps']:.4f} (bf16 {train16[True]['wps']:.4f}, bf16 "
-          f"without do_checkpoint {train16[False]['wps']:.4f}); chip_smoke "
+          f"without do_checkpoint {train16[False]['wps']:.4f}); "
+          f"motion_train_seqs_per_sec {motion['float32']['seqs_per_sec']:.2f} "
+          f"(bf16 {motion['bfloat16']['seqs_per_sec']:.2f}); chip_smoke "
           f"done in "
           f"{time.perf_counter() - tic:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -16,9 +16,12 @@ training paths are hand-written CUDA kernels under ``csrc/``, built with
 
 Each kernel wrapper runs its plain PyTorch twin for a CPU tensor and the
 kernel for a CUDA tensor.  The serving entry point is
-:func:`renderloom_torch.eval.pipeline.build_pipeline`; training is
-:func:`renderloom_torch.train.gan.make_gan_train_step`, driven by
-``python -m renderloom_torch.cli.train_renderer --synthetic``.
+:func:`renderloom_torch.eval.pipeline.build_pipeline` (and the CLIs
+``renderloom_torch.cli.{pipeline,infer_motion,infer_renderer}``);
+training is :func:`renderloom_torch.train.gan.make_gan_train_step` and
+:func:`renderloom_torch.train.motion.make_train_step`, driven from their
+data by ``python -m renderloom_torch.cli.train_renderer --h5 ...`` and
+``python -m renderloom_torch.cli.train_motion --h5 ...``.
 """
 
 __version__ = "0.1.0"

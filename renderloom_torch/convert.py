@@ -10,7 +10,8 @@ folding, and seeded random weights.
   modules carry the flax tree's names, so a tree loads by path: conv
   kernels go HWIO → OIHW (the inverse of
   ``renderloom/data/torch_import.py:_conv_w``), dense kernels (in, out) →
-  (out, in), ``scale`` → ``weight``; ``load_state_dict(strict=True)``
+  (out, in), ``scale`` → ``weight``, the motion transformer's learned
+  position table (``embedding``) as it is; ``load_state_dict(strict=True)``
   refuses a tree that misses or adds a name.  With ``stats`` (the
   ``batch_stats`` tree) the spectral-norm state loads too:
   ``<conv>/sn/conv/kernel/u`` → ``<conv>.sn_u`` and ``…/sigma`` →
@@ -94,7 +95,7 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             out[prefix + "weight"] = leaf.T
         elif name == "scale":
             out[prefix + "weight"] = leaf
-        elif name == "bias":
+        elif name in ("bias", "embedding"):
             out[prefix + name] = leaf
         else:
             raise KeyError(f"no torch counterpart for {prefix}{name}")
@@ -153,8 +154,8 @@ def flax_trees(module) -> Tuple[dict, dict]:
             _set(params, path + ["kernel"], np.ascontiguousarray(v.T))
         elif leaf == "weight":
             _set(params, path + ["scale"], v)
-        elif leaf == "bias":
-            _set(params, path + ["bias"], v)
+        elif leaf in ("bias", "embedding"):
+            _set(params, path + [leaf], v)
         elif leaf == "sn_u":
             _set(stats, path + ["sn", "conv/kernel/u"], v)
         elif leaf == "sn_sigma":

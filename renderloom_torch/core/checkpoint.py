@@ -4,8 +4,9 @@ Two formats are read:
 
 * the port's own ``torch.save`` files: the renderer checkpoint that
   ``renderloom_torch.cli.train_renderer`` writes (its ``"gen"`` entry, the
-  training generator's state dict with its spectral-norm state), and a
-  motion model's ``state_dict``;
+  training generator's state dict with its spectral-norm state), the
+  motion checkpoint that ``renderloom_torch.cli.train_motion`` writes
+  (its ``"model"`` entry), and a motion model's ``state_dict``;
 * an ``.npz`` of flattened flax trees, for weights trained with the JAX
   package: keys ``params/<path>`` and, for the renderer,
   ``batch_stats/<path>`` (:func:`write_npz` writes one, and
@@ -97,9 +98,10 @@ def read_renderer(path: str) -> Tuple[dict, dict]:
 
 def read_motion(path: str) -> dict:
     """The motion transformer's params at ``path``: an ``.npz`` of flax
-    trees, or a ``torch.save`` of the model's ``state_dict``."""
+    trees, a ``train_motion`` checkpoint (its ``"model"`` entry), or a
+    ``torch.save`` of the model's ``state_dict``."""
     ckpt = _read(path)
     if path.endswith(".npz"):
         return _unflatten(ckpt, "params")
-    params, _ = flax_trees(ckpt)
+    params, _ = flax_trees(ckpt.get("model", ckpt))
     return params

@@ -5,10 +5,10 @@ A copy of the renderer and motion parts of the JAX package's
 ``renderloom/core/config.py``, kept here so the port never imports the
 JAX package: the model architectures, the renderer's data settings,
 discriminators, optimizer, loss weights and ``compute_dtype``, and the
-motion stage's ``dataset`` section (:class:`MotionDatasetConfig`, whose
-projection, statistics-file and openpose settings the serving CLIs
-read).  The motion optimizer section is not copied yet; the motion
-loader skips its keys.  Defaults equal the
+motion stage's ``dataset`` section (:class:`MotionDatasetConfig`: the
+AMASS synthesis, projection, statistics-file and openpose settings), its
+optimizer (:class:`MotionOptimConfig`), loss weights and training
+schedule.  Defaults equal the
 reference's shipped configs
 (``Human_Motion_Modelling/configs/config.yaml``,
 ``Pose_Guided_Neural_Rendering/configs/HSM.yaml``); yaml files in
@@ -133,12 +133,43 @@ class MotionDatasetConfig:
 
 
 @dataclass(frozen=True)
+class MotionOptimConfig:
+    """Motion optimizer settings (``configs/config.yaml:12-20``).
+    ``weight_decay`` is read but, as in the JAX package, not applied."""
+
+    nr_epochs: int = 1000
+    lr: float = 1e-4
+    beta1: float = 0.5
+    beta2: float = 0.999
+    weight_decay: float = 5e-4
+    lr_policy: str = "step"         # constant|lambda|step|multistep
+    gamma: float = 0.5
+    step_size: int = 100
+    warmup: int = 5
+    grad_clip: float = 1.0
+
+
+@dataclass(frozen=True)
 class MotionConfig:
     """Full motion-stage configuration."""
 
     transformer: TransformerConfig = field(default_factory=TransformerConfig)
     pos_encode: PosEncodeConfig = field(default_factory=PosEncodeConfig)
     dataset: MotionDatasetConfig = field(default_factory=MotionDatasetConfig)
+    optim: MotionOptimConfig = field(default_factory=MotionOptimConfig)
+
+    # loss weights (configs/config.yaml:111-112)
+    w_codition: float = 2.0
+    w_2d: float = 5.0
+
+    use_dis: bool = False
+    w_gan: float = 0.0
+
+    eval_step: int = 5
+    save_step: int = 50
+
+    batch_size: int = 16
+    seed: int = 0
     compute_dtype: str = "float32"
 
 
@@ -321,12 +352,17 @@ def load_yaml(path: str) -> dict:
 
 def motion_config_from_dict(raw: Mapping[str, Any]) -> MotionConfig:
     cfg = _update_dataclass(MotionConfig(), raw)
-    # the reference's flat layout keeps the dataset keys at the top level;
-    # a nested ``dataset:`` section wins over them
-    dataset = _update_dataclass(MotionDatasetConfig(), raw)
-    if isinstance(raw.get("dataset"), Mapping):
-        dataset = _update_dataclass(dataset, raw["dataset"])
-    return dataclasses.replace(cfg, dataset=dataset)
+    # the reference's flat layout keeps the dataset and optimizer keys at
+    # the top level; nested ``dataset:`` and ``optim:`` sections win over
+    # them
+    sections = {}
+    for name, default in (("dataset", MotionDatasetConfig()),
+                          ("optim", MotionOptimConfig())):
+        section = _update_dataclass(default, raw)
+        if isinstance(raw.get(name), Mapping):
+            section = _update_dataclass(section, raw[name])
+        sections[name] = section
+    return dataclasses.replace(cfg, **sections)
 
 
 def renderer_config_from_dict(raw: Mapping[str, Any]) -> RendererConfig:

@@ -1,4 +1,4 @@
-"""DETR-style two-stage motion transformer, inference only.
+"""DETR-style two-stage motion transformer.
 
 Port of the JAX package's ``renderloom/models/motion_transformer.py``,
 batch-first (B, L, C), with the reference's quirks kept:
@@ -23,6 +23,17 @@ positional encodings and the sequences run in the compute dtype, and the
 outputs are float32.  ``layers.cast_weights_(model, (Dense,))`` casts the
 dense weights once for inference (the same numbers, half the bytes).
 
+Training mode: given a ``dropout_rng`` (a ``torch.Generator`` on the
+input's device) the forward drops at flax's sites with the config's
+rate, each mask drawn from that generator: the attention weights, the
+feed-forward's hidden layer, and every residual branch of the encoder
+and decoder layers (:class:`Dropout`, kept values scaled by 1/(1 − p) as
+flax does).  Without it the forward is deterministic.
+
+Position encodings: the sine encoding (``v2``) or the learned table
+(``v3``/``learned``, :class:`LearnedPositionEncoding`, 160 rows).
+:func:`init_motion_params` draws flax's initial weights from a seed.
+
 Module and parameter names follow the flax tree, so
 :mod:`renderloom_torch.convert` loads a JAX tree by name.
 """
@@ -42,6 +53,25 @@ from renderloom_torch.models.layers import set_compute_dtype
 
 NEG_INF = -1e9
 LN_EPS = 1e-6
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)``: with a generator, each element is kept
+    with probability 1 − rate (a uniform draw below it) and divided by
+    it, else zeroed; without one, or at rate 0, the identity."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if generator is None or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class Dense(nn.Linear):
@@ -102,18 +132,21 @@ def _activation(name: str):
 
 class MultiHeadAttention(nn.Module):
     """Attention with positional terms added to queries/keys before their
-    projections; ``bias`` broadcasts to (B, heads, Lq, Lk)."""
+    projections; ``bias`` broadcasts to (B, heads, Lq, Lk); dropout on
+    the attention weights."""
 
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, dropout: float = 0.0):
         super().__init__()
         self.heads = heads
         self.q_proj = Dense(dim, dim)
         self.k_proj = Dense(dim, dim)
         self.v_proj = Dense(dim, dim)
         self.out_proj = Dense(dim, dim)
+        self.dropout = Dropout(dropout)
 
     def forward(self, q_in, k_in, v_in, q_pos=None, k_pos=None,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                bias: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         q = self.q_proj(q_in if q_pos is None else q_in + q_pos)
         k = self.k_proj(k_in if k_pos is None else k_in + k_pos)
         v = self.v_proj(v_in)
@@ -129,65 +162,97 @@ class MultiHeadAttention(nn.Module):
                               (q * (1.0 / math.sqrt(hd))).float(), k.float())
         if bias is not None:
             logits = logits + bias
-        weights = torch.softmax(logits, dim=-1).to(v.dtype)
+        weights = self.dropout(torch.softmax(logits, dim=-1).to(v.dtype), rng)
         out = torch.einsum("bhqk,bkhd->bqhd", weights, v)
         return self.out_proj(out.reshape(B, Lq, D))
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim: int, hidden: int, activation: str):
+    def __init__(self, dim: int, hidden: int, activation: str,
+                 dropout: float = 0.0):
         super().__init__()
         self.act = _activation(activation)
         self.linear1 = Dense(dim, hidden)
         self.linear2 = Dense(hidden, dim)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear2(self.act(self.linear1(x)))
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.linear2(self.dropout(self.act(self.linear1(x)), rng))
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, c: TransformerConfig):
         super().__init__()
         self.pre_norm = c.pre_norm
-        self.self_attn = MultiHeadAttention(c.hidden_dim, c.nheads)
+        self.self_attn = MultiHeadAttention(c.hidden_dim, c.nheads,
+                                            c.dropout)
         self.ffn = FeedForward(c.hidden_dim, c.dim_feedforward,
-                               c.activation)
+                               c.activation, c.dropout)
         self.norm1 = LayerNorm(c.hidden_dim, eps=LN_EPS)
         self.norm2 = LayerNorm(c.hidden_dim, eps=LN_EPS)
+        self.drop = Dropout(c.dropout)
 
-    def forward(self, x, pos, bias):
+    def forward(self, x, pos, bias, rng=None):
+        d = lambda h: self.drop(h, rng)
         if self.pre_norm:
             h = self.norm1(x)
-            x = x + self.self_attn(h, h, h, pos, pos, bias)
-            return x + self.ffn(self.norm2(x))
-        x = self.norm1(x + self.self_attn(x, x, x, pos, pos, bias))
-        return self.norm2(x + self.ffn(x))
+            x = x + d(self.self_attn(h, h, h, pos, pos, bias, rng))
+            return x + d(self.ffn(self.norm2(x), rng))
+        x = self.norm1(x + d(self.self_attn(x, x, x, pos, pos, bias, rng)))
+        return self.norm2(x + d(self.ffn(x, rng)))
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, c: TransformerConfig):
         super().__init__()
         self.pre_norm = c.pre_norm
-        self.self_attn = MultiHeadAttention(c.hidden_dim, c.nheads)
-        self.cross_attn = MultiHeadAttention(c.hidden_dim, c.nheads)
+        self.self_attn = MultiHeadAttention(c.hidden_dim, c.nheads,
+                                            c.dropout)
+        self.cross_attn = MultiHeadAttention(c.hidden_dim, c.nheads,
+                                             c.dropout)
         self.ffn = FeedForward(c.hidden_dim, c.dim_feedforward,
-                               c.activation)
+                               c.activation, c.dropout)
         self.norm1 = LayerNorm(c.hidden_dim, eps=LN_EPS)
         self.norm2 = LayerNorm(c.hidden_dim, eps=LN_EPS)
         self.norm3 = LayerNorm(c.hidden_dim, eps=LN_EPS)
+        self.drop = Dropout(c.dropout)
 
-    def forward(self, x, memory, q_pos, mem_pos, self_bias, cross_bias):
+    def forward(self, x, memory, q_pos, mem_pos, self_bias, cross_bias,
+                rng=None):
+        d = lambda h: self.drop(h, rng)
         if self.pre_norm:
             h = self.norm1(x)
-            x = x + self.self_attn(h, h, h, q_pos, q_pos, self_bias)
+            x = x + d(self.self_attn(h, h, h, q_pos, q_pos, self_bias, rng))
             h = self.norm2(x)
-            x = x + self.cross_attn(h, memory, memory, q_pos, mem_pos,
-                                    cross_bias)
-            return x + self.ffn(self.norm3(x))
-        x = self.norm1(x + self.self_attn(x, x, x, q_pos, q_pos, self_bias))
-        x = self.norm2(x + self.cross_attn(x, memory, memory, q_pos,
-                                           mem_pos, cross_bias))
-        return self.norm3(x + self.ffn(x))
+            x = x + d(self.cross_attn(h, memory, memory, q_pos, mem_pos,
+                                      cross_bias, rng))
+            return x + d(self.ffn(self.norm3(x), rng))
+        x = self.norm1(x + d(self.self_attn(x, x, x, q_pos, q_pos,
+                                            self_bias, rng)))
+        x = self.norm2(x + d(self.cross_attn(x, memory, memory, q_pos,
+                                             mem_pos, cross_bias, rng)))
+        return self.norm3(x + d(self.ffn(x, rng)))
+
+
+class LearnedPositionEncoding(nn.Module):
+    """Learned absolute position table (``max_positions``, dim); a
+    sequence of L positions takes its first L rows.  Longer sequences
+    raise: the JAX package's ``table[:length]`` cannot broadcast them."""
+
+    def __init__(self, dim: int, max_positions: int = 160):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.zeros(max_positions, dim))
+
+    def forward(self, batch: int, length: int,
+                dtype: torch.dtype) -> torch.Tensor:
+        rows, dim = self.embedding.shape
+        if length > rows:
+            raise ValueError(
+                f"learned position encoding: {length} positions, but the "
+                f"table has {rows} rows (pos_encode.max_learned_positions)")
+        return self.embedding[:length][None].expand(batch, length,
+                                                   dim).to(dtype)
 
 
 def padding_bias(key_mask: torch.Tensor) -> torch.Tensor:
@@ -220,10 +285,6 @@ class MotionTransformer(nn.Module):
     def __init__(self, cfg: TransformerConfig, pos_cfg: PosEncodeConfig,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if pos_cfg.position_embedding != "v2":
-            raise NotImplementedError(
-                f"position_embedding {pos_cfg.position_embedding!r}: the "
-                "port has the sine encoding ('v2') only")
         self.cfg = cfg
         self.dtype = dtype
         self.pe_dim = pos_cfg.hidden_dim
@@ -236,9 +297,21 @@ class MotionTransformer(nn.Module):
         if cfg.pre_norm:
             self.encoder_norm = LayerNorm(cfg.hidden_dim, eps=LN_EPS)
         self.decoder_norm = LayerNorm(cfg.hidden_dim, eps=LN_EPS)
+        self.learned = pos_cfg.position_embedding in ("v3", "learned")
+        if self.learned:
+            self.learned_pe = LearnedPositionEncoding(
+                pos_cfg.hidden_dim, pos_cfg.max_learned_positions)
         set_compute_dtype(self, dtype, (Dense, LayerNorm))
 
-    def encode(self, src_embed, src_mask, pos):
+    def position_encoding(self, batch: int, length: int,
+                          lengths: Optional[torch.Tensor], device):
+        if self.learned:
+            return self.learned_pe(batch, length, self.dtype)
+        return sine_position_encoding(batch, length, self.pe_dim,
+                                      lengths=lengths,
+                                      device=device).to(self.dtype)
+
+    def encode(self, src_embed, src_mask, pos, rng=None):
         L = src_embed.shape[1]
         eye = torch.eye(L, dtype=torch.bool, device=src_embed.device)
         zero = torch.zeros((), device=src_embed.device)
@@ -246,31 +319,32 @@ class MotionTransformer(nn.Module):
             + padding_bias(src_mask)
         x = src_embed
         for i in range(self.cfg.enc_layers):
-            x = getattr(self, f"enc_{i}")(x, pos, bias)
+            x = getattr(self, f"enc_{i}")(x, pos, bias, rng)
         return self.encoder_norm(x) if self.cfg.pre_norm else x
 
     def decode(self, memory, src_mask, mem_pos, tgt_embed, tgt_mask,
-               tgt_pos):
+               tgt_pos, rng=None):
         self_bias = padding_bias(tgt_mask)
         cross_bias = padding_bias(src_mask)
         x = tgt_embed
         for i in range(self.cfg.dec_layers):
             x = getattr(self, f"dec_{i}")(x, memory, tgt_pos, mem_pos,
-                                          self_bias, cross_bias)
+                                          self_bias, cross_bias, rng)
         return self.decoder_norm(x)
 
     def forward(self, src, src_mask, tgt, tgt_mask, rate: int,
-                lengths: Optional[torch.Tensor] = None):
+                lengths: Optional[torch.Tensor] = None,
+                dropout_rng: Optional[torch.Generator] = None):
+        """``dropout_rng`` set: training mode, dropout drawn from it."""
         B, L, _ = src.shape
         src = src.to(self.dtype)
-        pos = sine_position_encoding(B, L, self.pe_dim, lengths=lengths,
-                                     device=src.device).to(self.dtype)
-        mem = self.encode(self.input_embed(src), src_mask, pos)
+        pos = self.position_encoding(B, L, lengths, src.device)
+        mem = self.encode(self.input_embed(src), src_mask, pos, dropout_rng)
         reco = self.joints_embed(mem) + src
         center = interpolate_embedding(reco, rate) if self.cfg.two_stage \
             else tgt.to(self.dtype)
         out = self.decode(mem, src_mask, pos, self.input_embed(center),
-                          tgt_mask, pos)
+                          tgt_mask, pos, dropout_rng)
         return (self.joints_embed(out) + center).float(), reco.float()
 
 
@@ -279,3 +353,29 @@ def build_motion_model(cfg) -> MotionTransformer:
     its ``compute_dtype`` (float32 or bfloat16) on float32 parameters."""
     return MotionTransformer(cfg.transformer, cfg.pos_encode,
                              torch_dtype(cfg.compute_dtype))
+
+
+def init_motion_params(cfg, seed: int) -> MotionTransformer:
+    """The motion transformer of ``cfg`` with flax's initial weights drawn
+    on the CPU from ``seed`` (the counterpart of the JAX package's
+    ``init_motion_params``): dense kernels lecun-normal (a normal of
+    variance 1/fan_in truncated at two of its deviations), zero biases,
+    layer-norm scales 1 and offsets 0, the learned position table
+    uniform in [0, 1)."""
+    model = build_motion_model(cfg)
+    g = torch.Generator().manual_seed(seed)
+    # flax's truncated-normal stddev correction for the cut at ±2σ
+    trunc_std = 0.87962566103423978
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Dense):
+                std = math.sqrt(1.0 / m.weight.shape[1]) / trunc_std
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=g)
+                m.bias.zero_()
+            elif isinstance(m, LayerNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+            elif isinstance(m, LearnedPositionEncoding):
+                m.embedding.uniform_(0.0, 1.0, generator=g)
+    return model

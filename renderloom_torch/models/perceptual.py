@@ -9,10 +9,15 @@ padding 1, ReLU, 2×2 max pools that drop an odd edge, as flax's
 relu_5_1`` with weights ``[1/32, 1/16, 1/8, 1/4, 1]``; the target's
 features carry no gradient.
 
-The repository ships no VGG19 weights and the port loads none yet: the
-trunk runs with fixed random weights (seeded lecun-normal kernels, zero
-biases, :func:`renderloom_torch.convert.random_init_`), the JAX
-package's fallback, or with a flax tree loaded through
+Pretrained weights load from a torchvision ``vgg19().features`` state
+dict, as an ``.npz`` (:func:`load_torchvision_npz`) or a ``.pth``
+(:func:`load_torchvision_pth`), found through the ``VGG19_NPZ``
+environment variable or ``data/vgg19_features.npz``
+(:func:`find_vgg_weights`), or passed as ``weights_path``.  Without them
+the trunk runs with fixed random weights (seeded lecun-normal kernels,
+zero biases, :func:`renderloom_torch.convert.random_init_`), the JAX
+package's fallback, unless ``require_pretrained`` makes that an error;
+or with a flax tree loaded through
 :func:`renderloom_torch.convert.load_flax_params` (the tests load the
 one the JAX package drew).
 
@@ -25,12 +30,15 @@ uncalibrated LPIPS-style distance.
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+import os
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from renderloom_torch.convert import load_flax_params
 from renderloom_torch.models.layers import Conv, set_compute_dtype
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -42,6 +50,83 @@ VGG19_PLAN = [(1, 2, 64), (2, 2, 128), (3, 4, 256), (4, 4, 512),
 DEFAULT_LAYERS = ("relu_1_1", "relu_2_1", "relu_3_1", "relu_4_1",
                   "relu_5_1")
 DEFAULT_WEIGHTS = (1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0)
+
+# torchvision vgg19().features Sequential indices of each conv
+TORCHVISION_CONV_IDX = {
+    "conv_1_1": 0, "conv_1_2": 2,
+    "conv_2_1": 5, "conv_2_2": 7,
+    "conv_3_1": 10, "conv_3_2": 12, "conv_3_3": 14, "conv_3_4": 16,
+    "conv_4_1": 19, "conv_4_2": 21, "conv_4_3": 23, "conv_4_4": 25,
+    "conv_5_1": 28, "conv_5_2": 30, "conv_5_3": 32, "conv_5_4": 34,
+}
+
+NO_WEIGHTS_HELP = (
+    "PerceptualLoss: no pretrained VGG19 weights found. The ×10-weighted "
+    "perceptual term would train against RANDOM features — not the "
+    "reference objective "
+    "(Pose_Guided_Neural_Rendering/models/losses.py:222-277). Provide "
+    "weights via VGG19_NPZ=<path to vgg19_features.npz or torchvision "
+    "vgg19 .pth>, or pass --allow-random-vgg to proceed anyway.")
+
+
+def _conv_tree(state: Dict[str, np.ndarray], names) -> Dict:
+    """flax params {conv_b_i: {kernel (HWIO), bias}} from a torchvision
+    state dict, for each conv whose weight the dict holds under one of
+    ``names(idx)``'s key prefixes."""
+    params = {}
+    for name, idx in TORCHVISION_CONV_IDX.items():
+        for pre in names(idx):
+            if f"{pre}weight" in state:
+                params[name] = {
+                    "kernel": np.transpose(np.asarray(
+                        state[f"{pre}weight"], np.float32), (2, 3, 1, 0)),
+                    "bias": np.asarray(state[f"{pre}bias"], np.float32)}
+                break
+    return {"params": params}
+
+
+def load_torchvision_npz(path: str) -> Dict:
+    """npz of a torchvision ``vgg19().features`` state dict → flax params
+    (OIHW → HWIO kernels)."""
+    with np.load(path) as raw:
+        return _conv_tree({k: raw[k] for k in raw.files},
+                          lambda idx: (f"features.{idx}.",))
+
+
+def load_torchvision_pth(path: str) -> Dict:
+    """torchvision ``vgg19`` checkpoint (``.pth``, e.g. the official
+    ``vgg19-dcbb9e9d.pth``) → flax params, read with
+    ``torch.load(weights_only=True)``.  Accepts a full-model state dict
+    (``features.N.*`` + ``classifier.*``), a bare ``.features`` one
+    (``N.weight``), a ``state_dict`` envelope and ``module.`` prefixes;
+    raises unless all 16 convs are found."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    if not isinstance(obj, dict):
+        raise ValueError(f"checkpoint is not a state dict: {type(obj)}")
+    state = {k[len("module."):] if k.startswith("module.") else k:
+             v.numpy() for k, v in obj.items()
+             if isinstance(v, torch.Tensor)}
+    tree = _conv_tree(state, lambda idx: (f"features.{idx}.", f"{idx}."))
+    if len(tree["params"]) != len(TORCHVISION_CONV_IDX):
+        raise ValueError(
+            f"{path}: found {len(tree['params'])}/16 VGG19 conv layers — "
+            "not a torchvision vgg19 state dict")
+    return tree
+
+
+def find_vgg_weights() -> Optional[str]:
+    """``$VGG19_NPZ``, else ``data/vgg19_features.npz`` under the working
+    directory or the repository, whichever exists first."""
+    cands = [os.environ.get("VGG19_NPZ", ""),
+             "data/vgg19_features.npz",
+             os.path.join(os.path.dirname(__file__), "..", "..", "data",
+                          "vgg19_features.npz")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    return None
 
 
 class VGG19Features(nn.Module):
@@ -77,14 +162,34 @@ class VGG19Features(nn.Module):
 
 
 class PerceptualLoss(nn.Module):
-    """L1 perceptual criterion: ``loss(pred, target)`` over the taps."""
+    """L1 perceptual criterion: ``loss(pred, target)`` over the taps.
+
+    Weights: those at ``weights_path`` or :func:`find_vgg_weights`
+    (``pretrained`` is then True); without any, ``require_pretrained``
+    raises, and otherwise the trunk keeps the initial weights of its
+    modules for the caller to fill (``make_perceptual`` draws them from
+    a seed)."""
 
     def __init__(self, layers: Sequence[str] = DEFAULT_LAYERS,
                  weights: Sequence[float] = DEFAULT_WEIGHTS,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 weights_path: Optional[str] = None,
+                 require_pretrained: bool = False):
         super().__init__()
         self.weights = tuple(weights)
         self.model = set_compute_dtype(VGG19Features(layers), compute_dtype)
+        path = weights_path or find_vgg_weights()
+        self.pretrained = bool(path)
+        if path:
+            tree = (load_torchvision_pth(path)
+                    if path.endswith((".pth", ".pt"))
+                    else load_torchvision_npz(path))["params"]
+            # the trunk holds the convs up to its deepest tap
+            own = {n.split(".")[0] for n, _ in self.model.named_parameters()}
+            load_flax_params(self.model, {k: v for k, v in tree.items()
+                                          if k in own})
+        elif require_pretrained:
+            raise RuntimeError(NO_WEIGHTS_HELP)
         self.register_buffer("mean", torch.tensor(IMAGENET_MEAN),
                              persistent=False)
         self.register_buffer("std", torch.tensor(IMAGENET_STD),

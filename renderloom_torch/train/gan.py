@@ -53,7 +53,10 @@ _INT32_MAX = 2 ** 31 - 1
 
 class AmsgradIfFinite:
     """``optax.apply_if_finite(optax.amsgrad(lr_schedule, b1, b2),
-    max_consecutive_errors)`` over one flat float32 buffer that holds
+    max_consecutive_errors)`` — with ``clip_norm``,
+    ``optax.apply_if_finite(optax.chain(optax.clip_by_global_norm(
+    clip_norm), optax.amsgrad(...)), max_consecutive_errors)`` — over one
+    flat float32 buffer that holds
     every parameter (each parameter's ``.data`` becomes a view of it, so
     one update is a handful of kernels and needs no host
     synchronisation).
@@ -64,6 +67,9 @@ class AmsgradIfFinite:
       state stay) and ``notfinite_count`` grows by one; a finite g
       resets it to 0.  Once it exceeds ``max_consecutive_errors`` the
       update is applied all the same, as optax gives up;
+    * with ``clip_norm``, g is clipped first, as optax does: with
+      ‖g‖ the global norm of the raw g, ``g / ‖g‖ · clip_norm`` where
+      ‖g‖ ≥ clip_norm (finiteness is judged on the raw g);
     * otherwise, in optax's order: ``mu = (1 − b1)·g + b1·mu``,
       ``nu = (1 − b2)·g² + b2·nu``, the bias corrections
       ``1 − b^count`` with ``count`` the applied updates, ``nu_max =
@@ -76,10 +82,12 @@ class AmsgradIfFinite:
 
     def __init__(self, params: Sequence[torch.nn.Parameter],
                  schedule: Callable, b1: float = 0.9, b2: float = 0.999,
-                 eps: float = 1e-8, max_consecutive_errors: int = 10):
+                 eps: float = 1e-8, max_consecutive_errors: int = 10,
+                 clip_norm: Optional[float] = None):
         self.params = list(params)
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.clip_norm = clip_norm
         self.max_consecutive_errors = max_consecutive_errors
         self.flat = torch.cat([p.detach().reshape(-1) for p in self.params])
         off = 0
@@ -96,9 +104,16 @@ class AmsgradIfFinite:
         self.total_notfinite = zero()
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor]):
+    def step(self, grads: Sequence[torch.Tensor]) -> Optional[torch.Tensor]:
+        """One update; returns the raw gradients' global norm when
+        clipping (a device scalar), else None."""
         g = torch.cat([x.reshape(-1) for x in grads]).to(self.flat.dtype)
         isfinite = torch.isfinite(g).all()
+        g_norm = None
+        if self.clip_norm is not None:
+            g_norm = torch.sqrt((g * g).sum())
+            g = torch.where(g_norm < self.clip_norm, g,
+                            g / g_norm * self.clip_norm)
         bump = lambda c: torch.clamp(c + 1, max=_INT32_MAX).to(torch.int32)
         nf = torch.where(isfinite, torch.zeros_like(self.notfinite_count),
                          bump(self.notfinite_count))
@@ -121,6 +136,7 @@ class AmsgradIfFinite:
         self.total_notfinite = torch.where(isfinite, self.total_notfinite,
                                            bump(self.total_notfinite))
         self.notfinite_count = nf
+        return g_norm
 
     def state_dict(self) -> dict:
         return {k: getattr(self, k) for k in
@@ -199,20 +215,28 @@ def create_gan_state(cfg: RendererConfig, device, seed: int = 0,
 
 
 def make_perceptual(cfg: RendererConfig, device, seed: int = 0,
-                    params: Optional[dict] = None) -> PerceptualLoss:
+                    params: Optional[dict] = None,
+                    require_pretrained: bool = False) -> PerceptualLoss:
     """The VGG19 perceptual loss on ``device`` in the config's compute
     dtype: the flax tree ``params`` (``PerceptualLoss().variables
-    ["params"]`` of the JAX package) or fixed random weights from
-    ``seed``."""
+    ["params"]`` of the JAX package); else the torchvision weights that
+    ``find_vgg_weights`` finds; else fixed random weights from ``seed``,
+    which ``require_pretrained`` refuses."""
     if cfg.perceptual.model != "vgg19":
         raise NotImplementedError(
             f"perceptual model {cfg.perceptual.model!r}: the port has VGG19")
-    vgg = PerceptualLoss(cfg.perceptual.layers, cfg.perceptual.weights,
-                         torch_dtype(cfg.compute_dtype))
-    if params is None:
-        random_init_(vgg, seed)
-    else:
+    dtype = torch_dtype(cfg.compute_dtype)
+    if params is not None:
+        vgg = PerceptualLoss(cfg.perceptual.layers, cfg.perceptual.weights,
+                             dtype)
         load_flax_params(vgg.model, params)
+    else:
+        vgg = PerceptualLoss(cfg.perceptual.layers, cfg.perceptual.weights,
+                             dtype, require_pretrained=require_pretrained)
+        if not vgg.pretrained:
+            random_init_(vgg, seed)
+            print("PerceptualLoss: no VGG19 weights found — using fixed "
+                  "random features (set VGG19_NPZ for parity)")
     for p in vgg.parameters():
         p.requires_grad_(False)
     return vgg.to(device).eval()

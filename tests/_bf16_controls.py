@@ -7,11 +7,13 @@ that stay within one ulp of n (``test_torch_bf16.PLANTED``), planted at
 its affine call sites by swapping the norm's CPU twin; for the train
 step (``train``) the port as it is, in float32, and with the shifted
 contract's backward planted at the bf16 norms (the gradient twin
-called without ``r3centered``).
+called without ``r3centered``); for the motion train step
+(``motion_train``, tests/test_torch_motion_train.py) the port as it is
+and in float32.
 
 Run from the repository root (minutes on one CPU thread):
 ``JAX_PLATFORMS=cpu python tests/_bf16_controls.py [motion] [step]
-[pipeline] [train]``.
+[pipeline] [train] [motion_train]``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch  # noqa: E402
 import renderloom.core.config as JC  # noqa: E402
 import renderloom_torch.core.config as TC  # noqa: E402
 import test_torch_bf16 as TB  # noqa: E402
+import test_torch_motion_train as TMT  # noqa: E402
 import test_torch_pipeline as TP  # noqa: E402
 import test_torch_train_step as TS  # noqa: E402
 from _torch_parity import (bf16, generator_trees, motion_cfg,  # noqa: E402
@@ -172,8 +175,23 @@ def train():
                   f"{np.abs(want - ref).max():.4e}", flush=True)
 
 
+def motion_train():
+    case = TMT.make_case()
+    runs = (TMT.jax_run(case), None)
+    want16 = TMT.jax_run(case, "bfloat16", steps=1)
+    for run, dtype in (("sound", "bfloat16"), ("float32", "float32")):
+        port = TMT.port_run(case, want16["draws"], dtype)
+        vecs = TMT._bf16_vectors(runs, (want16, None), port)
+        for name, (got, want, ref) in vecs.items():
+            print(f"motion_train, {run}, {name}: mean |port - JAX bf16| "
+                  f"{np.abs(got - want).mean():.4e}; largest from float32 "
+                  f"{np.abs(got - ref).max():.4e}, JAX bf16's "
+                  f"{np.abs(want - ref).max():.4e}", flush=True)
+
+
 if __name__ == "__main__":
     torch.set_num_threads(1)
-    for part in sys.argv[1:] or ["motion", "step", "pipeline", "train"]:
+    for part in sys.argv[1:] or ["motion", "step", "pipeline", "train",
+                                 "motion_train"]:
         {"motion": motion, "step": step, "pipeline": pipeline,
-         "train": train}[part]()
+         "train": train, "motion_train": motion_train}[part]()

@@ -179,3 +179,70 @@ def write_hsm_h5(path: str, clips: dict, H: int, W: int, seed: int = 0,
                                   rng.uniform(0.5, 1.0, (n, 19))], axis=-1)
                 grp.create_dataset(f"{phase}_poses", data=poses)
     return path
+
+
+def smpl_clips(B, L, seed=0):
+    """Smooth SMPL-like (B, 52, 3, L) joint paths around a standing body,
+    so the body basis is well defined."""
+    rng = np.random.default_rng(seed)
+    tt = np.linspace(0, 2 * np.pi, L)
+    base = rng.normal(0, 0.3, (B, 52, 3, 1))
+    base[:, [1, 16], 0] -= 0.3          # left hip / shoulder
+    base[:, [2, 17], 0] += 0.3          # right hip / shoulder
+    wave = 0.1 * np.sin(tt + rng.uniform(0, 6, (B, 52, 3, 1)))
+    return (base + wave).astype(np.float32)
+
+
+def jax_random_drop_draws(k_drop, J, D, L, rate):
+    """The draws of JAX's ``random_drop(k_drop, ...)`` on one (J, D, L)
+    clip: its six sub-keys' permutations and noise."""
+    k_nf, k_df, k_ff, k_noise, k_nj, k_dj = jax.random.split(k_drop, 6)
+    n_keys = len(range(0, L, rate))
+    perm = lambda k, n: np.array(jax.random.permutation(k, n))
+    return {"noise_frames": perm(k_nf, n_keys),
+            "drop_frames": perm(k_df, n_keys),
+            "flip_frames": perm(k_ff, n_keys),
+            "noise_joints": perm(k_nj, 12),
+            "drop_joints": perm(k_dj, 13),
+            "noise": np.array(jax.random.uniform(k_noise, (J, D, L)))}
+
+
+def jax_synthesis_draws(key, B, L, p):
+    """The draws JAX's ``synthesize_batch(key, ...)`` makes, batched as
+    ``renderloom_torch.ops.pose.draw_synthesis`` returns them (``p``: the
+    JAX ``SynthesisParams``)."""
+    per = []
+    J, D = (52, 3) if p.return_3d else (19, 2)
+    for k in jax.random.split(key, B):
+        k_view, k_focal, k_depth, k_drop, k_dec = jax.random.split(k, 5)
+        d_min = 0.1 * p.depth
+        u = lambda kk: np.asarray(jax.random.uniform(
+            kk, (), minval=-d_min, maxval=d_min))
+        one = {"view": np.asarray(jax.random.uniform(
+                   k_view, (3,), minval=-1.0, maxval=1.0)
+                   * (jnp.asarray(p.rotation_axes) * jnp.pi)),
+               "focal": u(k_focal), "depth": u(k_depth),
+               "dec_idx": np.asarray(jax.random.randint(
+                   k_dec, (p.sample_size,), 0, L))}
+        one.update(jax_random_drop_draws(k_drop, J, D, L, p.rate))
+        per.append(one)
+    return {k: torch.from_numpy(np.stack([d[k] for d in per]))
+            for k in per[0]}
+
+
+def write_amass_h5(path: str, groups: dict, seed: int = 0) -> str:
+    """An AMASS joints h5 in the reference's layout
+    (``gen_amass_h5.py:60-74``): ``<group>/<motion>/joints`` float64
+    (T, 52, 3) smooth paths around a standing body.  ``groups`` maps a
+    group name to its motions' frame counts."""
+    import h5py
+
+    rng = np.random.default_rng(seed)
+    with h5py.File(path, "w") as f:
+        for name, lengths in groups.items():
+            grp = f.create_group(name)
+            for i, T in enumerate(lengths):
+                clip = smpl_clips(1, T, seed=int(rng.integers(1 << 30)))[0]
+                grp.create_group(f"m{i}").create_dataset(
+                    "joints", data=clip.transpose(2, 0, 1).astype(np.float64))
+    return path

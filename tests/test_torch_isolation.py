@@ -20,7 +20,7 @@ from _torch_parity import motion_cfg, renderer_cfg
 from renderloom_torch import native
 from renderloom_torch.cli import infer_motion, infer_renderer
 from renderloom_torch.cli import pipeline as pipeline_cli
-from renderloom_torch.cli import train_renderer
+from renderloom_torch.cli import train_motion, train_renderer
 from renderloom_torch.eval import pipeline
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -50,7 +50,14 @@ def test_port_imports_no_jax_and_no_jax_package():
             "renderloom_torch.data.amass", "renderloom_torch.data.hsm",
             "renderloom_torch.data.openpose",
             "renderloom_torch.eval.render_eval", "renderloom_torch.native",
-            "renderloom_torch.utils.visualize"} <= set(mods)
+            "renderloom_torch.utils.visualize",
+            "renderloom_torch.cli.train_motion",
+            "renderloom_torch.core.logging",
+            "renderloom_torch.data.prefetch",
+            "renderloom_torch.eval.motion_eval",
+            "renderloom_torch.models.motion_discriminator",
+            "renderloom_torch.train.motion",
+            "renderloom_torch.utils.profiling"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(sys.modules)))")
@@ -91,6 +98,18 @@ def test_train_cli_defaults_to_the_card_and_never_falls_back(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_renderer.main(["--synthetic", "--epochs", "1"])
+
+
+@pytest.mark.parametrize("cli,argv", [
+    (train_renderer, ["--h5", "absent.h5", "--epochs", "1"]),
+    (train_motion, ["--synthetic", "--epochs", "1"]),
+    (train_motion, ["--h5", "absent.h5", "--epochs", "1"]),
+])
+def test_h5_and_motion_training_default_to_the_card(monkeypatch, cli, argv):
+    """Refused before any file is opened."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv)
 
 
 @pytest.mark.parametrize("cli,argv", [

@@ -111,8 +111,13 @@ def test_load_stats_from_cached_files_matches_jax(tmp_path, return_type):
     assert TA.stats_paths(tcfg) == JA.stats_paths(jcfg)
     with pytest.raises(FileNotFoundError):
         TA.load_or_compute_stats(None, tcfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        TA.load_or_compute_stats(object(), tcfg)
+    # a reader without cached files computes them (test_torch_amass.py);
+    # one that matched no motion raises, as JAX's does
+    empty = type("Empty", (), {"samples": [], "splits": ("none",)})()
+    for load, cfg in ((TA.load_or_compute_stats, tcfg),
+                      (JA.load_or_compute_stats, jcfg)):
+        with pytest.raises(ValueError, match="matched no motions"):
+            load(empty, cfg)
     rng = np.random.default_rng(2)
     for path in TA.stats_paths(tcfg):
         np.save(path, rng.uniform(0.1, 1.0, (19, 2)))     # float64 on disk

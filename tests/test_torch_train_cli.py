@@ -1,12 +1,15 @@
 """The port's training entry point on the CPU at a tiny size: raw
 synthetic windows through the train-mode preparation and the GAN step,
-metrics to ``metrics.jsonl``, a ``torch.save`` checkpoint, and a resume
-that continues from the saved step; and a config with ``compute_dtype:
-bfloat16``, which trains in bf16 on float32 parameters."""
+``train/`` metrics to ``metrics.jsonl`` (``MetricLogger``'s records; the
+logging interval set to every step), a ``torch.save`` checkpoint, and a
+resume that continues from the saved step; and a config with
+``compute_dtype: bfloat16``, which trains in bf16 on float32
+parameters."""
 
 import json
 import os
 
+import pytest
 import torch
 
 from _torch_parity import single_thread  # noqa: F401
@@ -24,6 +27,11 @@ def _lines(out_dir):
         return [json.loads(line) for line in f]
 
 
+@pytest.fixture(autouse=True)
+def log_every_step(monkeypatch):
+    monkeypatch.setattr(train_renderer, "TRAIN_LOG_EVERY", 1)
+
+
 def test_train_save_and_resume(tmp_path):
     a, b = str(tmp_path / "a"), str(tmp_path / "b")
     train_renderer.main(ARGS + ["--epochs", "2", "--out-dir", a])
@@ -33,10 +41,10 @@ def test_train_save_and_resume(tmp_path):
     la, lb = _lines(a), _lines(b)
     assert [r["step"] for r in la] == [r["step"] for r in lb] == [1, 2]
     # the same seed gives the same first step, to the bit
-    drop = lambda r: {k: v for k, v in r.items() if k != "steps_per_sec"}
+    drop = lambda r: {k: v for k, v in r.items() if k != "time"}
     assert drop(la[0]) == drop(lb[0])
     for r in la:
-        assert r["notfinite/g"] == r["notfinite/d"] == 0.0
+        assert r["train/notfinite/g"] == r["train/notfinite/d"] == 0.0
         assert all(map(lambda v: v == v, r.values()))       # no NaN
     ca = torch.load(os.path.join(a, "checkpoint.pt"))
     cb = torch.load(os.path.join(b, "checkpoint.pt"))
@@ -60,7 +68,7 @@ def test_train_with_a_bf16_config(tmp_path):
             for a in ARGS]
     train_renderer.main(args + ["--epochs", "1", "--out-dir", out])
     (line,) = _lines(out)
-    assert line["notfinite/g"] == line["notfinite/d"] == 0.0
+    assert line["train/notfinite/g"] == line["train/notfinite/d"] == 0.0
     assert all(v == v for v in line.values())
     ckpt = torch.load(os.path.join(out, "checkpoint.pt"))
     assert all(v.dtype == torch.float32 for v in ckpt["gen"].values())
