@@ -190,6 +190,38 @@ M2. holds the card's motion step against the CPU's at hidden 32, 2+2
    bf16 by mean error, with the card bf16 step against the CPU float32
    step as a control that must read beyond each limit;
 
+then the frozen serving artifact and the batch planner (after phase O):
+
+X. exports phase 4's float32 standard pipeline and phase H's bf16
+   fastpath with ``torch.export`` (``renderloom_torch.eval.export``; K1
+   and K2 as the registered operators ``renderloom::rasterize`` and
+   ``renderloom::instance_norm``), saves each, and loads and serves it in
+   a fresh process that imports none of the port's models, configs or
+   checkpoints: checks the loaded program launches K1 and K2 (each mode)
+   as often as the live run did, holds its frames to the live ones
+   (float32 1e-3; bf16 phase E's mean limit with its control) and prints
+   whether they are bit-equal, the artifact's MB, export, save and load
+   seconds, frozen against live frames/s, and the host µs of a norm call
+   through the wrapper, the operator and the eager dispatch;
+Y. runs the bf16 fastpath at N = 1, 2, 4, 8 clips: ms per batch, peak
+   memory and launches per N, and ``utils.serving.plan_chunks``' plans
+   and planned frames/s for n = 1..16;
+
+and data parallelism (after phase M2):
+
+Z. the motion step (motion.yaml, dropout 0) and the GAN step (hsm.yaml,
+   float32, global batch 4) at world 2 — two spawned processes over gloo,
+   both on the card — against world 1 on the same global batches: the
+   motion step as tests/test_torch_parallel.py holds both (``dp_hold``:
+   metrics 1e-6 relative, parameters 1e-6 but for the near-zero-gradient
+   elements), the GAN step, whose backward on the card is not
+   reproducible to the bit, at learning rate 0 (``dp_hold_gradients``:
+   every metric 1e-6 relative, the averaged gradients 3e-3 of their
+   largest), each rank launching K1, K2 and K2b as world 1 does; their
+   seqs/s and windows/s; the motion CLI under ``torchrun
+   --nproc_per_node=1`` on NCCL; and ``python -m renderloom_torch.bench``
+   once per metric, its JSON lines printed;
+
 and last prints the ``{"kernels": [...]}`` line, the card line, and the
 ``{"ok": true, "device": {...}}`` line.
 
@@ -1380,7 +1412,8 @@ def phase_fastpath(serve):
     print("  " + "\n  ".join(prof.splitlines()[:16]))
     print("  " + "\n  ".join(extra))
     return dict(launches=launches, fps=fps, stages=stages, seen=seen,
-                gen=gen, raster_calls=raster_calls, fused=fused, prof=prof)
+                gen=gen, raster_calls=raster_calls, fused=fused, prof=prof,
+                fn=fn)
 
 
 # ---------------------------------------------------------------------------
@@ -1847,7 +1880,8 @@ def phase_bf16(serve, fast, conv_lines):
               f"{idle32.split(': ')[-1]}); " + prof.splitlines()[0])
         print("    " + "\n    ".join(prof.splitlines()[2:10]))
         out[name] = dict(launches=launches, fps=fps, stages=stages,
-                         seen=seen, fused=fused, gen=gen)
+                         seen=seen, fused=fused, gen=gen, fn=fn,
+                         m_model=m_model)
 
     _bf16_witness(serve, out["standard"]["gen"])
 
@@ -4390,6 +4424,935 @@ def _eval_cpu_match(real: bool):
                                  f"bounds, or the control within them")
 
 
+# ---------------------------------------------------------------------------
+# X. the frozen serving artifact (torch.export)
+# ---------------------------------------------------------------------------
+
+# The loaded program in a fresh process: it imports the loader (which
+# registers the two operators) and nothing of the port's models, configs
+# or checkpoints, serves the clip once to warm up, once counted, and
+# three times timed; writes the counted run's frames.
+_FROZEN_CHILD = r"""
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+from renderloom_torch.eval.export import load_exported
+from renderloom_torch.ops import norm_kernel as NK, rasterize_kernel as RK
+tic = time.perf_counter()
+serve, meta = load_exported(sys.argv[2])
+load_s = time.perf_counter() - tic
+motion, conf, keys = torch.load(sys.argv[3])
+serve(motion, conf, keys)
+torch.cuda.synchronize()
+RK.rasterize_tables_cuda.layout_launches = dict.fromkeys(RK.LAYOUTS, 0)
+NK.instance_norm_cuda.launches = NK.instance_norm_cuda.parity_launches = 0
+NK.instance_norm_cuda.r3_launches = 0
+fused, sync = serve(motion, conf, keys)
+torch.cuda.synchronize()
+by = RK.rasterize_tables_cuda.layout_launches
+launches = {"rasterize": by["nhwc"], "rasterize_packed": by["packed"],
+            "instance_norm": NK.instance_norm_cuda.launches,
+            "instance_norm_parity": NK.instance_norm_cuda.parity_launches,
+            "instance_norm_r3": NK.instance_norm_cuda.r3_launches}
+runs = []
+for _ in range(3):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serve(motion, conf, keys)
+    torch.cuda.synchronize()
+    runs.append(time.perf_counter() - t0)
+torch.save(fused.cpu(), sys.argv[4])
+port = sorted(m for m in sys.modules if m.startswith("renderloom_torch"))
+print(json.dumps({"launches": launches, "runs": runs, "load_s": load_s,
+                  "modules": port, "sync": float(sync),
+                  "meta_device": meta["device"]}))
+"""
+
+# the artifacts and the child's inputs and frames (hundreds of MB; removed
+# after use, and not under OUT_DIR, which the chip call brings back)
+X_DIR = os.path.join(ROOT, "build", "chip_smoke_export")
+
+# modules the loader must not import (the JAX loader touches no model
+# code, configs or checkpoints)
+FROZEN_FORBIDDEN = ("renderloom_torch.models", "renderloom_torch.core",
+                    "renderloom_torch.eval.pipeline", "renderloom_torch.train",
+                    "renderloom_torch.data", "renderloom_torch.convert")
+
+
+def _op_host_us() -> dict:
+    """Host µs per norm call at a tiny shape, the least of five turns:
+    the wrapper, the registered operator, and ``instance_norm``'s eager
+    dispatch (which calls the wrapper)."""
+    from renderloom_torch.ops import norm_kernel as NK
+
+    x = torch.randn(1, 8, 8, 32, device="cuda")
+    s, b = torch.ones(32, device="cuda"), torch.zeros(32, device="cuda")
+    op = torch.ops.renderloom.instance_norm
+    calls = {"wrapper": lambda: NK.instance_norm_cuda(x, s, b, LEAKY),
+             "operator": lambda: op(x, s, b, LEAKY, 1e-5, False, False),
+             "instance_norm": lambda: NK.instance_norm(x, s, b, LEAKY)}
+    us = {k: [] for k in calls}
+    with torch.inference_mode():
+        for _ in range(5):                  # in turns; the least of each
+            for k, fn in calls.items():
+                us[k].append(host_us(fn))
+    return {k: min(v) for k, v in us.items()}
+
+
+def _frozen(name, fn, m_model, gen, inputs, rate, K, H, W):
+    """Export ``fn`` with its modules, save it, and serve it from a fresh
+    process; returns the child's report with the artifact's bytes and
+    the export's and save's seconds, and the frozen frames."""
+    from renderloom_torch.eval.export import export_pipeline, save_exported
+
+    tic = time.perf_counter()
+    ep, meta = export_pipeline(fn, m_model, gen, 1, K, H, W, rate, "cuda")
+    export_s = time.perf_counter() - tic
+    os.makedirs(X_DIR, exist_ok=True)
+    path = os.path.join(X_DIR, f"pipeline_{name}.pt2")
+    tic = time.perf_counter()
+    nbytes = save_exported(path, ep, meta)
+    save_s = time.perf_counter() - tic
+    del ep
+    n_weights = sum(p.numel() * p.element_size()
+                    for mod in (m_model, gen)
+                    for p in [*mod.parameters(), *mod.buffers()])
+    in_path = os.path.join(X_DIR, f"{name}_inputs.pt")
+    out_path = os.path.join(X_DIR, f"{name}_fused.pt")
+    torch.save(tuple(t.cpu() for t in inputs), in_path)
+    proc = subprocess.run([sys.executable, "-c", _FROZEN_CHILD, ROOT, path,
+                           in_path, out_path], capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"frozen {name} child failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    bad = [m for m in report["modules"] if m.startswith(FROZEN_FORBIDDEN)]
+    if bad:
+        raise AssertionError(f"the loader imported {bad}")
+    report.update(bytes=nbytes, weight_bytes=n_weights, export_s=export_s,
+                  save_s=save_s)
+    frozen = torch.load(out_path)
+    for f in (path, in_path, out_path):
+        os.remove(f)
+    return report, frozen
+
+
+def _live_fps(fn, inputs, L) -> float:
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        fn(*inputs)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - tic)
+    return len(runs) * L / sum(runs)
+
+
+def phase_export(serve, launches, bf16):
+    """The standard float32 pipeline (phase 4's, which launched
+    ``launches``) and the bf16 fastpath (phase H's) exported, saved,
+    loaded in a fresh process and served."""
+    rate, K = serve["rate"], serve["K"]
+    H, W = serve["rcfg"].data.model_height, serve["rcfg"].data.model_width
+    L = (K - 1) * rate + 1
+    inputs = serve["inputs"]
+    print(f"X. the frozen serving artifact (torch.export): {W}x{H}, rate "
+          f"{rate}, {K} keyframes, 1 clip; standard float32 and bf16 "
+          "fastpath, each loaded and served by a fresh process")
+    us = _op_host_us()
+    print("  host us per norm call at (1, 8, 8, 32): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in us.items()) + " (eager serving calls "
+        "the wrapper; a frozen program the operator)")
+    out = {"host_us": us}
+    f32 = dict(fn=serve["fn"], m_model=serve["interp"].model,
+               gen=serve["gen"], launches=launches,
+               fused=serve["fused"])
+    for name, live in (("standard_f32", f32),
+                       ("fastpath_bf16", bf16["fastpath"])):
+        live_before = _live_fps(live["fn"], inputs, L)
+        report, frozen = _frozen(name, live["fn"], live["m_model"],
+                                 live["gen"], inputs, rate, K, H, W)
+        live_fps = _live_fps(live["fn"], inputs, L)
+        fps = len(report["runs"]) * L / sum(report["runs"])
+        print(f"  {name}: artifact {report['bytes'] / 1e6:.1f} MB "
+              f"(weights {report['weight_bytes'] / 1e6:.1f} MB), export "
+              f"{report['export_s']:.1f} s, save {report['save_s']:.1f} s, "
+              f"load {report['load_s']:.1f} s; frozen "
+              f"{fps:.3f} frames/s against live {live_before:.3f} before "
+              f"and {live_fps:.3f} after it, in this run")
+        print(f"    launches: frozen {report['launches']}, live "
+              f"{live['launches']}")
+        if report["launches"] != live["launches"]:
+            raise AssertionError(f"{name}: the frozen program's launches "
+                                 f"{report['launches']} differ from the "
+                                 f"live pipeline's {live['launches']}")
+        want = live["fused"].cpu()
+        if tuple(frozen.shape) != tuple(want.shape) or \
+                not bool(torch.isfinite(frozen).all()):
+            raise AssertionError(f"{name}: frozen {tuple(frozen.shape)}")
+        same = torch.equal(frozen, want)
+        if name == "standard_f32":
+            err = compare("    frozen vs live, float32", frozen, want,
+                          atol=1e-3)
+        else:
+            # phase E's hold of a bf16 pipeline on its generated frames,
+            # the control the float32 pipeline's frames
+            gen_f, gen_l = frozen[:, 1::rate], want[:, 1::rate]
+            gen_c = f32["fused"].cpu()[:, 1::rate]
+            err = (gen_f - gen_l).abs().mean().item()
+            control = (gen_f - gen_c).abs().mean().item()
+            print(f"    frozen vs live, bf16: mean {err:.3e} over the "
+                  f"generated frames (tol {BF16_MEAN_TOL:.0e}; the "
+                  f"control, frozen vs the float32 live, {control:.3e}); "
+                  f"max {(gen_f - gen_l).abs().max().item():.3e}")
+            if not err <= BF16_MEAN_TOL < control:
+                raise AssertionError(f"{name}: frozen vs live out of bounds")
+        if not torch.equal(frozen[:, ::rate], want[:, ::rate]):
+            raise AssertionError(f"{name}: keyframes differ")
+        print(f"    bit-equal to the live frames: {same}")
+        out[name] = dict(report, fps=fps, live_fps=live_fps,
+                         live_fps_before=live_before,
+                         max_abs_err=err, bit_equal=same)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Y. the batch planner's profile
+# ---------------------------------------------------------------------------
+
+PLAN_SIZES = (1, 2, 4, 8)       # tests/test_serving_plan.py's table sizes
+
+
+# Each clip of an N-clip batch (the same clip N times) is held against
+# the 1-clip run.  The motion transformer in bf16 takes other cuBLAS
+# kernels at 8 clips than at 1, and its rounding, amplified by the random
+# weights, moves the joints up to 16 px (mean 1.67 px; 1.0e-3 px in
+# float32), which a mean limit on the frames cannot tell from a fault
+# (NVIDIA H100 80GB HBM3, 700 W).  So the generator's batch is held on
+# the 1-clip run's poses, fed to every clip: keyframes bit for bit, the
+# generated frames' mean |err| within BF16_MEAN_TOL (phase E's), the
+# float32 pipeline's frames the control beyond it (cuDNN and the kernels
+# see batch 7·N and may sum in another order).  The batch as served
+# (its own poses) must lie closer to the 1-clip frames than bf16 lies
+# from float32 (that control).  The batching of every stage is held in
+# float32 at the largest N (phase F's fastpath: the same code in float32,
+# frames within the pipeline's 1e-3), and the kernels against their
+# twins there: K1 packed on the batch's own tables (bit for bit), K2 in
+# each mode at its largest shape of that batch on seeded inputs (phases
+# 2, N and R's tolerances).
+def _planner_holds(n, fn, inputs, fused, poses, ref, f32, rate) -> dict:
+    """Hold the N-clip run ``fused`` (with its ``poses``) and a run fed
+    the 1-clip poses against the 1-clip run ``ref`` (frames, poses);
+    control: the float32 pipeline's frames ``f32``."""
+    if tuple(fused.shape) != (n,) + tuple(ref["frames"].shape[1:]) or \
+            not bool(torch.isfinite(fused).all()):
+        raise AssertionError(f"N={n}: frames {tuple(fused.shape)} or not "
+                             "finite")
+    one = ref["frames"][0, 1::rate]
+
+    def gap(frames):
+        for c in range(n):
+            if not torch.equal(frames[c, ::rate], ref["frames"][0, ::rate]):
+                raise AssertionError(f"N={n} clip {c}: keyframes differ")
+        return max((frames[c, 1::rate] - one).abs().mean().item()
+                   for c in range(n))
+
+    control = min((fused[c, 1::rate] - f32[0, 1::rate]).abs().mean().item()
+                  for c in range(n))
+    served = gap(fused)
+    px = max((poses[c] - ref["poses"][0]).abs().max().item()
+             for c in range(n))
+    fed = 0.0
+    if n > 1:
+        restore = _stage_recorder({}, poses=ref["poses"].repeat(
+            n, *([1] * (ref["poses"].dim() - 1))))
+        try:
+            fed_frames = fn(*inputs)[0].cpu()
+        finally:
+            restore()
+        fed = gap(fed_frames)
+    print(f"    each of {n} clips vs N=1, mean over the generated frames: "
+          f"fed the 1-clip poses {fed:.3e} (tol {BF16_MEAN_TOL:.0e}); as "
+          f"served {served:.3e}, its poses within {px:.3e} px; the "
+          f"control, vs the float32 pipeline, {control:.3e}")
+    if not (fed <= BF16_MEAN_TOL < control and served < control):
+        raise AssertionError(f"N={n}: batched frames out of bounds")
+    return dict(fed=fed, served=served, poses_px=px, control=control)
+
+
+def _stage_recorder(box: dict, poses=None,
+                    stages=("poses", "backs", "label")):
+    """Swap the pipeline's ``prepare_batch`` for a recorder of its stage
+    inputs and outputs (on the card): the upsampled poses (motion
+    stage), the backgrounds (flow) and the label (K1), those of
+    ``stages``; with ``poses``, the rendering stages get those in place
+    of the motion stage's.
+    Returns the function that puts it back."""
+    import renderloom_torch.eval.pipeline as P
+
+    inner = P.prepare_batch
+
+    def rec(batch, *args, **kwargs):
+        if poses is not None:
+            batch = {**batch, "poses": poses}
+        out = inner(batch, *args, **kwargs)
+        got = dict(poses=batch["poses"], backs=batch["dain"],
+                   label=out["label"])
+        box.update({k: got[k].float() for k in stages})
+        return out
+    P.prepare_batch = rec
+
+    def restore():
+        P.prepare_batch = inner
+    return restore
+
+
+def batch_stage_gaps(fn, inputs, n: int, rate: int) -> dict:
+    """``fn`` at 1 clip and at ``n`` copies of it: for each stage (poses,
+    backgrounds, label, the generated frames) the largest max and mean
+    |clip - the 1-clip run| over the clips, and whether the clips are
+    bit-equal to it."""
+    runs = []
+    for k in (1, n):
+        box = {}
+        restore = _stage_recorder(box)
+        try:
+            box["frames"] = fn(*[t.repeat(k, *([1] * (t.dim() - 1)))
+                                 for t in inputs])[0][:, 1::rate].float()
+        finally:
+            restore()
+        runs.append(box)
+    gaps = {}
+    for stage, one in runs[0].items():
+        many = runs[1][stage]
+        d = [(many[c] - one[0]).abs() for c in range(n)]
+        gaps[stage] = dict(max=max(x.max().item() for x in d),
+                           mean=max(x.mean().item() for x in d),
+                           equal=all(torch.equal(many[c], one[0])
+                                     for c in range(n)))
+    return gaps
+
+
+def _planner_kernels(seen: Counter, calls: list) -> dict:
+    """K1 packed on the largest batch's tables and K2 in each mode at its
+    largest shape of that batch, each against its twin."""
+    if len(calls) != 1:
+        raise AssertionError(f"{len(calls)} K1 calls recorded")
+    args, kw = calls[0]
+    tabs, (H, W, dtype, masks) = args[:3], args[3:7]
+    err, _ = _k1_check(f"K1 {kw['layout']} {str(dtype)[6:]} over "
+                       f"{tabs[0].shape[0]} frames", tabs, H, W, dtype, masks,
+                       kw["layout"])
+    out = {"rasterize_packed": err}
+    checks = {"shifted": _norm_check, "parity": _parity_check,
+              "r3centered": _r3_check}
+    for kind, check in checks.items():
+        key = max((k for k in seen if k[4] == kind),
+                  key=lambda k: np.prod(k[0]))
+        x, s, b = _norm_inputs(*key[:3], seed=870)
+        out[KIND_KEYS[kind]] = check(f"K2 {kind} {key[0]} {str(key[1])[6:]}"
+                                     f" affine={key[2]}", x, s, b, key[3])
+        del x
+    return out
+
+
+def phase_planner(serve, fast, bf16):
+    """The bf16 fastpath pipeline (phase H's) at N clips of phase 4's
+    inputs: ms per batch, peak memory and launches per N, each clip held
+    against N = 1, the batch in float32 (phase F's pipeline) and the
+    kernels against their twins at the largest N, then ``plan_chunks``'
+    plans for n = 1..16."""
+    from renderloom_torch.utils.serving import plan_chunks, planned_ms
+
+    fn = bf16["fastpath"]["fn"]
+    rate, K = serve["rate"], serve["K"]
+    L = (K - 1) * rate + 1
+    f32 = serve["fused"].cpu()
+    print(f"Y. batch planner: bf16 fastpath at N in {PLAN_SIZES} clips")
+    times, table, ref, largest = {}, {}, None, None
+    for n in PLAN_SIZES:
+        inputs = [t.repeat(n, *([1] * (t.dim() - 1)))
+                  for t in serve["inputs"]]
+        seen, calls, box = Counter(), [], {}
+        try:
+            fn(*inputs)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches()
+            restore = (_norm_kind_recorder(seen), _raster_recorder(calls),
+                       _stage_recorder(box, stages=("poses",)))
+            try:
+                fused = fn(*inputs)[0]
+                torch.cuda.synchronize()
+            finally:
+                for undo in restore:
+                    undo()
+            launches = _serve_launches()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            fused = fused.cpu()
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                tic = time.perf_counter()
+                fn(*inputs)
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - tic) * 1e3)
+        except torch.cuda.OutOfMemoryError:
+            print(f"  N={n}: out of memory; profiled up to N="
+                  f"{max(times)}")
+            torch.cuda.empty_cache()
+            break
+        times[n] = sum(runs) / len(runs)
+        table[n] = dict(ms=times[n], peak_gib=peak, launches=launches,
+                        fps=n * L / times[n] * 1e3)
+        print(f"  N={n}: {times[n]:.1f} ms per batch ("
+              + ", ".join(f"{r:.1f}" for r in runs) + f"), "
+              f"{table[n]['fps']:.2f} frames/s, peak {peak:.2f} GiB, "
+              f"launches {launches}")
+        ref = ref or dict(frames=fused, poses=box["poses"])
+        table[n]["vs_n1"] = _planner_holds(n, fn, inputs, fused,
+                                           box["poses"], ref, f32, rate)
+        largest = (n, seen, calls)
+        del fused, box
+    n, seen, calls = largest
+    gaps16 = batch_stage_gaps(fn, serve["inputs"], n, rate)
+    gaps = batch_stage_gaps(fast["fn"], serve["inputs"], n, rate)
+    for name, g in (("bf16", gaps16), ("float32", gaps)):
+        print(f"  {name} fastpath at N={n} vs N=1 by stage, max / mean "
+              f"|err|: " + ", ".join(
+                  f"{k} {v['max']:.3e} / {v['mean']:.3e}"
+                  + (" (equal)" if v["equal"] else "")
+                  for k, v in g.items()))
+    print("  (float32 frames tol 1e-3, the pipeline's)")
+    if gaps["frames"]["max"] > 1e-3:
+        raise AssertionError(f"float32 fastpath at N={n}: frames differ by "
+                             f"{gaps['frames']['max']}")
+    print(f"  kernels vs twins at N={n} (batch {(K - 1) * n}):")
+    kernel_errs = _planner_kernels(seen, calls)
+    torch.cuda.empty_cache()
+    plans = {}
+    for n in range(1, 17):
+        plan, ms = plan_chunks(n, times), planned_ms(n, times)
+        plans[n] = dict(plan=plan, ms=ms, fps=n * L / ms * 1e3)
+    print("  plans: " + "; ".join(
+        f"{n}: {p['plan']} {p['ms']:.0f} ms {p['fps']:.1f} f/s"
+        for n, p in plans.items()))
+    return dict(table=table, plans=plans, kernel_errs=kernel_errs,
+                float32_gaps=gaps, bf16_gaps=gaps16)
+
+
+# ---------------------------------------------------------------------------
+# Z. data-parallel training over torch.distributed
+# ---------------------------------------------------------------------------
+
+# A world-2 step against a world-1 step on the same global batch, as
+# tests/test_torch_parallel.py holds them on the CPU: each metric to 1e-6
+# relative, the parameters after DP_CHECK_AFTER steps to 1e-6.  The
+# summation order differs (each rank reduces its block, then the ranks'
+# mean), and AMSGrad's g/(|g| + eps)·lr turns a rounding difference of a
+# gradient near 0 into up to lr.  So, as the step tests against JAX hold
+# them (tests/test_torch_train_step.py, test_torch_motion_train.py), two
+# kinds of elements are held to 2·lr per update (each rank's ±lr the
+# other way): those whose gradient (after the motion step's clip) lay
+# below 100·eps = 1e-6 at some update, and those of a leaf whose gradient
+# vanishes in exact arithmetic and holds only rounding noise, its largest
+# |g| below 1e-4 of the network's (a conv bias before an instance norm, a
+# key bias before a softmax); at most DP_NEAR_SHARE of a network's
+# elements may lie beyond 1e-6.
+DP_RTOL = 1e-6
+DP_PARAM_TOL = 1e-6
+DP_CHECK_AFTER = 2
+DP_NEAR_SHARE = {"g": 0.02, "d": 0.05, "m": 0.02}
+
+
+def _grad_recorder(opt, clip):
+    """Wrap ``opt.step`` to keep, per element, the least and the largest
+    |g| it was given (after the global-norm clip at ``clip``, as AMSGrad
+    sees it), and to count the updates."""
+    box = {}
+    inner = opt.step
+
+    def step(grads):
+        g = torch.cat([x.reshape(-1) for x in grads]).float().abs()
+        if clip is not None:
+            g = g * torch.clamp(clip / g.norm(), max=1.0)
+        box["min"] = g if "min" not in box else torch.minimum(box["min"], g)
+        box["max"] = g if "max" not in box else torch.maximum(box["max"], g)
+        box["updates"] = box.get("updates", 0) + 1
+        return inner(grads)
+
+    opt.step = step
+    box["leaves"] = [p.numel() for p in opt.params]
+    return box
+
+
+def _near_zero(rec) -> np.ndarray:
+    """The elements :data:`DP_PARAM_TOL` does not hold (see above)."""
+    near = rec["min"] < 1e-6
+    top, off = rec["max"].max(), 0
+    for n in rec["leaves"]:
+        if rec["max"][off:off + n].max() < 1e-4 * top:
+            near[off:off + n] = True
+        off += n
+    return near
+
+
+def _kernel_launches() -> dict:
+    from renderloom_torch.ops import norm_kernel as NK
+    from renderloom_torch.ops import rasterize_kernel as RK
+
+    return {"rasterize": RK.rasterize_tables_cuda.layout_launches["nhwc"],
+            "instance_norm": NK.instance_norm_cuda.launches,
+            "instance_norm_r3": NK.instance_norm_cuda.r3_launches,
+            "instance_norm_bwd": NK.instance_norm_bwd_cuda.launches,
+            "instance_norm_bwd_r3": NK.instance_norm_bwd_cuda.r3_launches}
+
+
+def dp_gan_run(cfg, raws, device, seed=5):
+    """The renderer's train step on this rank's block of each global batch
+    of raw windows in ``raws`` (world size 1 without a process group):
+    the metrics and seconds of each step, both flat parameter vectors
+    after ``DP_CHECK_AFTER`` steps, the least |g| per element (world 1)
+    and the kernels' launches."""
+    from renderloom_torch.train.gan import (create_gan_state,
+                                            make_gan_train_step,
+                                            make_perceptual)
+
+    device = torch.device(device)
+    state = create_gan_state(cfg, device, seed=seed)
+    near = {net: _grad_recorder(getattr(state, f"opt_{net}"), None)
+            for net in ("g", "d")}
+    step = make_gan_train_step(cfg, make_perceptual(cfg, device, seed=seed),
+                               data_cfg=cfg.data)
+    _reset_launches()
+    return _dp_loop(step, state, raws, device, near,
+                    {"g": state.opt_g, "d": state.opt_d})
+
+
+def dp_motion_run(cfg, raws, stats, device, seed=9):
+    """The motion transformer's train step, as :func:`dp_gan_run`."""
+    from renderloom_torch.train.motion import (create_motion_state,
+                                               make_train_step)
+
+    device = torch.device(device)
+    state = create_motion_state(cfg, device, seed=seed)
+    near = {"m": _grad_recorder(state.opt, state.opt.clip_norm)}
+    step = make_train_step(cfg, *stats)
+    _reset_launches()
+    return _dp_loop(step, state, raws, device, near, {"m": state.opt})
+
+
+def _dp_loop(step, state, raws, device, near, opts):
+    """Run ``step`` on this rank's block of each of ``raws``; snapshot the
+    optimizers ``opts`` after ``DP_CHECK_AFTER`` steps."""
+    from renderloom_torch.parallel import mesh
+
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else lambda: None)
+    metrics, seconds, params, updates, moments = [], [], None, None, None
+    for i, raw in enumerate(raws):
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in mesh.shard_batch(raw).items()}
+        sync()
+        tic = time.perf_counter()
+        m = step(state, batch)
+        sync()
+        seconds.append(time.perf_counter() - tic)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i + 1 == DP_CHECK_AFTER:
+            params = {k: o.flat.cpu().numpy().copy()
+                      for k, o in opts.items()}
+            moments = {k: o.mu.cpu().numpy().copy() for k, o in opts.items()}
+            updates = {k: b["updates"] for k, b in near.items()}
+    return dict(metrics=metrics, seconds=seconds, params=params,
+                moments=moments, updates=updates, world=mesh.world()[1],
+                launches=_kernel_launches(),
+                near={k: _near_zero({**b, "min": b["min"].cpu().numpy(),
+                                         "max": b["max"].cpu().numpy()})
+                      for k, b in near.items()})
+
+
+def dp_hold(name, one, two, lrs) -> dict:
+    """Hold a world-2 run (rank 0's report; every rank's parameters are
+    checked equal) against the world-1 run; returns the readings."""
+    if any(not np.array_equal(r["params"][k], two[0]["params"][k])
+           for r in two[1:] for k in r["params"]):
+        raise AssertionError(f"{name}: the ranks' parameters differ")
+    two = two[0]
+    worst = 0.0
+    for s, (a, b) in enumerate(zip(one["metrics"][:DP_CHECK_AFTER],
+                                   two["metrics"])):
+        for k, v in a.items():
+            rel = abs(b[k] - v) / max(abs(v), 1e-30)
+            worst = max(worst, rel if abs(b[k] - v) > 1e-12 else 0.0)
+            if abs(b[k] - v) > DP_RTOL * abs(v) + 1e-12:
+                raise AssertionError(f"{name}: step {s} {k} world 2 {b[k]} "
+                                     f"world 1 {v}")
+    far, loose = 0.0, {}
+    for k, lr in lrs.items():
+        err = np.abs(two["params"][k] - one["params"][k])
+        near = one["near"][k]
+        far = max(far, float(err[~near].max(initial=0)))
+        loose[k] = int((err > DP_PARAM_TOL).sum())
+        if err[~near].max(initial=0) > DP_PARAM_TOL or \
+                err[near].max(initial=0) > 2 * lr * one["updates"][k] or \
+                loose[k] > DP_NEAR_SHARE[k] * err.size:
+            raise AssertionError(
+                f"{name}: parameters {k} differ by "
+                f"{err[~near].max(initial=0):.3e}, near-zero elements by "
+                f"{err[near].max(initial=0):.3e}; {loose[k]} of {err.size} "
+                f"beyond {DP_PARAM_TOL:.0e}")
+    print(f"  {name}: world 2 vs world 1, metrics within {worst:.2e} "
+          f"relative (tol {DP_RTOL:.0e}), parameters after "
+          f"{DP_CHECK_AFTER} steps within {far:.2e} (tol "
+          f"{DP_PARAM_TOL:.0e}) but near-zero-gradient elements, "
+          + ", ".join(f"{k}: {n} of {two['params'][k].size}"
+                      for k, n in loose.items()) + " beyond it, each "
+          "within 2·lr per update (updates "
+          + ", ".join(f"{k}: {n}" for k, n in one["updates"].items()) + ")")
+    return dict(metrics_rel=worst, params_abs=far, near_beyond=loose)
+
+
+# The full-width float32 GAN step on the card is not reproducible to the
+# bit: two world-1 runs in one process give the same metrics and
+# gradients within 8e-7 of the largest |g| (its backward is not
+# deterministic), and AMSGrad's first updates turn that into ±lr on most
+# parameters, so after one update the metrics of two world-1 runs differ
+# by 1.3e-3 relative (NVIDIA H100 80GB HBM3, 700 W).  So on the card the
+# GAN step is held with both learning rates 0, where nothing amplifies:
+# every metric of every step to DP_RTOL, and each network's first moment
+# (the averaged gradients as AMSGrad accumulates them) within
+# DP_MOMENT_RTOL of its largest |mu|.  World 2 reads 3.3e-4 (G) and
+# 5.4e-4 (D) there.  Two witnesses say where that comes from, and what
+# the limit can see: world 2 run as two threads of one process
+# (_ThreadWorld: the same ranks' arithmetic at B = 2 without processes,
+# gloo or host copies) must meet the gloo run within DP_WITNESS_RTOL;
+# and the same threads with a planted fault must fail the hold: no
+# gradient mean (each rank keeps its own half's gradient) reads moments
+# 0.17 (G) and 0.32 (D) of their largest; each rank dividing by its own
+# counts reads the metrics 6.8e-4 apart but the moments only 8.2e-4 and
+# 5.4e-4, so the metrics' DP_RTOL is what sees that one.  Threads against
+# gloo read 6.9e-7 (G) and 4.4e-7 (D), the card's own noise: the gap to
+# world 1 is the B = 2 arithmetic, not the transport.  The updates
+# themselves are held on the CPU and by the motion step here.
+DP_MOMENT_RTOL = 3e-3
+DP_WITNESS_RTOL = 1e-5
+
+
+def dp_gaps(one, two) -> dict:
+    """Worst relative gap of every metric of every step (and whether each
+    lies within DP_RTOL), and each network's first moments' worst gap
+    over their largest |mu|, of the runs ``two`` (every rank) against
+    ``one``; and whether every parameter stayed equal to ``one``'s."""
+    worst, ok = 0.0, True
+    for r in two:
+        for a, b in zip(one["metrics"], r["metrics"]):
+            for k, v in a.items():
+                err = abs(b[k] - v)
+                worst = max(worst, err / max(abs(v), 1e-30) if err else 0.0)
+                ok = ok and err <= DP_RTOL * abs(v) + 1e-12
+    moments = {k: max(np.abs(r["moments"][k] - m1).max() for r in two)
+               / np.abs(m1).max() for k, m1 in one["moments"].items()}
+    still = all(np.array_equal(r["params"][k], one["params"][k])
+                for r in two for k in one["params"])
+    return dict(metrics_rel=worst, metrics_ok=ok, moments_rel=moments,
+                params_equal=still)
+
+
+def dp_hold_gradients(name, one, two) -> dict:
+    """Hold a world-2 run at learning rate 0 against the world-1 run:
+    every metric of every step, the first moments, the ranks' parameters
+    (equal, and unchanged)."""
+    gaps = dp_gaps(one, two)
+    if not gaps["metrics_ok"]:
+        raise AssertionError(f"{name}: a metric differs by "
+                             f"{gaps['metrics_rel']:.3e} relative")
+    if max(gaps["moments_rel"].values()) > DP_MOMENT_RTOL or \
+            not gaps["params_equal"]:
+        raise AssertionError(f"{name}: first moments differ by "
+                             f"{gaps['moments_rel']} of the largest, or the "
+                             "parameters moved")
+    print(f"  {name} (learning rates 0): world 2 vs world 1, every metric "
+          f"of {len(one['metrics'])} steps within {gaps['metrics_rel']:.2e} "
+          f"relative (tol {DP_RTOL:.0e}); first moments after "
+          f"{DP_CHECK_AFTER} steps " + ", ".join(
+              f"{k} {v:.2e}" for k, v in gaps["moments_rel"].items())
+          + f" of their largest (tol {DP_MOMENT_RTOL:.0e})")
+    return gaps
+
+
+class _ThreadWorld:
+    """``torch.distributed`` as ``renderloom_torch.parallel.mesh`` uses
+    it, for ``size`` threads of this process, each a rank:
+    ``all_reduce`` sums the ranks' tensors in rank order (for two ranks
+    the sum gloo takes, a + b), ``broadcast`` copies the source's."""
+
+    ReduceOp = torch.distributed.ReduceOp
+
+    def __init__(self, size: int):
+        import threading
+
+        self.size, self.local = size, threading.local()
+        self.barrier = threading.Barrier(size, timeout=900)
+        self.slots = [None] * size
+
+    def is_available(self):
+        return True
+
+    def is_initialized(self):
+        return True
+
+    def get_rank(self):
+        return self.local.rank
+
+    def get_world_size(self):
+        return self.size
+
+    def get_backend(self):
+        return "gloo"
+
+    def _exchange(self, t):
+        self.slots[self.local.rank] = t.clone()
+        self.barrier.wait()
+        got = list(self.slots)
+        self.barrier.wait()
+        return got
+
+    def all_reduce(self, t, op=None):
+        got = self._exchange(t)
+        total = got[0]
+        for g in got[1:]:
+            total = total + g
+        t.copy_(total)
+
+    def broadcast(self, t, src=0):
+        t.copy_(self._exchange(t)[src])
+
+    def run(self, fn, *args) -> list:
+        """``fn(*args)`` on every rank, each a thread; rank 0's result
+        first.  Raises where a rank failed."""
+        import threading
+
+        from renderloom_torch.parallel import mesh
+
+        results, errors = [None] * self.size, []
+
+        def body(rank):
+            self.local.rank = rank
+            try:
+                results[rank] = fn(*args)
+            except BaseException as e:      # re-raised below
+                errors.append(e)
+                self.barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,))
+                   for r in range(self.size)]
+        real, mesh.dist = mesh.dist, self
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        finally:
+            mesh.dist = real
+        if errors:
+            raise errors[0]
+        return results
+
+
+def _dp_witnesses(rcfg, raws, one, two, device="cuda") -> dict:
+    """The GAN step's world 2 as threads, sound and with the planted
+    faults, against the gloo world 2 and world 1 (see DP_MOMENT_RTOL)."""
+    import renderloom_torch.train.gan as G
+
+    out = {}
+    raws = raws[:DP_CHECK_AFTER]        # the moments are read there
+    threads = _ThreadWorld(2).run(dp_gan_run, rcfg, raws, device)
+    out["threads_vs_gloo"] = dp_gaps(two[0], threads)
+    out["threads_vs_world1"] = dp_gaps(one, threads)
+    faults = {"no gradient mean": ("all_reduce_mean", lambda t: t),
+              "local counts": ("count_share",
+                               lambda c: torch.clamp(c.detach(), min=1.0))}
+    for fault, (name, planted) in faults.items():
+        real = getattr(G, name)
+        setattr(G, name, planted)
+        try:
+            bad = _ThreadWorld(2).run(dp_gan_run, rcfg, raws, device)
+        finally:
+            setattr(G, name, real)
+        out[fault] = dp_gaps(one, bad)
+    fmt = lambda g: (f"metrics {g['metrics_rel']:.2e}, moments " + ", ".join(
+        f"{k} {v:.2e}" for k, v in g["moments_rel"].items()))
+    print(f"  gan witnesses (learning rates 0; moments over their largest):"
+          f"\n    world 2 as threads vs world 2 over gloo: "
+          f"{fmt(out['threads_vs_gloo'])} (tol {DP_WITNESS_RTOL:.0e}); vs "
+          f"world 1: {fmt(out['threads_vs_world1'])}" + "".join(
+              f"\n    planted fault, {f}: vs world 1 {fmt(out[f])}"
+              for f in faults))
+    if max(out["threads_vs_gloo"]["moments_rel"].values()) > \
+            DP_WITNESS_RTOL or not out["threads_vs_gloo"]["metrics_ok"]:
+        raise AssertionError("gan: world 2 as threads departs from world 2 "
+                             "over gloo")
+    if max(out["no gradient mean"]["moments_rel"].values()) <= \
+            DP_MOMENT_RTOL or out["local counts"]["metrics_ok"]:
+        raise AssertionError("gan: the hold does not see a planted fault")
+    return out
+
+
+def _residual_check(name, x, s, b, slope) -> float:
+    """K2's training call (output and (B, C, 3) residuals) against the
+    twin's, at phase 2's and phase B's tolerances."""
+    from renderloom_torch.ops import norm_kernel as NK
+
+    stats = torch.empty((x.shape[0], x.shape[-1], 3), device="cuda")
+    y = NK.instance_norm_cuda(x, s, b, slope, 1e-5, stats)
+    want, want_stats = NK._plain_forward(x, s, b, slope, 1e-5)
+    atol, rtol = _k2_tol(tuple(x.shape), x.dtype)
+    compare(f"{name} residuals", stats, want_stats, 1e-5, 1e-5)
+    return compare(f"{name} y", y, want, atol, rtol)
+
+
+def _dp_kernels(train) -> float:
+    """K2 with residuals and K2b against their twins at the world-2
+    GAN step's per-rank batch (2): every forward and backward shape of
+    phase T's step with B = 2."""
+    print(f"  K2 (with residuals) at {len(train['fwd'])} and K2b at "
+          f"{len(train['bwd'])} shapes of the training step at B = 2, vs "
+          "twins:")
+    err, big = 0.0, lambda k: -np.prod(k[0])
+    for i, key in enumerate(sorted(train["fwd"], key=big)):
+        x, s, b = _norm_inputs((2,) + key[0][1:], torch.float32, key[1],
+                               seed=880 + i)
+        err = max(err, _residual_check(f"K2 {(2,) + key[0][1:]}", x, s, b,
+                                       key[2]))
+    for i, key in enumerate(sorted(train["bwd"], key=big)):
+        x, dy, s, b = _bwd_inputs((2,) + key[0][1:], key[1], 940 + i)
+        err = max(err, _bwd_check(f"K2b {(2,) + key[0][1:]}", x, dy, s, b,
+                                  key[2]))
+    return err
+
+
+def _dp_motion_case(cfg, n_steps, seed=12):
+    """Global batches of ``cfg``'s size and length, with pad masks that
+    differ per sample (so a loss's global count matters), and
+    statistics."""
+    from renderloom_torch.cli.train_motion import synthetic_batches
+
+    B, L = cfg.batch_size, cfg.dataset.max_seq_length
+    raws = list(synthetic_batches(np.random.default_rng(seed), n_steps, B,
+                                  L))
+    for raw in raws:
+        for b in range(B):
+            raw["pad_mask"][b, L - (b * 7) % (L // 2):] = True
+    rng = np.random.default_rng(seed + 1)
+    stats = (rng.normal(scale=0.1, size=(19, 2)).astype(np.float32),
+             rng.uniform(0.2, 1.0, (19, 2)).astype(np.float32))
+    return raws, stats
+
+
+def _dp_gan_raws(cfg, n_steps, seed=3):
+    from renderloom_torch.cli.train_renderer import synthetic_batches
+
+    d = cfg.data
+    return list(synthetic_batches(np.random.default_rng(seed), n_steps,
+                                  cfg.batch_size, d.max_frames,
+                                  d.load_height, d.load_width))
+
+
+def phase_data_parallel(train):
+    """Z: the two steps at world 2 (gloo, both ranks on the card) against
+    world 1 on the same global batches, the GAN step's witnesses, K2 and
+    K2b at the world-2 batch (phase T's shapes, ``train``), then the
+    motion CLI under torchrun with NCCL, then the port's bench."""
+    import dataclasses
+    import shutil
+
+    from renderloom_torch.core.config import load_motion_config
+    from renderloom_torch.parallel import run_ranks
+
+    out = {}
+    mcfg = load_motion_config(os.path.join(ROOT, "configs", "motion.yaml"))
+    mcfg = dataclasses.replace(mcfg, transformer=dataclasses.replace(
+        mcfg.transformer, dropout=0.0))
+    rcfg = _train_cfg()
+    still = dataclasses.replace(rcfg, optim=dataclasses.replace(
+        rcfg.optim, lr=0.0, lr_d=0.0))
+    print(f"Z. data parallel: world 2 (gloo, both ranks on this card) vs "
+          f"world 1 on the same global batches; motion.yaml (B "
+          f"{mcfg.batch_size}, L {mcfg.dataset.max_seq_length}, dropout 0) "
+          f"and hsm.yaml (B {rcfg.batch_size} x {rcfg.data.max_frames}-frame "
+          f"raw windows, float32)")
+    for name, run, args, unit, n in (
+            ("motion", dp_motion_run,
+             (mcfg, *_dp_motion_case(mcfg, DP_CHECK_AFTER + 4)), "seqs",
+             mcfg.batch_size),
+            ("gan", dp_gan_run, (still, _dp_gan_raws(still,
+                                                     DP_CHECK_AFTER + 2)),
+             "windows", rcfg.batch_size)):
+        tic = time.perf_counter()
+        one = run(*args, "cuda")
+        t_one = time.perf_counter() - tic
+        tic = time.perf_counter()
+        two = run_ranks(run, 2, "cuda", backend="gloo", args=args + ("cuda",))
+        t_two = time.perf_counter() - tic
+        held = (dp_hold(name, one, two, {"m": mcfg.optim.lr})
+                if name == "motion" else dp_hold_gradients(name, one, two))
+        if name == "gan" and (
+                any(r["launches"] != one["launches"] for r in two)
+                or not all(one["launches"][k] for k in (
+                    "rasterize", "instance_norm", "instance_norm_bwd"))):
+            raise AssertionError(f"gan launches: world 1 {one['launches']}, "
+                                 f"world 2 {[r['launches'] for r in two]}")
+        rate = lambda r: n * len(r["seconds"][1:]) / sum(r["seconds"][1:])
+        print(f"    {unit}/s after the first step: world 1 "
+              f"{rate(one):.3f}, world 2 {rate(two[0]):.3f} (steps "
+              + ", ".join(f"{s * 1e3:.0f}" for s in one["seconds"])
+              + " and " + ", ".join(f"{s * 1e3:.0f}"
+                                    for s in two[0]["seconds"])
+              + f" ms); launches world 1 {one['launches']}, world 2 per "
+              f"rank {[r['launches'] for r in two]}; {t_one:.1f} s and "
+              f"{t_two:.1f} s with the set-up")
+        out[name] = dict(held, world1=rate(one), world2=rate(two[0]),
+                         launches1=one["launches"],
+                         launches2=[r["launches"] for r in two])
+        if name == "gan":
+            out["witnesses"] = _dp_witnesses(*args[:2], one, two)
+    out["kernels_max_abs_err"] = _dp_kernels(train)
+
+    # the motion CLI under torchrun, one rank on NCCL
+    run_dir = os.path.join(ROOT, "build", "chip_smoke_dp")   # not brought back
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", "-m", "renderloom_torch.cli.train_motion",
+         "--synthetic", "--epochs", "1", "--steps-per-epoch", "3",
+         "--out-dir", run_dir], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    said = [ln for ln in proc.stdout.splitlines() if ln.startswith("world:")]
+    print(f"  torchrun --nproc_per_node=1 train_motion: exit "
+          f"{proc.returncode}, {said}")
+    if proc.returncode != 0 or said != ["world: 1 backend: nccl"] or \
+            not os.path.exists(os.path.join(run_dir, "checkpoint.pt")):
+        raise AssertionError(f"torchrun train_motion:\n{proc.stdout[-2000:]}"
+                             f"\n{proc.stderr[-4000:]}")
+    shutil.rmtree(run_dir)
+
+    # the port's bench, one process per metric
+    out["bench"] = {}
+    for metric in ("e2e", "motion_train", "gan_train"):
+        proc = subprocess.run(
+            [sys.executable, "-m", "renderloom_torch.bench"], cwd=ROOT,
+            env={**os.environ, "BENCH_METRIC": metric}, capture_output=True,
+            text=True, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"bench {metric}: exit {proc.returncode}\n"
+                                 f"{proc.stdout}\n{proc.stderr[-4000:]}")
+        print(f"  bench {metric}: {lines[0]}")
+        out["bench"][metric] = json.loads(lines[0])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4410,6 +5373,12 @@ def main() -> int:
     parity["serve_clip_fastpath_bf16"] = phase_norm_parity_bf16(bf16)
     phase_bf16_cpu_match()
     phase_rollouts(serve)
+    t_x = time.perf_counter()
+    exported = phase_export(serve, launches, bf16)
+    t_y = time.perf_counter()
+    planner = phase_planner(serve, fast, bf16)
+    print(f"export and planner phases: X {t_y - t_x:.1f} s, Y "
+          f"{time.perf_counter() - t_y:.1f} s")
     t_v = time.perf_counter()
     files = phase_serve_files(serve, bf16, probe)
     t_q = time.perf_counter()
@@ -4438,6 +5407,13 @@ def main() -> int:
     phase_motion_cpu_match()
     print(f"training from data phases: W {t_m - t_w:.1f} s, M "
           f"{t_m2 - t_m:.1f} s, M2 {time.perf_counter() - t_m2:.1f} s")
+    t_z = time.perf_counter()
+    dp = phase_data_parallel(train)
+    print(f"data-parallel phase: Z {time.perf_counter() - t_z:.1f} s")
+    xf, xs = exported["fastpath_bf16"], exported["standard_f32"]
+    dp2 = {k: sum(r[k] for r in dp["gan"]["launches2"])
+           for k in dp["gan"]["launches2"][0]}
+    n8 = planner["table"][max(planner["table"])]["launches"]
     t16 = {k: v["launches"] for k, v in train16.items()}
     w32, w16 = (h5train[k]["launches"] for k in ("train_h5",
                                                  "train_h5_bf16"))
@@ -4454,7 +5430,9 @@ def main() -> int:
                                **{k: v["launches"]["rasterize"]
                                   for k, v in {**files, **evals}.items()},
                                "train_h5": w32["rasterize"],
-                               "train_h5_bf16": w16["rasterize"]},
+                               "train_h5_bf16": w16["rasterize"],
+                               "serve_exported": xs["launches"]["rasterize"],
+                               "train_dp2": dp2["rasterize"]},
              **raster_train,
              serve=dict(shape=f"{F_RASTER}x{H_FULL}x{W_FULL}x22 f32 label, "
                               f"no masks", **raster),
@@ -4476,7 +5454,14 @@ def main() -> int:
                                ["launches"]["instance_norm"],
                                "eval_h5": evals["eval_h5"]["launches"]
                                ["instance_norm"],
-                               "train_h5": w32["instance_norm"]},
+                               "train_h5": w32["instance_norm"],
+                               "serve_exported": xs["launches"]
+                               ["instance_norm"],
+                               "serve_exported_fastpath_bf16": xf["launches"]
+                               ["instance_norm"],
+                               "serve_planner_fastpath_bf16": n8
+                               ["instance_norm"],
+                               "train_dp2": dp2["instance_norm"]},
              **norm_train, serve=norm),
         dict(name="instance_norm_parity", route="cuda",
              source="renderloom_torch/csrc/instance_norm.cu",
@@ -4486,7 +5471,11 @@ def main() -> int:
              launches_by_path={"serve_clip_fastpath": fast["launches"]
                                ["instance_norm_parity"],
                                "serve_clip_fastpath_bf16": bf16["fastpath"]
-                               ["launches"]["instance_norm_parity"]},
+                               ["launches"]["instance_norm_parity"],
+                               "serve_exported_fastpath_bf16": xf["launches"]
+                               ["instance_norm_parity"],
+                               "serve_planner_fastpath_bf16": n8
+                               ["instance_norm_parity"]},
              **parity),
         dict(name="instance_norm_r3centered", route="cuda",
              source="renderloom_torch/csrc/instance_norm.cu",
@@ -4505,7 +5494,11 @@ def main() -> int:
                                ["launches"]["instance_norm_r3"],
                                "eval_h5_bf16": evals["eval_h5_bf16"]
                                ["launches"]["instance_norm_r3"],
-                               "train_h5_bf16": w16["instance_norm_r3"]},
+                               "train_h5_bf16": w16["instance_norm_r3"],
+                               "serve_exported_fastpath_bf16": xf["launches"]
+                               ["instance_norm_r3"],
+                               "serve_planner_fastpath_bf16": n8
+                               ["instance_norm_r3"]},
              **r3,
              train_step_bf16=dict(
                  r3_train, launches_per_step=train16[True]["per_step"]
@@ -4517,6 +5510,10 @@ def main() -> int:
                       ":422-434)",
              launches=fast["launches"]["rasterize_packed"],
              launches_by_path={"serve_clip_fastpath": fast["launches"]
+                               ["rasterize_packed"],
+                               "serve_exported_fastpath_bf16": xf["launches"]
+                               ["rasterize_packed"],
+                               "serve_planner_fastpath_bf16": n8
                                ["rasterize_packed"]},
              **layouts[("packed", torch.bfloat16, False)],
              shape=f"{F_RASTER}x{H_FULL // 2}x{W_FULL // 2}x88 bf16 label, "
@@ -4536,7 +5533,8 @@ def main() -> int:
              launches=train["launches"]["instance_norm_bwd"],
              launches_by_path={"train_3_steps": train["launches"]
                                ["instance_norm_bwd"],
-                               "train_h5": w32["instance_norm_bwd"]},
+                               "train_h5": w32["instance_norm_bwd"],
+                               "train_dp2": dp2["instance_norm_bwd"]},
              **norm_bwd),
         dict(name="instance_norm_bwd_r3centered", route="cuda",
              source="renderloom_torch/csrc/instance_norm.cu",
@@ -4562,7 +5560,15 @@ def main() -> int:
           f"{train['wps']:.4f} (bf16 {train16[True]['wps']:.4f}, bf16 "
           f"without do_checkpoint {train16[False]['wps']:.4f}); "
           f"motion_train_seqs_per_sec {motion['float32']['seqs_per_sec']:.2f} "
-          f"(bf16 {motion['bfloat16']['seqs_per_sec']:.2f}); chip_smoke "
+          f"(bf16 {motion['bfloat16']['seqs_per_sec']:.2f}); frozen "
+          f"{xs['fps']:.3f} (live {xs['live_fps']:.3f}), bf16 fastpath "
+          f"frozen {xf['fps']:.3f} (live {xf['live_fps']:.3f}); data "
+          f"parallel world 2 vs 1: {dp['gan']['world2']:.4f} vs "
+          f"{dp['gan']['world1']:.4f} windows/s, "
+          f"{dp['motion']['world2']:.2f} vs {dp['motion']['world1']:.2f} "
+          f"seqs/s; bench " + ", ".join(
+              f"{k} {v['value']}" for k, v in dp["bench"].items())
+          + "; chip_smoke "
           f"done in "
           f"{time.perf_counter() - tic:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -20,10 +20,21 @@ The epoch loop is :func:`train`, which takes the readers; :func:`main`
 builds them from ``--h5``.  It runs on the CUDA device unless
 ``--device cpu`` is given, and without a CUDA device it refuses to run.
 
+Under ``torchrun`` it trains data-parallel (``renderloom_torch.
+parallel``; NCCL on the card, gloo with ``--device cpu``): the config's
+``batch_size`` is the global batch, split evenly over the ranks; each
+rank reads its strided share of the samples (``process_shard``; every
+rank draws the epoch's order from a generator seeded by (seed, epoch))
+and takes ``steps_per_epoch`` steps, the synthetic batches are drawn
+whole and sliced, and rank 0 alone writes the metrics, the evaluation
+and the checkpoints.  Without ``torchrun`` it runs at world size 1.
+
 Usage:
   python -m renderloom_torch.cli.train_motion --config configs/motion.yaml \\
       --h5 AMASS_3D_joints.h5 --out-dir runs/motion_torch
   python -m renderloom_torch.cli.train_motion --synthetic --epochs 1
+  torchrun --standalone --nproc_per_node=4 -m \\
+      renderloom_torch.cli.train_motion --h5 AMASS_3D_joints.h5
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import os
 import time
 from typing import Optional
@@ -41,10 +53,12 @@ import torch
 import renderloom_torch
 from renderloom_torch.cli import cli_device
 from renderloom_torch.core.config import MotionConfig, load_motion_config
-from renderloom_torch.core.logging import MetricLogger, snapshot_source
+from renderloom_torch.core.logging import (MetricLogger, NullLogger,
+                                           snapshot_source)
 from renderloom_torch.data.amass import AmassReader, load_or_compute_stats
 from renderloom_torch.data.prefetch import prefetch
 from renderloom_torch.eval.motion_eval import MotionEvaluator
+from renderloom_torch.parallel import mesh
 from renderloom_torch.train.motion import (create_motion_state,
                                            make_train_step)
 from renderloom_torch.utils.profiling import trace
@@ -120,23 +134,36 @@ def train(args: argparse.Namespace, reader=None, test_reader=None) -> dict:
     is None.  Returns the final train state, the statistics, and per
     epoch run its steps, seconds, seconds spent waiting for the next
     batch and the evaluation's seconds."""
-    device = cli_device("train_motion", args.device)
+    with mesh.torchrun(cli_device("train_motion", args.device)) as device:
+        return _train(args, device, reader, test_reader)
+
+
+def _train(args, device, reader, test_reader) -> dict:
     cfg = config_of(args)
     seed = args.seed if args.seed is not None else cfg.seed
     epochs = args.epochs or cfg.optim.nr_epochs
     d = cfg.dataset
+    rank, size = mesh.world()
+    rank_batch = mesh.local_batch(cfg.batch_size)
+    if mesh.backend():
+        print(f"world: {size} backend: {mesh.backend()}")
 
     os.makedirs(args.out_dir, exist_ok=True)
-    logger = MetricLogger(args.out_dir)
-    snapshot_source(args.out_dir, os.path.dirname(renderloom_torch.__file__))
+    logger = MetricLogger(args.out_dir) if rank == 0 else NullLogger()
+    if rank == 0:
+        snapshot_source(args.out_dir,
+                        os.path.dirname(renderloom_torch.__file__))
 
     evaluator = None
     if reader is not None:
-        mean, std = load_or_compute_stats(reader, d)
-        if test_reader is not None:
-            evaluator = MotionEvaluator(
-                cfg, test_reader, mean, std,
-                os.path.join(d.data_root, "evaluation_view.npy"))
+        # rank 0 computes and caches the statistics and views; the other
+        # ranks read its files
+        with mesh.rank_zero_first():
+            mean, std = load_or_compute_stats(reader, d)
+            if test_reader is not None:
+                evaluator = MotionEvaluator(
+                    cfg, test_reader, mean, std,
+                    os.path.join(d.data_root, "evaluation_view.npy"))
         steps_per_epoch = max(len(reader) // cfg.batch_size, 1)
     else:
         mean = np.zeros((19, 2), np.float32)
@@ -157,12 +184,17 @@ def train(args: argparse.Namespace, reader=None, test_reader=None) -> dict:
     history = []
     for epoch in range(start_epoch, epochs):
         tic = time.perf_counter()
-        batches = (prefetch(reader.batches(rng, cfg.batch_size,
-                                           d.max_seq_length,
-                                           d.train_sample_rate), depth=2)
-                   if reader is not None else
-                   synthetic_batches(rng, steps_per_epoch, cfg.batch_size,
-                                     d.max_seq_length))
+        if size > 1:        # the ranks agree on the epoch's order
+            rng = np.random.default_rng([seed, epoch])
+        source = (prefetch(reader.batches(rng, rank_batch, d.max_seq_length,
+                                          d.train_sample_rate), depth=2)
+                  if reader is not None else
+                  map(mesh.shard_batch,
+                      synthetic_batches(rng, steps_per_epoch,
+                                        cfg.batch_size, d.max_seq_length)))
+        # every rank takes the same number of steps
+        batches = (itertools.islice(source, steps_per_epoch) if size > 1
+                   else source)
         metrics = {}
         n_steps = 0
         wait = 0.0
@@ -190,7 +222,7 @@ def train(args: argparse.Namespace, reader=None, test_reader=None) -> dict:
         finally:
             profiling.close()
             if reader is not None:
-                batches.close()
+                source.close()
         wall = time.perf_counter() - tic
         record = {"epoch": epoch, "steps": n_steps, "seconds": wall,
                   "wait_seconds": wait}
@@ -199,14 +231,15 @@ def train(args: argparse.Namespace, reader=None, test_reader=None) -> dict:
             scalars["steps_per_sec"] = n_steps / wall
             logger.console(state.step, scalars, header=f"epoch {epoch} ")
 
-        if evaluator and (epoch + 1) % cfg.eval_step == 0:
+        if evaluator and rank == 0 and (epoch + 1) % cfg.eval_step == 0:
             tic = time.perf_counter()
             results = evaluator.evaluate(state.model, limit=args.eval_limit)
             record["eval_seconds"] = time.perf_counter() - tic
             logger.log(state.step, results, prefix="eval/")
             logger.console(state.step, results, header="eval ")
 
-        if (epoch + 1) % cfg.save_step == 0 or epoch == epochs - 1:
+        if rank == 0 and ((epoch + 1) % cfg.save_step == 0
+                          or epoch == epochs - 1):
             save_checkpoint(ckpt_path, state)
             print(f"checkpoint: {ckpt_path}")
         history.append(record)

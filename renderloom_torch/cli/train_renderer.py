@@ -28,13 +28,24 @@ The VGG19 perceptual term needs pretrained weights (``VGG19_NPZ`` or
 the readers; :func:`main` builds them from ``--h5``.
 
 It runs on the CUDA device unless ``--device cpu`` is given, and
-without a CUDA device it refuses to run.
+without a CUDA device it refuses to run.  Under ``torchrun`` it trains
+data-parallel (``renderloom_torch.parallel``; NCCL on the card, gloo
+with ``--device cpu``): the config's ``batch_size`` is the global batch,
+split evenly over the ranks; each rank reads its strided share of the
+windows (``process_shard``; every rank draws the epoch's order from a
+generator seeded by (seed, epoch)) and takes ``steps_per_epoch`` steps,
+the synthetic windows are drawn whole and sliced, and rank 0 alone
+writes the metrics, the evaluations and the checkpoints.  Without
+``torchrun`` it runs at world size 1.
 
 Usage:
   python -m renderloom_torch.cli.train_renderer --config configs/hsm.yaml \\
       --h5 HumanSlomo.h5 --out-dir runs/renderer_torch
   python -m renderloom_torch.cli.train_renderer --synthetic \\
       --config configs/hsm.yaml --epochs 1 --steps-per-epoch 4
+  torchrun --standalone --nproc_per_node=4 -m \\
+      renderloom_torch.cli.train_renderer --config configs/hsm.yaml \\
+      --h5 HumanSlomo.h5
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import itertools
 import os
 import time
 from typing import Optional
@@ -53,10 +65,12 @@ import renderloom_torch
 from renderloom_torch.cli import cli_device
 from renderloom_torch.convert import flax_trees
 from renderloom_torch.core.config import RendererConfig, load_renderer_config
-from renderloom_torch.core.logging import MetricLogger, snapshot_source
+from renderloom_torch.core.logging import (MetricLogger, NullLogger,
+                                           snapshot_source)
 from renderloom_torch.data.hsm import HsmReader
 from renderloom_torch.data.prefetch import prefetch
 from renderloom_torch.eval.render_eval import evaluate_h5
+from renderloom_torch.parallel import mesh
 from renderloom_torch.train.gan import (create_gan_state, make_gan_train_step,
                                         make_perceptual)
 from renderloom_torch.utils.profiling import trace
@@ -155,15 +169,25 @@ def train(args: argparse.Namespace, reader=None, test_reader=None) -> dict:
     windows when ``reader`` is None.  Returns the final train state and,
     per epoch run, its steps, seconds, seconds spent waiting for the
     next batch, the window length, and the evaluation's seconds."""
-    device = cli_device("train_renderer", args.device)
+    with mesh.torchrun(cli_device("train_renderer", args.device)) as device:
+        return _train(args, device, reader, test_reader)
+
+
+def _train(args, device, reader, test_reader) -> dict:
     cfg = config_of(args)
     seed = args.seed if args.seed is not None else cfg.seed
     epochs = args.epochs or cfg.optim.nr_epochs
     d = cfg.data
+    rank, size = mesh.world()
+    rank_batch = mesh.local_batch(cfg.batch_size)
+    if mesh.backend():
+        print(f"world: {size} backend: {mesh.backend()}")
 
     os.makedirs(args.out_dir, exist_ok=True)
-    logger = MetricLogger(args.out_dir)
-    snapshot_source(args.out_dir, os.path.dirname(renderloom_torch.__file__))
+    logger = MetricLogger(args.out_dir) if rank == 0 else NullLogger()
+    if rank == 0:
+        snapshot_source(args.out_dir,
+                        os.path.dirname(renderloom_torch.__file__))
     steps_per_epoch = (max(len(reader) // cfg.batch_size, 1)
                        if reader is not None else args.steps_per_epoch)
 
@@ -197,11 +221,17 @@ def train(args: argparse.Namespace, reader=None, test_reader=None) -> dict:
             print(f"curriculum: window -> {max_frames} frames")
 
         tic = time.perf_counter()
-        batches = (prefetch(reader.batches(rng, cfg.batch_size), depth=2)
-                   if reader is not None else
-                   synthetic_batches(rng, steps_per_epoch, cfg.batch_size,
-                                     max_frames, d.load_height,
-                                     d.load_width))
+        if size > 1:        # the ranks agree on the epoch's order
+            rng = np.random.default_rng([seed, epoch])
+        source = (prefetch(reader.batches(rng, rank_batch), depth=2)
+                  if reader is not None else
+                  map(mesh.shard_batch,
+                      synthetic_batches(rng, steps_per_epoch,
+                                        cfg.batch_size, max_frames,
+                                        d.load_height, d.load_width)))
+        # every rank takes the same number of steps
+        batches = (itertools.islice(source, steps_per_epoch) if size > 1
+                   else source)
         metrics = {}
         n_steps = 0
         wait = 0.0
@@ -230,7 +260,7 @@ def train(args: argparse.Namespace, reader=None, test_reader=None) -> dict:
         finally:
             profiling.close()
             if reader is not None:
-                batches.close()
+                source.close()
         wall = time.perf_counter() - tic
         record = {"epoch": epoch, "steps": n_steps, "seconds": wall,
                   "wait_seconds": wait, "frames": max_frames}
@@ -239,7 +269,7 @@ def train(args: argparse.Namespace, reader=None, test_reader=None) -> dict:
             scalars["steps_per_sec"] = n_steps / wall
             logger.console(state.step, scalars, header=f"epoch {epoch} ")
 
-        if test_reader and (epoch + 1) % 4 == 0:
+        if test_reader and rank == 0 and (epoch + 1) % 4 == 0:
             tic = time.perf_counter()
             results = evaluate_h5(*flax_trees(state.gen), cfg, test_reader,
                                   max_keyframes=args.eval_keyframes,
@@ -250,7 +280,7 @@ def train(args: argparse.Namespace, reader=None, test_reader=None) -> dict:
             logger.log(state.step, results, prefix="eval/")
             logger.console(state.step, results, header="eval ")
 
-        if (epoch + 1) % 4 == 0 or epoch == epochs - 1:
+        if rank == 0 and ((epoch + 1) % 4 == 0 or epoch == epochs - 1):
             save_checkpoint(ckpt_path, state)
             print(f"checkpoint: {ckpt_path}")
         history.append(record)

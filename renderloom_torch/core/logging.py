@@ -73,6 +73,16 @@ class MetricLogger:
             self._tb = None
 
 
+class NullLogger:
+    """:class:`MetricLogger`'s interface, writing nothing: the logger of
+    the ranks other than 0 of a data-parallel run."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+    console = log_images = close = log
+
+
 def snapshot_source(out_dir: str, package_root: str) -> str:
     """Zip the package's ``.py`` files into ``<out_dir>/code.zip``, paths
     relative to the package's parent directory."""

@@ -41,6 +41,8 @@ from renderloom_torch.ops.image import (affine_warp, compose_affine,
                                         transform_keypoints)
 from renderloom_torch.ops.rasterize_kernel import (draw_train_tables,
                                                    rasterize_frames_fused)
+# re-exported: data/amass.py and the tests import it from here
+from renderloom_torch.parallel.mesh import process_shard  # noqa: F401
 
 
 def decode_image(buf: np.ndarray) -> np.ndarray:
@@ -54,24 +56,6 @@ def decode_images(bufs: Sequence[np.ndarray]) -> np.ndarray:
     from renderloom_torch import native
     w, h = native.image_dims(bufs[0].tobytes())
     return native.batch_decode(bufs, h, w)
-
-
-def process_shard(n: int, process_index: Optional[int] = None,
-                  process_count: Optional[int] = None) -> np.ndarray:
-    """Indices [0, n) this process reads: a strided slice of the global
-    sample order, so processes drawing the same permutation read
-    disjoint samples.  Without explicit arguments, the rank and world
-    size of the initialized ``torch.distributed`` process group, else
-    0 of 1 (the JAX package's ``parallel.process_shard`` over
-    ``jax.process_index()``)."""
-    if process_index is None or process_count is None:
-        dist = torch.distributed
-        live = dist.is_available() and dist.is_initialized()
-        if process_index is None:
-            process_index = dist.get_rank() if live else 0
-        if process_count is None:
-            process_count = dist.get_world_size() if live else 1
-    return np.arange(process_index, n, process_count)
 
 
 class HsmReader:

@@ -4,7 +4,8 @@ rasterization → segment rollout + compositing, over N clips.
 Port of the JAX package's ``renderloom/eval/pipeline.py``
 (``assemble_keyframe_stream``, ``make_pipeline_fn``, ``build_pipeline``).
 The stages run eagerly on one device; on the card the label raster and
-every instance norm are the port's CUDA kernels.
+every instance norm are the port's CUDA kernels.  :class:`PipelineModule`
+is the unit ``renderloom_torch.eval.export`` freezes.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from renderloom_torch.data.hsm import prepare_batch
 from renderloom_torch.eval.motion_infer import (MotionInterpolator,
@@ -66,9 +68,7 @@ def make_pipeline_fn(interp: MotionInterpolator, rollout: Callable,
     times = int(np.log2(rate))
     interp_pad = bucket_length(L, rate)
 
-    @torch.inference_mode()
-    def pipeline(motion: torch.Tensor, conf: torch.Tensor,
-                 keys: torch.Tensor):
+    def body(motion: torch.Tensor, conf: torch.Tensor, keys: torch.Tensor):
         if src_size is not None:
             keys = separable_resize(keys, H, W)
         pred, _, dconf = interp._run(motion, conf, rate, times, interp_pad)
@@ -88,7 +88,30 @@ def make_pipeline_fn(interp: MotionInterpolator, rollout: Callable,
                             "key_img": prep["image"]})
         return fused, fused.sum() * 1e-20
 
+    pipeline = torch.inference_mode()(body)
+    pipeline.body = body        # what PipelineModule traces
     return pipeline
+
+
+class PipelineModule(nn.Module):
+    """:func:`make_pipeline_fn`'s callable as a module that holds the
+    motion transformer and the generator, so that ``torch.export``
+    lifts their weights into the program.  ``forward(motion, conf,
+    keys) -> (fused, sync)`` runs the callable's body without the live
+    callable's ``torch.inference_mode`` (``torch.export`` cannot trace
+    inference tensors; it traces under ``torch.no_grad``); the per-clip
+    loop unrolls at the traced N."""
+
+    def __init__(self, fn: Callable, motion_model: nn.Module,
+                 gen: nn.Module):
+        super().__init__()
+        self.motion_model = motion_model
+        self.gen = gen
+        self._body = fn.body
+
+    def forward(self, motion: torch.Tensor, conf: torch.Tensor,
+                keys: torch.Tensor):
+        return self._body(motion, conf, keys)
 
 
 def build_pipeline(mcfg, rcfg, rate: int, keyframes: int, *,

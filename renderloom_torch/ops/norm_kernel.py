@@ -53,7 +53,11 @@ shifted fp32 contract otherwise, the parity norm when asked.  It runs
 the kernels for a CUDA tensor and the twins for a CPU tensor, through
 :class:`InstanceNormFunction` whenever a gradient is wanted (the
 shifted and the r3centered contract; the parity norm is inference-only);
-it never falls back from one device's path to the other's.
+it never falls back from one device's path to the other's.  Its
+inference calls under ``torch.export`` go through the registered
+operator ``renderloom::instance_norm`` (:func:`instance_norm_op`, with
+a fake that gives the output's shape and dtype), so that an exported
+program carries K2 and a loaded one launches it.
 """
 
 from __future__ import annotations
@@ -541,6 +545,29 @@ class InstanceNormFunction(torch.autograd.Function):
         return dx, dscale, dbias, None, None
 
 
+@torch.library.custom_op("renderloom::instance_norm", mutates_args=())
+def instance_norm_op(x: torch.Tensor, scale: Optional[torch.Tensor],
+                     bias: Optional[torch.Tensor], slope: Optional[float],
+                     eps: float, parity: bool, r3centered: bool
+                     ) -> torch.Tensor:
+    """K2 as the registered operator ``renderloom::instance_norm``, what a
+    ``torch.export`` program of the port calls: :func:`instance_norm_cuda`
+    for a CUDA tensor (counted there), :func:`instance_norm_plain` for a
+    CPU tensor.  Inference only: no autograd is registered."""
+    if x.is_cuda:
+        return instance_norm_cuda(x, scale, bias, slope, eps, parity=parity,
+                                  r3centered=r3centered)
+    return instance_norm_plain(x, scale, bias, slope, eps, parity,
+                               r3centered)
+
+
+@instance_norm_op.register_fake
+def _instance_norm_fake(x, scale, bias, slope, eps, parity, r3centered):
+    # r3centered returns float32 n·γ + β at an affine call site
+    f32 = r3centered and scale is not None
+    return x.new_empty(x.shape, dtype=torch.float32 if f32 else x.dtype)
+
+
 def instance_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                   bias: Optional[torch.Tensor] = None,
                   slope: Optional[float] = None,
@@ -564,6 +591,9 @@ def instance_norm(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
             raise RuntimeError("the parity instance norm is inference-only: "
                                "it has no backward")
         return InstanceNormFunction.apply(x, scale, bias, slope, eps)
+    if _build.traced(x):
+        return torch.ops.renderloom.instance_norm(x, scale, bias, slope, eps,
+                                                  parity, r3)
     if x.is_cuda:
         return instance_norm_cuda(x, scale, bias, slope, eps, parity=parity,
                                   r3centered=r3)

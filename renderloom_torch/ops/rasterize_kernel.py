@@ -35,16 +35,21 @@ the JAX-drawn values:
                       19 zero-length joint disks, then 20 limbs)
 
 :func:`rasterize_tables` takes the twin for CPU tensors and the kernel
-for CUDA tensors; it never falls back from one to the other.
+for CUDA tensors; it never falls back from one to the other.  Under
+``torch.export`` it calls the registered operator
+``renderloom::rasterize`` (:func:`rasterize_op`, with a fake that gives
+every output's shape and dtype), so that an exported program carries K1
+and a loaded one launches it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from renderloom_torch.ops import _build
 from renderloom_torch.ops import rasterize as R
 
 J = 19
@@ -290,8 +295,6 @@ def rasterize_tables_cuda(joints, skel, caps, height: int, width: int,
     if not (0 < F <= 65535 and height > 0 and width > 0
             and height * width < 2 ** 31):
         raise ValueError(f"unsupported raster size F={F} {height}x{width}")
-    from renderloom_torch.ops import _build
-
     fn = _build.load("rasterize").rl_rasterize
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
@@ -327,13 +330,73 @@ def rasterize_tables_cuda(joints, skel, caps, height: int, width: int,
 rasterize_tables_cuda.layout_launches = dict.fromkeys(LAYOUTS, 0)
 
 
+def _as_dict(outs, layout: str, emit_masks: bool) -> Dict[str, torch.Tensor]:
+    """The operator's fixed tuple (first, second, mask, part_mask) as the
+    wrappers' dict; unused slots are empty tensors."""
+    first, second, mask, part_mask = outs
+    out = ({"heatmaps": first, "skeleton": second} if layout == "cfhw"
+           else {"label": first})
+    if emit_masks:
+        out["mask"], out["part_mask"] = mask, part_mask
+    return out
+
+
+@torch.library.custom_op("renderloom::rasterize", mutates_args=())
+def rasterize_op(joints: torch.Tensor, skel: torch.Tensor,
+                 caps: torch.Tensor, height: int, width: int,
+                 out_dtype: torch.dtype, emit_masks: bool, layout: str
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """K1 as the registered operator ``renderloom::rasterize``, what a
+    ``torch.export`` program of the port calls: (label, empty, mask,
+    part_mask) for the nhwc and packed layouts, (heatmaps, skeleton,
+    mask, part_mask) for cfhw, the masks empty without ``emit_masks``.
+    :func:`rasterize_tables_cuda` for CUDA tables (counted there), the
+    twin for CPU tables."""
+    run = (rasterize_tables_cuda if joints.is_cuda
+           else rasterize_tables_plain)
+    out = run(joints, skel, caps, height, width, out_dtype, emit_masks,
+              layout=layout)
+    empty = lambda dtype: joints.new_empty((0,), dtype=dtype)
+    masks = ((out["mask"], out["part_mask"]) if emit_masks
+             else (empty(torch.float32), empty(torch.float32)))
+    if layout == "cfhw":
+        return out["heatmaps"], out["skeleton"], *masks
+    return out["label"], empty(out_dtype), *masks
+
+
+@rasterize_op.register_fake
+def _rasterize_fake(joints, skel, caps, height, width, out_dtype,
+                    emit_masks, layout):
+    _check_layout(layout, height, width, emit_masks)
+    F = joints.shape[0]
+    new = lambda *shape, dtype=out_dtype: joints.new_empty(shape,
+                                                           dtype=dtype)
+    if layout == "cfhw":
+        first, second = new(F, J, height, width), new(F, 3, height, width)
+    elif layout == "packed":
+        first = new(F, height // 2, width // 2, 4 * LABEL_C)
+        second = new(0)
+    else:
+        first, second = new(F, height, width, LABEL_C), new(0)
+    n = (F, height, width) if emit_masks else (0,)
+    return (first, second, new(*n, dtype=torch.float32),
+            new(*n, dtype=torch.float32))
+
+
 def rasterize_tables(joints, skel, caps, height: int, width: int,
                      out_dtype=torch.float32, emit_masks: bool = False,
                      layout: str = "nhwc") -> Dict[str, torch.Tensor]:
     """The label in ``layout`` and ``out_dtype`` (see the module
     docstring) plus, with ``emit_masks``, the human and part masks
     (F, H, W) f32 0/1: the CUDA kernel for CUDA tables, the plain twin
-    for CPU tables."""
+    for CPU tables.  Under ``torch.export`` (fake tables) the call goes
+    through the registered operator :func:`rasterize_op`; eager calls
+    skip its dispatch and reach the same kernel."""
+    if _build.traced(joints):
+        return _as_dict(torch.ops.renderloom.rasterize(
+            joints, skel, caps, height, width, out_dtype, emit_masks,
+            layout), layout, emit_masks)
     if joints.is_cuda:
         return rasterize_tables_cuda(joints, skel, caps, height, width,
                                      out_dtype, emit_masks, layout=layout)

@@ -42,6 +42,9 @@ from renderloom_torch.models.layers import (cast_weights_,
 from renderloom_torch.models.perceptual import PerceptualLoss
 from renderloom_torch.models.renderer import Generator, composite
 from renderloom_torch.ops.image import denorm_to_unit, ssim
+from renderloom_torch.parallel.mesh import (all_reduce_mean, count_share,
+                                            mean_metrics, replicate,
+                                            shard_batch, times_world, world)
 from renderloom_torch.train.gan_losses import (feature_matching_loss,
                                                gan_loss,
                                                mask_regulation_loss,
@@ -76,6 +79,10 @@ class AmsgradIfFinite:
       max(nu_max, nu_hat)``, and ``p += −lr(count_before) ·
       mu_hat / (√nu_max + eps)``.
 
+    Under data parallelism (``renderloom_torch.parallel``) g is first
+    averaged over the ranks, one all-reduce of the flat vector per
+    update.
+
     ``torch.optim.Adam(amsgrad=True)`` orders the bias correction and
     the maximum differently (it keeps the max of the uncorrected
     ``nu``), so it is not this optimizer."""
@@ -108,6 +115,9 @@ class AmsgradIfFinite:
         """One update; returns the raw gradients' global norm when
         clipping (a device scalar), else None."""
         g = torch.cat([x.reshape(-1) for x in grads]).to(self.flat.dtype)
+        # data parallel: the ranks' mean gradient, before the finite check,
+        # so every rank takes the same decision and update
+        g = all_reduce_mean(g)
         isfinite = torch.isfinite(g).all()
         g_norm = None
         if self.clip_norm is not None:
@@ -209,6 +219,8 @@ def create_gan_state(cfg: RendererConfig, device, seed: int = 0,
         load_flax_params(gen, trees["params_g"], trees["stats_g"])
         load_flax_params(dis, trees["params_d"], trees["stats_d"])
     gen, dis = gen.to(device).train(), dis.to(device).train()
+    replicate(gen)              # data parallel: rank 0's weights
+    replicate(dis)
     opt_g, opt_d = make_gan_optimizers(cfg, gen, dis, steps_per_epoch)
     return GanTrainState(gen, dis, opt_g, opt_d, 0,
                          torch.Generator().manual_seed(seed + 2))
@@ -252,30 +264,50 @@ def _weights_dict(cfg: RendererConfig) -> Dict[str, float]:
     return w
 
 
-def d_losses(d_out: Dict, mode: str, weights: Dict[str, float]):
-    """Σ w_key·(loss on fakes + loss on reals), and the per-key terms."""
+def count_shares(d_out: Dict, fg: torch.Tensor, img: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+    """A frame's divisors of the losses that divide by a count over the
+    batch, in one :func:`~renderloom_torch.parallel.count_share`: the
+    foreground's masked elements (``"fg"``, :func:`masked_l1_image`'s)
+    and each weighted discriminator's summed sample weight (its key)."""
+    keys = [k for k, out in d_out.items() if out.get("weight") is not None]
+    shares = count_share(torch.stack(
+        [fg.expand(img.shape).float().sum()]
+        + [d_out[k]["weight"].float().sum() for k in keys]))
+    return {"fg": shares[0], **dict(zip(keys, shares[1:]))}
+
+
+def d_losses(d_out: Dict, mode: str, weights: Dict[str, float],
+             counts: Optional[Dict[str, torch.Tensor]] = None):
+    """Σ w_key·(loss on fakes + loss on reals), and the per-key terms;
+    ``counts`` (:func:`count_shares`) give the weighted keys' divisors."""
+    counts = counts or {}
     per_key = {}
     for key, out in d_out.items():
-        wgt = out.get("weight")
+        wgt, n = out.get("weight"), counts.get(key)
         per_key[key] = (gan_loss(out["pred_fake"]["output"], False, True,
-                                 mode, wgt)
+                                 mode, wgt, n)
                         + gan_loss(out["pred_real"]["output"], True, True,
-                                   mode, wgt))
+                                   mode, wgt, n))
     total = sum(per_key[k] * weights[k] for k in per_key)
     return total, per_key
 
 
 def g_gan_losses(d_out: Dict, mode: str, weights: Dict[str, float],
-                 fm_w: float):
-    """G-side GAN and feature-matching totals."""
+                 fm_w: float,
+                 counts: Optional[Dict[str, torch.Tensor]] = None):
+    """G-side GAN and feature-matching totals (``counts`` as
+    :func:`d_losses`)."""
+    counts = counts or {}
     gan_total = 0.0
     fm_total = 0.0
     for key, out in d_out.items():
-        wgt = out.get("weight")
+        wgt, n = out.get("weight"), counts.get(key)
         gan_total = gan_total + weights[key] * gan_loss(
-            out["pred_fake"]["output"], True, False, mode, wgt)
+            out["pred_fake"]["output"], True, False, mode, wgt, n)
         fm_total = fm_total + fm_w * feature_matching_loss(
-            out["pred_fake"]["features"], out["pred_real"]["features"], wgt)
+            out["pred_fake"]["features"], out["pred_real"]["features"], wgt,
+            n)
     return gan_total, fm_total
 
 
@@ -297,6 +329,12 @@ def make_gan_train_step(cfg: RendererConfig, perceptual: PerceptualLoss,
     config's compute dtype once (the label after the preparation
     rasterized it in float32); the metrics are float32.
 
+    Data parallel (``renderloom_torch.parallel``): ``batch`` is this
+    rank's block of the global batch (``shard_batch``); the preparation's
+    draws are made for the global batch on every rank and each takes its
+    block, the optimizers average the gradients over the ranks, and the
+    metrics are global-batch means.
+
     ``on_stage(name)``, when given, is called as each stage ends:
     ``"prep"`` once, then per frame ``"g_forward"``, ``"d_step"`` and
     ``"g_step"`` (a profiler synchronises and reads its clock there)."""
@@ -305,15 +343,18 @@ def make_gan_train_step(cfg: RendererConfig, perceptual: PerceptualLoss,
     mode = cfg.gan_mode
     weights = _weights_dict(cfg)
 
-    def g_loss(dis, label, real, fg, back, img, mask):
+    def g_loss(dis, label, real, fg, back, img, mask, counts):
         fused = composite(img, mask, back)
         d_out = dis(label, real, fused, img, fg, update_stats=False)
-        loss_gan, loss_fm = g_gan_losses(d_out, mode, weights, cfg.fm_w)
+        loss_gan, loss_fm = g_gan_losses(d_out, mode, weights, cfg.fm_w,
+                                         counts)
         loss_perc = (perceptual(fused, real) + perceptual(img * fg, real * fg)
                      ) * cfg.perceptual.weight
         loss_l1 = ((fused - real).abs().float().mean()
-                   + masked_l1_image(img, fg, real)) * cfg.l1_w
-        loss_mask = mask_regulation_loss(mask) * cfg.mask_w
+                   + masked_l1_image(img, fg, real, count=counts["fg"])
+                   ) * cfg.l1_w
+        # summed over the batch: this rank's share of the global sum
+        loss_mask = times_world(mask_regulation_loss(mask)) * cfg.mask_w
         total = loss_gan + loss_fm + loss_perc + loss_l1 + loss_mask
         metrics = {"g/gan": loss_gan, "g/fm": loss_fm, "g/perc": loss_perc,
                    "g/l1": loss_l1, "g/mask": loss_mask}
@@ -346,14 +387,17 @@ def make_gan_train_step(cfg: RendererConfig, perceptual: PerceptualLoss,
         # D update (old D, detached G outputs)
         d_out = dis(label, real, fuse.detach(), img.detach(), fg,
                     update_stats=True)
-        d_total, d_per_key = d_losses(d_out, mode, weights)
+        # the frame's counts over the global batch (data parallel), which
+        # the G update's discriminator pass shares
+        counts = count_shares(d_out, fg, img)
+        d_total, d_per_key = d_losses(d_out, mode, weights, counts)
         state.opt_d.step(torch.autograd.grad(d_total, state.opt_d.params,
                                              materialize_grads=True))
         stage("d_step")
 
         # G update through the updated D, into G only
         g_total, fused, metrics = g_loss(dis, label, real, fg, back, img,
-                                         mask)
+                                         mask, counts)
         state.opt_g.step(torch.autograd.grad(g_total, state.opt_g.params,
                                              materialize_grads=True))
         stage("g_step")
@@ -365,9 +409,12 @@ def make_gan_train_step(cfg: RendererConfig, perceptual: PerceptualLoss,
     def train_step(state: GanTrainState, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
         if data_cfg is not None:
-            B, F = batch["images"].shape[:2]
+            b, F = batch["images"].shape[:2]
             dev = batch["images"].device
-            draws = draw_train_randomness(state.rng, B, F, data_cfg)
+            # the global batch's draws; this rank's block of them
+            B = b * world()[1]
+            draws = shard_batch(draw_train_randomness(state.rng, B, F,
+                                                      data_cfg), B)
             batch = prepare_batch(batch, data_cfg,
                                   {k: v.to(dev) for k, v in draws.items()})
             stage("prep")
@@ -385,8 +432,8 @@ def make_gan_train_step(cfg: RendererConfig, perceptual: PerceptualLoss,
                 prev_fuse)
             per_frame.append(metrics)
         state.step += 1
-        out = {k: torch.stack([m[k] for m in per_frame]).mean()
-               for k in per_frame[0]}
+        out = mean_metrics({k: torch.stack([m[k] for m in per_frame]).mean()
+                            for k in per_frame[0]})
         out["notfinite/g"] = state.opt_g.notfinite_count.float()
         out["notfinite/d"] = state.opt_d.notfinite_count.float()
         return out

@@ -20,6 +20,12 @@ the config's ``compute_dtype`` on float32 parameters.
 Metrics (device scalars): ``loss/denoise``, ``loss/pose2d``,
 ``loss/total``, ``grad_norm`` (of the raw gradients) and ``notfinite``
 (the consecutive skipped updates).
+
+Data parallel (``renderloom_torch.parallel``): each rank's step takes
+its block of the global batch, the synthesis draws are made for the
+global batch on every rank and sliced, the optimizer averages the
+gradients over the ranks before its clip, and the metrics are
+global-batch means.  Dropout masks come from each rank's own generator.
 """
 
 from __future__ import annotations
@@ -35,18 +41,23 @@ from renderloom_torch.models.motion_transformer import (MotionTransformer,
                                                         build_motion_model,
                                                         init_motion_params)
 from renderloom_torch.ops import pose as pose_ops
+from renderloom_torch.parallel.mesh import (count_share, mean_metrics,
+                                            replicate, shard_batch, world)
 from renderloom_torch.train.gan import (AmsgradIfFinite,
                                         set_float32_precision)
 from renderloom_torch.train.schedules import step_schedule
 
 
 def masked_l1(pred: torch.Tensor, mask: torch.Tensor,
-              target: torch.Tensor) -> torch.Tensor:
+              target: torch.Tensor,
+              count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked L1 over (B, C, L) with a (B, L) mask, True = excluded: the
-    sum of |pred − target| over the unmasked steps over their count × C."""
+    sum of |pred − target| over the unmasked steps over their count × C
+    (at least 1), or over ``count`` where given."""
     not_mask = (~mask.bool()).to(pred.dtype)[:, None, :]
-    n = not_mask.sum() * pred.shape[1]
-    return ((pred - target).abs() * not_mask).sum() / torch.clamp(n, min=1.0)
+    n = (torch.clamp(not_mask.sum() * pred.shape[1], min=1.0)
+         if count is None else count)
+    return ((pred - target).abs() * not_mask).sum() / n
 
 
 def masked_mse(pred: torch.Tensor, mask: torch.Tensor,
@@ -91,18 +102,22 @@ def create_motion_state(cfg: MotionConfig, device, seed: int = 0,
     (:func:`~renderloom_torch.models.motion_transformer.
     init_motion_params`); the synthesis draws from a CPU generator
     seeded ``seed + 1``, the dropout masks from a generator on
-    ``device`` seeded ``seed + 2``.  float32 means float32 (no TF32)."""
+    ``device`` seeded ``seed + 2`` (+ rank·2³² on other ranks of a data-
+    parallel run).  float32 means float32 (no TF32)."""
     set_float32_precision()
     if params is None:
         model = init_motion_params(cfg, seed)
     else:
         model = load_flax_params(build_motion_model(cfg), params)
     model = model.to(device).train()
+    replicate(model)            # data parallel: rank 0's weights
     device = torch.device(device)
     return MotionTrainState(
         model, make_optimizer(cfg, model, steps_per_epoch), 0,
         torch.Generator().manual_seed(seed + 1),
-        torch.Generator(device=device).manual_seed(seed + 2))
+        # each rank its own dropout masks (rank 0: seed + 2)
+        torch.Generator(device=device).manual_seed(
+            seed + 2 + (world()[0] << 32)))
 
 
 def _seq(x: torch.Tensor) -> torch.Tensor:
@@ -121,8 +136,13 @@ def motion_loss(model: MotionTransformer, batch: Dict[str, torch.Tensor],
     pred, reco = _seq(pred), _seq(reco)
     gt = batch["data"]
     mask_gen = ~torch.logical_xor(src_mask.bool(), pad_mask.bool())
-    loss_reco = masked_l1(reco, src_mask, gt)
-    loss_pred = masked_l1(pred, mask_gen, gt)
+    # both terms' counts as this rank's share of the global batch's (data
+    # parallel; parallel.count_share), in one all-reduce
+    n = count_share(torch.stack([
+        (~m.bool()).to(pred.dtype).sum() * pred.shape[1]
+        for m in (src_mask, mask_gen)]))
+    loss_reco = masked_l1(reco, src_mask, gt, n[0])
+    loss_pred = masked_l1(pred, mask_gen, gt, n[1])
     total = (w_codition * loss_reco + loss_pred) * w_2d
     metrics = {"loss/denoise": loss_reco, "loss/pose2d": loss_pred,
                "loss/total": total}
@@ -150,9 +170,12 @@ def make_train_step(cfg: MotionConfig, mean, std,
             stats[dev] = tuple(torch.as_tensor(x, dtype=torch.float32,
                                                device=dev)
                                for x in (mean, std))
-        B, L = pad_mask.shape
+        b, L = pad_mask.shape
         if draws is None:
-            draws = pose_ops.draw_synthesis(state.rng, B, L, synth)
+            # the global batch's draws; this rank's block of them
+            B = b * world()[1]
+            draws = shard_batch(pose_ops.draw_synthesis(state.rng, B, L,
+                                                        synth), B)
         batch = pose_ops.synthesize_batch(motion3d, pad_mask, *stats[dev],
                                           synth, draws)
         total, (_, metrics) = motion_loss(state.model, batch, synth.rate,
@@ -160,6 +183,7 @@ def make_train_step(cfg: MotionConfig, mean, std,
                                           state.dropout_rng)
         grads = torch.autograd.grad(total, state.opt.params,
                                     materialize_grads=True)
+        metrics = mean_metrics(metrics)
         metrics["grad_norm"] = state.opt.step(grads)
         metrics["notfinite"] = state.opt.notfinite_count.float()
         state.step += 1

@@ -57,7 +57,11 @@ def test_port_imports_no_jax_and_no_jax_package():
             "renderloom_torch.eval.motion_eval",
             "renderloom_torch.models.motion_discriminator",
             "renderloom_torch.train.motion",
-            "renderloom_torch.utils.profiling"} <= set(mods)
+            "renderloom_torch.utils.profiling",
+            "renderloom_torch.parallel", "renderloom_torch.parallel.mesh",
+            "renderloom_torch.eval.export",
+            "renderloom_torch.utils.serving", "renderloom_torch.bench",
+            "renderloom_torch.cli.export_model"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(sys.modules)))")
