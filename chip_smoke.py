@@ -190,6 +190,31 @@ M2. holds the card's motion step against the CPU's at hidden 32, 2+2
    bf16 by mean error, with the card bf16 step against the CPU float32
    step as a control that must read beyond each limit;
 
+then the learned flow UNet and the pose head (after phase Q):
+
+L. trains the flow UNet (FlowConfig(): base 24, 4 levels) through its
+   CLI (``train_flow.main --synthetic``) at 384x256, batch 8, in float32
+   and bf16: finite losses, no skipped update, the checkpoint; prints
+   the CLI's steps/s, the step's alone, peak memory and the losses; runs
+   the learned ``upsample_background`` (two doublings, rate 4) on phase
+   4's 8 keyframes from the float32 checkpoint (shape, finite, keyframes
+   exact) and prints its ms beside LK's (the CLIs' full-resolution flow
+   and the in-memory pipeline's flow_scale 4); holds card against CPU
+   at 64x96 (``_flow_cpu_match``: flows, ``time_warp``, one train step,
+   bf16 flows with a float32 control);
+K. trains the pose head (PoseNetConfig(): base 32, 4 blocks) through
+   ``train_pose.main --synthetic --occlude-rate 0.5`` at 384x256, batch
+   16, as L; runs ``extract_pose.extract_folder`` over phase 4's
+   keyframes as PNGs at 384x256, batch 8 (the JSONs read back by
+   ``data/openpose.py``); holds card against CPU at 64x96 (logits,
+   keypoints, one train step on shared occlusion draws);
+V2. runs the pipeline CLI at full width with ``--pose-ckpt`` and
+   ``--flow-ckpt`` (K's and L's float32 checkpoints) on phase 4's
+   weights: K1 and K2 launched exactly as in phase V's LK run, K1 held
+   bit for bit on the run's tables, the frame, pose and background
+   counts, the keyframes; prints each stage's seconds and frames/s
+   beside V's;
+
 then the frozen serving artifact and the batch planner (after phase O):
 
 X. exports phase 4's float32 standard pipeline and phase H's bf16
@@ -207,7 +232,25 @@ Y. runs the bf16 fastpath at N = 1, 2, 4, 8 clips: ms per batch, peak
    memory and launches per N, and ``utils.serving.plan_chunks``' plans
    and planned frames/s for n = 1..16;
 
-and data parallelism (after phase M2):
+and the train steps' reproducibility (after phase M2):
+
+G. runs the full-width float32 GAN step (phase C's configuration) twice
+   from one state per setting: at learning rate 0 the largest |dg| of
+   each network by default, under ``torch.use_deterministic_algorithms
+   (True, warn_only=True)`` with ``cudnn.deterministic`` and
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, and under those settings with the
+   discriminators' resize as torch's antialiased ``F.interpolate``,
+   printing the operators torch names as having no deterministic CUDA
+   implementation; the windows/s by default, with that resize and with
+   ``cudnn.deterministic``, in turns; two runs of 2 steps at the
+   learning rate by default and with ``cudnn.deterministic``; and the
+   flow and pose steps at 384x256 twice each, by default and with
+   ``cudnn.deterministic``, in turns; the card's matmul resize against
+   ``F.interpolate`` at the GAN step's resize shapes.  It fails unless
+   the deterministic settings make all three steps repeat bit for bit
+   with no operator named;
+
+and data parallelism (after phase G):
 
 Z. the motion step (motion.yaml, dropout 0) and the GAN step (hsm.yaml,
    float32, global batch 4) at world 2 — two spawned processes over gloo,
@@ -215,7 +258,8 @@ Z. the motion step (motion.yaml, dropout 0) and the GAN step (hsm.yaml,
    motion step as tests/test_torch_parallel.py holds both (``dp_hold``:
    metrics 1e-6 relative, parameters 1e-6 but for the near-zero-gradient
    elements), the GAN step, whose backward on the card is not
-   reproducible to the bit, at learning rate 0 (``dp_hold_gradients``:
+   reproducible to the bit (cuDNN's backward algorithms, phase G), at
+   learning rate 0 (``dp_hold_gradients``:
    every metric 1e-6 relative, the averaged gradients 3e-3 of their
    largest), each rank launching K1, K2 and K2b as world 1 does; their
    seqs/s and windows/s; the motion CLI under ``torchrun
@@ -3541,7 +3585,7 @@ def phase_motion_train():
     import dataclasses
 
     from renderloom_torch.cli import train_motion as TMC
-    from renderloom_torch.core.checkpoint import read_motion
+    from renderloom_torch.core.checkpoint import read_params
     from renderloom_torch.core.config import load_motion_config
     from renderloom_torch.train.motion import (create_motion_state,
                                                make_train_step)
@@ -3635,7 +3679,7 @@ def phase_motion_train():
           f"compute_stats {total:.2f} s")
     print("    eval: " + ", ".join(f"{k[5:]} {v:.6g}" for k, v in
                                    ev[0].items() if k.startswith("eval/")))
-    params = read_motion(os.path.join(work, "run", "checkpoint.pt"))
+    params = read_params(os.path.join(work, "run", "checkpoint.pt"))
     if len(ev) != 1 or len(tr) != epoch["steps"] or not all(
             np.isfinite(v) for r in lines for v in r.values()) or \
             set(params) != {n.split(".")[0] for n, _ in
@@ -5015,11 +5059,14 @@ def dp_hold(name, one, two, lrs) -> dict:
 
 
 # The full-width float32 GAN step on the card is not reproducible to the
-# bit: two world-1 runs in one process give the same metrics and
-# gradients within 8e-7 of the largest |g| (its backward is not
-# deterministic), and AMSGrad's first updates turn that into ±lr on most
-# parameters, so after one update the metrics of two world-1 runs differ
-# by 1.3e-3 relative (NVIDIA H100 80GB HBM3, 700 W).  So on the card the
+# bit: cuDNN's convolution backward algorithms, as its heuristics choose
+# them, add in an order that varies from run to run (phase G: two world-1
+# runs give gradients within about 1e-6 of the largest |g| by default and
+# bit for bit with cudnn.deterministic, which costs more windows/s than the
+# 5% this repository accepts for such a repair, so it is not set), and
+# AMSGrad's first updates turn that into ±lr on most parameters, so after
+# one update the metrics of two world-1 runs differ by 1e-3 relative and
+# more (NVIDIA H100 80GB HBM3, 700 W).  So on the card the
 # GAN step is held with both learning rates 0, where nothing amplifies:
 # every metric of every step to DP_RTOL, and each network's first moment
 # (the averaged gradients as AMSGrad accumulates them) within
@@ -5353,6 +5400,778 @@ def phase_data_parallel(train):
     return out
 
 
+# ---------------------------------------------------------------------------
+# L. the learned flow UNet, K. the pose head, V2. the pipeline CLI on both
+# ---------------------------------------------------------------------------
+
+TRAIN_HW = (256, 384)       # the flow and pose training CLIs' default size
+TRAIN_STEPS = 6             # synthetic steps each training CLI takes
+SMALL_HW = (64, 96)         # card against CPU
+LEARNED_DIR = os.path.join(ROOT, "build", "chip_smoke_learned")  # not copied
+# Card against CPU at SMALL_HW with identical weights, inputs and draws
+# (the flow UNet at FlowConfig()'s widths, the pose head at
+# PoseNetConfig()'s, seeded weights with nonzero heads).  float32: the
+# outputs (flows, time-warped frames, logits) over their largest
+# magnitude, the train step's metrics relative, and its parameters: a
+# first Adam update is lr·g/(|g| + eps), so a parameter whose |g| lies at
+# the gradients' rounding level may move by up to 2·lr the other way; at
+# most LEARNED_FLIP_SHARE of the elements may lie beyond 1e-6.  bf16 (the
+# UNet's flows): the mean |card - CPU| over the flows' largest within
+# LEARNED_BF16_MEAN, and the card's float32 flows against the CPU's bf16
+# (the control) beyond it.  Readings on an NVIDIA H100 80GB HBM3 at
+# 700 W: flows 1.8e-6, time_warp 1.8e-7, logits 1.3e-6, keypoints
+# 2.5e-4 px; the flow step's metrics 2.1e-7 and parameters 1.5e-7 (none
+# beyond 1e-6), the pose step's 1.3e-6 and 1.2e-4 (0.024% beyond); bf16
+# 5.6e-4 with the control at 1.56e-3.  The limits are 5-10x the float32
+# readings, 20x the share and 1.35x the bf16 reading.
+LEARNED_F32_RTOL = 1e-5
+LEARNED_STEP_RTOL = 1e-5
+LEARNED_FLIP_SHARE = 5e-3
+LEARNED_BF16_MEAN = 7.5e-4
+
+
+def _flat_yaml(path: str, cfg) -> str:
+    """Write a flow or pose config as yaml; raises unless the port's
+    loader reads it back equal."""
+    import dataclasses
+
+    import yaml
+
+    from renderloom_torch.core import config as C
+
+    with open(path, "w") as f:
+        yaml.safe_dump(dataclasses.asdict(cfg), f)
+    load = (C.load_flow_config if isinstance(cfg, C.FlowConfig)
+            else C.load_pose_config)
+    if load(path) != cfg:
+        raise AssertionError(f"{path} does not load as the config written")
+    return path
+
+
+def _steps_per_sec(fn, n: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - tic)
+
+
+def _train_cli(cli, run_dir: str, extra: list) -> dict:
+    """``cli.main`` (train_flow or train_pose) on synthetic data at
+    TRAIN_HW for TRAIN_STEPS steps, every step logged: the final state,
+    the checkpoint, the CLI's steps/s (host-side data generation
+    included), peak memory and the losses."""
+    H, W = TRAIN_HW
+    real = cli.TRAIN_LOG_EVERY
+    cli.TRAIN_LOG_EVERY = 1
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        res = cli.main(["--synthetic", "--epochs", "1", "--steps-per-epoch",
+                        str(TRAIN_STEPS), "--height", str(H), "--width",
+                        str(W), "--out-dir", run_dir, "--device", DEVICE]
+                       + extra)
+    finally:
+        cli.TRAIN_LOG_EVERY = real
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    recs = _jsonl(os.path.join(run_dir, "metrics.jsonl"))
+    ckpt = os.path.join(run_dir, "checkpoint.pt")
+    if len(recs) != TRAIN_STEPS or res["state"].step != TRAIN_STEPS or \
+            not os.path.exists(ckpt):
+        raise AssertionError(f"{run_dir}: {len(recs)} records, step "
+                             f"{res['state'].step}")
+    if any(r["train/notfinite"] for r in recs) or not all(
+            np.isfinite(v) for r in recs for v in r.values()):
+        raise AssertionError(f"{run_dir}: non-finite or skipped updates")
+    ep = res["epochs"][0]
+    return dict(state=res["state"], ckpt=ckpt, peak_gib=peak,
+                cli_steps_per_sec=ep["steps"] / ep["seconds"],
+                losses=[r["train/loss/total"] for r in recs])
+
+
+def _params_gap(got: torch.Tensor, want: torch.Tensor, lr: float) -> dict:
+    """A card train step's flat parameters against the CPU's (see
+    LEARNED_FLIP_SHARE)."""
+    err = (got.cpu() - want).abs()
+    return dict(max=err.max().item(),
+                beyond=(err > 1e-6).float().mean().item(),
+                ok=bool(err.max() <= 2 * lr + 1e-6
+                        and (err > 1e-6).float().mean() <= LEARNED_FLIP_SHARE))
+
+
+def _metrics_gap(got: dict, want: dict) -> float:
+    return max(abs(float(got[k]) - float(want[k]))
+               / max(abs(float(want[k])), 1e-12) for k in want)
+
+
+def _flow_cpu_match(flows_cfg) -> dict:
+    """The UNet's flows (float32 and bf16), ``time_warp`` and one train
+    step, card against CPU at SMALL_HW."""
+    import dataclasses
+
+    from renderloom_torch.cli.train_flow import synthetic_triplets
+    from renderloom_torch.convert import flax_trees, random_init_
+    from renderloom_torch.models.flownet import time_warp
+    from renderloom_torch.train.flow import (build_flow_model,
+                                             create_flow_state,
+                                             make_flow_train_step)
+
+    H, W = SMALL_HW
+    trip = torch.from_numpy(next(synthetic_triplets(
+        np.random.default_rng(4), 1, 2, H, W))["frames"])
+    tree = flax_trees(random_init_(build_flow_model(flows_cfg), 7))[0]
+    out = {}
+    flows = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(flows_cfg, compute_dtype=dtype)
+        for dev in ("cpu", DEVICE):
+            model = create_flow_state(cfg, dev, params=tree).model.eval()
+            x = trip.to(dev)
+            with torch.no_grad():
+                f01, f10 = model(x[:, 0], x[:, 2])
+                warped = time_warp(x[:, 0], x[:, 2], f01, f10, 0.5,
+                                   max_disp=cfg.max_disp)
+            flows[dtype, dev] = (torch.cat([f01, f10], -1).cpu(),
+                                 warped.cpu())
+    (fc, wc), (fg, wg) = flows["float32", "cpu"], flows["float32", DEVICE]
+    scale = fc.abs().max().item()
+    out["flows"] = (fg - fc).abs().max().item() / scale
+    out["time_warp"] = (wg - wc).abs().max().item() / wc.abs().max().item()
+    b16c, b16g = flows["bfloat16", "cpu"][0], flows["bfloat16", DEVICE][0]
+    out["bf16_mean"] = (b16g - b16c).abs().mean().item() / scale
+    out["bf16_control"] = (fg - b16c).abs().mean().item() / scale
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        state = create_flow_state(flows_cfg, dev, params=tree)
+        m = make_flow_train_step(flows_cfg)(state, {"frames": trip.to(dev)})
+        runs[dev] = ({k: float(v) for k, v in m.items()},
+                     state.opt.flat.detach().cpu())
+    out["step_metrics"] = _metrics_gap(runs[DEVICE][0], runs["cpu"][0])
+    out["step_params"] = _params_gap(runs[DEVICE][1], runs["cpu"][1],
+                                     flows_cfg.lr)
+    print(f"  card vs CPU at {W}x{H} (FlowConfig() widths, seeded weights): "
+          f"flows {out['flows']:.3e} of their largest ({scale:.3f} px; tol "
+          f"{LEARNED_F32_RTOL:.0e}), time_warp {out['time_warp']:.3e} (tol "
+          f"{LEARNED_F32_RTOL:.0e}); one train step: metrics "
+          f"{out['step_metrics']:.3e} relative (tol {LEARNED_STEP_RTOL:.0e}),"
+          f" parameters max {out['step_params']['max']:.3e}, "
+          f"{100 * out['step_params']['beyond']:.3f}% beyond 1e-6; bf16 "
+          f"flows mean {out['bf16_mean']:.3e} of the largest (tol "
+          f"{LEARNED_BF16_MEAN:.1e}), control (card float32 vs CPU bf16, "
+          f"must lie beyond it) {out['bf16_control']:.3e}")
+    if not (out["flows"] <= LEARNED_F32_RTOL
+            and out["time_warp"] <= LEARNED_F32_RTOL
+            and out["step_metrics"] <= LEARNED_STEP_RTOL
+            and out["step_params"]["ok"]
+            and out["bf16_mean"] <= LEARNED_BF16_MEAN
+            < out["bf16_control"]):
+        raise AssertionError(f"flow UNet card vs CPU: {out}")
+    return out
+
+
+def phase_flow(serve) -> dict:
+    """L: the flow UNet's training CLI in float32 and bf16, the learned
+    backgrounds of phase 4's keyframes beside LK's, card vs CPU."""
+    import dataclasses
+    import shutil
+
+    from renderloom_torch.cli import infer_renderer, train_flow
+    from renderloom_torch.core.config import FlowConfig
+    from renderloom_torch.eval.pipeline import FLOW
+    from renderloom_torch.ops.flow import upsample_background
+    from renderloom_torch.train.flow import make_flow_train_step
+
+    H, W = TRAIN_HW
+    cfg0 = FlowConfig()
+    print(f"L. learned flow: FlowConfig() (base {cfg0.base_filters}, levels "
+          f"{cfg0.levels}), train_flow --synthetic at {W}x{H}, batch "
+          f"{cfg0.batch_size}, {TRAIN_STEPS} steps, float32 and bf16; seeded "
+          f"weights")
+    shutil.rmtree(LEARNED_DIR, ignore_errors=True)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(cfg0, compute_dtype=dtype)
+        run_dir = os.path.join(LEARNED_DIR, f"flow_{dtype}")
+        os.makedirs(run_dir)
+        res = _train_cli(train_flow, run_dir, [
+            "--config", _flat_yaml(os.path.join(run_dir, "flow.yaml"), cfg)])
+        step = make_flow_train_step(cfg)
+        batch = {"frames": torch.from_numpy(next(train_flow.synthetic_triplets(
+            np.random.default_rng(3), 1, cfg.batch_size, H, W))["frames"]
+        ).to(DEVICE)}
+        sps = _steps_per_sec(lambda: step(res["state"], batch))
+        print(f"  {dtype}: the CLI {res['cli_steps_per_sec']:.2f} steps/s "
+              f"(its synthetic data made on the host included), the step "
+              f"alone {sps:.2f} steps/s = {sps * cfg.batch_size:.1f} "
+              f"triplets/s; peak {res['peak_gib']:.2f} GiB; losses "
+              + ", ".join(f"{v:.4f}" for v in res["losses"]))
+        out[dtype] = dict(res, steps_per_sec=sps)
+        del out[dtype]["state"]
+
+    motion, conf, keys = serve["inputs"]
+    rate = serve["rate"]
+    keys = keys[0]
+    interp = infer_renderer.load_flow_interp(out["float32"]["ckpt"], None,
+                                             DEVICE)
+    with torch.inference_mode():
+        backs = upsample_background(keys, rate, interp_fn=interp)
+        L = (keys.shape[0] - 1) * rate + 1
+        if tuple(backs.shape) != (L,) + tuple(keys.shape[1:]) or \
+                not bool(torch.isfinite(backs).all()) or \
+                not torch.equal(backs[::rate], keys):
+            raise AssertionError(f"learned backgrounds {tuple(backs.shape)}")
+        ms = {"learned": cuda_ms(
+            lambda: upsample_background(keys, rate, interp_fn=interp), 3, 1),
+            "LK (the CLIs' full-resolution flow)": cuda_ms(
+                lambda: upsample_background(keys, rate), 3, 1),
+            "LK (the in-memory pipeline's flow_scale 4)": cuda_ms(
+                lambda: upsample_background(keys, rate, **FLOW), 3, 1)}
+    print(f"  learned upsample_background of phase 4's {keys.shape[0]} "
+          f"keyframes at {keys.shape[2]}x{keys.shape[1]}, rate {rate} "
+          f"({int(np.log2(rate))} doublings) from the float32 checkpoint: "
+          f"{tuple(backs.shape)} finite, keyframes exact; ms per clip: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + f" ({card_line()})")
+    out["backgrounds_ms"] = ms
+    out["cpu_match"] = _flow_cpu_match(cfg0)
+    return out
+
+
+def _pose_cpu_match(cfg0) -> dict:
+    """The head's logits and keypoints, and one train step with
+    occlusion on shared draws, card against CPU at SMALL_HW."""
+    from renderloom_torch.convert import flax_trees, random_init_
+    from renderloom_torch.models.posenet import decode_heatmaps
+    from renderloom_torch.train.pose import (build_pose_model,
+                                             create_pose_state, draw_erase,
+                                             erase_generator,
+                                             make_pose_train_step)
+    from renderloom_torch.cli.train_pose import synthetic_batches
+
+    H, W = SMALL_HW
+    raw = next(synthetic_batches(np.random.default_rng(6), 1, 4, H, W))
+    batch = {k: torch.from_numpy(v) for k, v in raw.items()}
+    draws = draw_erase(erase_generator(2, 0), 4, cfg0.occlude_count,
+                       cfg0.occlude_frac)
+    tree = flax_trees(random_init_(build_pose_model(cfg0), 8))[0]
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        state = create_pose_state(cfg0, dev, params=tree)
+        with torch.no_grad():
+            logits = state.model(batch["images"].to(dev))
+            kps, conf = decode_heatmaps(logits)
+        m = make_pose_train_step(cfg0)(
+            state, {k: v.to(dev) for k, v in batch.items()}, draws)
+        runs[dev] = (logits.cpu(), kps.cpu(), conf.cpu(),
+                     {k: float(v) for k, v in m.items()},
+                     state.opt.flat.detach().cpu())
+    (lc, kc, cc, mc, pc), (lg, kg, cg, mg, pg) = runs["cpu"], runs[DEVICE]
+    out = dict(logits=(lg - lc).abs().max().item() / lc.abs().max().item(),
+               kps_px=(kg - kc).abs().max().item(),
+               conf=(cg - cc).abs().max().item(),
+               step_metrics=_metrics_gap(mg, mc),
+               step_params=_params_gap(pg, pc, cfg0.lr))
+    print(f"  card vs CPU at {W}x{H} (PoseNetConfig() widths, seeded "
+          f"weights): logits {out['logits']:.3e} of their largest (tol "
+          f"{LEARNED_F32_RTOL:.0e}), keypoints {out['kps_px']:.3e} px (tol "
+          f"1e-3), confidences {out['conf']:.3e}; one train step with "
+          f"occlusion (rate {cfg0.occlude_rate}, shared draws): metrics "
+          f"{out['step_metrics']:.3e} relative (tol "
+          f"{LEARNED_STEP_RTOL:.0e}), parameters max "
+          f"{out['step_params']['max']:.3e}, "
+          f"{100 * out['step_params']['beyond']:.3f}% beyond 1e-6")
+    if not (out["logits"] <= LEARNED_F32_RTOL and out["kps_px"] <= 1e-3
+            and out["step_metrics"] <= LEARNED_STEP_RTOL
+            and out["step_params"]["ok"]):
+        raise AssertionError(f"pose head card vs CPU: {out}")
+    return out
+
+
+def _write_keyframes(path: str, keys: torch.Tensor) -> np.ndarray:
+    """Phase 4's keyframes (K, H, W, 3) in [0, 1] as PNGs; returns them
+    as uint8."""
+    from PIL import Image
+
+    os.makedirs(path)
+    keys_u8 = (keys * 255).round().to(torch.uint8).cpu().numpy()
+    for i, key in enumerate(keys_u8):
+        Image.fromarray(key).save(os.path.join(path, f"{i:03d}.png"))
+    return keys_u8
+
+
+def phase_pose(serve, probe) -> dict:
+    """K: the pose head's training CLI with occlusion, ``extract_folder``
+    over phase 4's keyframes, card vs CPU."""
+    import dataclasses
+
+    from renderloom_torch.cli import extract_pose, train_pose
+    from renderloom_torch.core.config import PoseNetConfig
+    from renderloom_torch.data.openpose import read_openpose_dir
+    from renderloom_torch.train.pose import make_pose_train_step
+
+    H, W = TRAIN_HW
+    cfg = dataclasses.replace(PoseNetConfig(), occlude_rate=0.5)
+    print(f"K. pose head: PoseNetConfig() (base {cfg.base_filters}, "
+          f"{cfg.blocks} blocks), train_pose --synthetic --occlude-rate "
+          f"{cfg.occlude_rate} at {W}x{H}, batch {cfg.batch_size}, "
+          f"{TRAIN_STEPS} steps, float32; seeded weights")
+    run_dir = os.path.join(LEARNED_DIR, "pose")
+    os.makedirs(run_dir)
+    res = _train_cli(train_pose, run_dir,
+                     ["--occlude-rate", str(cfg.occlude_rate)])
+    step = make_pose_train_step(cfg)
+    raw = next(train_pose.synthetic_batches(np.random.default_rng(5), 1,
+                                            cfg.batch_size, H, W))
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in raw.items()}
+    sps = _steps_per_sec(lambda: step(res["state"], batch))
+    print(f"  the CLI {res['cli_steps_per_sec']:.2f} steps/s (its synthetic "
+          f"data made on the host included), the step alone {sps:.2f} "
+          f"steps/s = {sps * cfg.batch_size:.1f} images/s; peak "
+          f"{res['peak_gib']:.2f} GiB; losses "
+          + ", ".join(f"{v:.4f}" for v in res["losses"]))
+    out = dict(res, steps_per_sec=sps)
+    del out["state"]
+    if _skip_line("K", "extract_folder", [m for m in ("PIL",)
+                                           if not probe[m]]):
+        keys = serve["inputs"][2][0]
+        frames = os.path.join(LEARNED_DIR, "keyframes")
+        _write_keyframes(frames, keys)
+        model = extract_pose.load_pose_model(res["ckpt"], PoseNetConfig(),
+                                             DEVICE)
+        poses = os.path.join(LEARNED_DIR, "poses")
+        tic = time.perf_counter()
+        n = extract_pose.extract_folder(model, frames, poses, H, W)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - tic
+        motion, conf, _ = read_openpose_dir(poses)
+        if n != keys.shape[0] or motion.shape != (19, 2, n) or \
+                not np.isfinite(motion).all():
+            raise AssertionError(f"extract_folder: {n} JSONs, "
+                                 f"{motion.shape}")
+        print(f"  extract_folder over phase 4's {n} keyframes "
+              f"({keys.shape[2]}x{keys.shape[1]} PNGs) at {W}x{H}, batch 8: "
+              f"{n} JSONs in {sec:.3f} s ({n / sec:.1f} frames/s, PNG "
+              f"reading and JSON writing included), read back by "
+              f"data/openpose.py, confidences {conf.min():.3f}-"
+              f"{conf.max():.3f}")
+        out["extract_frames_per_sec"] = n / sec
+    out["cpu_match"] = _pose_cpu_match(cfg)
+    return out
+
+
+def phase_serve_learned(serve, files, flow, pose, probe) -> dict:
+    """V2: the pipeline CLI at full width with ``--pose-ckpt`` and
+    ``--flow-ckpt`` (phases K and L's float32 checkpoints) on phase 4's
+    weights, K1 and K2 launched as in phase V's LK run."""
+    import shutil
+
+    from renderloom_torch.cli import pipeline as pipeline_cli
+    from renderloom_torch.models.layers import InstanceNorm, Spade
+
+    mcfg, rcfg, rate, K = (serve[k] for k in ("mcfg", "rcfg", "rate", "K"))
+    H, W = rcfg.data.model_height, rcfg.data.model_width
+    L = (K - 1) * rate + 1
+    if not _skip_line("V2", "pipeline CLI", [m for m in ("PIL",)
+                                            if not probe[m]]):
+        return {}
+    print(f"V2. the pipeline CLI at {W}x{H}, rate {rate}, {K} keyframes, "
+          f"poses from --pose-ckpt (phase K) at 384x256, learned "
+          f"backgrounds from --flow-ckpt (phase L), phase 4's weights, "
+          f"float32")
+    work = os.path.join(LEARNED_DIR, "serve")
+    os.makedirs(work)
+    gen = serve["gen"]
+    ckpts = (os.path.join(work, "motion.pt"),
+             os.path.join(work, "renderer.pt"))
+    torch.save(serve["interp"].model.state_dict(), ckpts[0])
+    torch.save({"step": 0, "gen": gen.state_dict()}, ckpts[1])
+    frames = os.path.join(work, "frames")
+    keys_u8 = _write_keyframes(frames, serve["inputs"][2][0])
+    cfgs = (_yaml_cfg(os.path.join(work, "motion.yaml"), mcfg),
+            _yaml_cfg(os.path.join(work, "renderer.yaml"), rcfg))
+    out_dir = os.path.join(work, "out")
+
+    def run():
+        return pipeline_cli.main([
+            "--frames-dir", frames, "--pose-ckpt", pose["ckpt"],
+            "--flow-ckpt", flow["float32"]["ckpt"], "--motion-ckpt",
+            ckpts[0], "--renderer-ckpt", ckpts[1], "--motion-config",
+            cfgs[0], "--renderer-config", cfgs[1], "--out-dir", out_dir,
+            "--rate", str(rate), "--device", DEVICE])
+
+    run()                               # warm-up
+    _reset_launches()
+    calls = []
+    restore = _raster_recorder(calls)
+    try:
+        seconds = run()
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    launches = _serve_launches()
+    per_step = sum(isinstance(m, (InstanceNorm, Spade))
+                   for m in gen.modules())
+    S = (L - 1) // rate
+    chunks = -(-S // max(min(16, S), 64 // rate))
+    want = {"rasterize": chunks, "rasterize_packed": 0,
+            "instance_norm": chunks * (rate - 1) * per_step,
+            "instance_norm_parity": 0, "instance_norm_r3": 0}
+    lk = files["serve_files"]
+    print(f"  launches {launches}; derived {want}, phase V's LK run "
+          f"{lk['launches']}")
+    if launches != want or launches != lk["launches"] or \
+            any(c[0][6] for c in calls):
+        raise AssertionError(f"V2 kernel launches {launches}")
+    got = _png_dir(os.path.join(out_dir, "Generated_frames"))
+    n_poses = len(os.listdir(os.path.join(out_dir, "poses")))
+    n_dain = len(os.listdir(os.path.join(out_dir, "DAIN")))
+    key_err = _levels(got[::rate], keys_u8)[0]
+    if got.shape != (L, H, W, 3) or (n_poses, n_dain) != (K, L) or \
+            key_err > 1:
+        raise AssertionError(f"V2: frames {got.shape}, {n_poses} poses, "
+                             f"{n_dain} backgrounds, keyframes {key_err}")
+    _k1_check("V2 K1 on the run's tables", calls[0][0][:3], H, W,
+              torch.float32, False, "nhwc")
+    total = sum(seconds.values())
+    print(f"  {L} frames, {K} extracted poses, {L} learned backgrounds; "
+          f"keyframes within {key_err} level; seconds: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in seconds.items())
+          + f"; files-in/frames-out {L / total:.3f} frames/s beside phase "
+          f"V's LK run {lk['fps']:.3f} ({card_line()})")
+    shutil.rmtree(LEARNED_DIR)
+    return dict(launches=launches, seconds=seconds, fps=L / total)
+
+
+# ---------------------------------------------------------------------------
+# G. reproducibility of the train steps on the card
+# ---------------------------------------------------------------------------
+
+
+def _resize_interpolate_aa(img: torch.Tensor, height: int,
+                           width: int) -> torch.Tensor:
+    """The antialiased resize as torch's ``F.interpolate(antialias=True)``
+    computes it (``ops.image.resize_bilinear``'s CPU form) on the card,
+    where its backward adds with atomics."""
+    y = F.interpolate(img.permute(0, 3, 1, 2).float(), size=(height, width),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return y.to(img.dtype).permute(0, 2, 3, 1)
+
+
+class _Settings:
+    """Reproducibility settings for one block: ``torch.
+    use_deterministic_algorithms(True, warn_only=True)`` with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (``torch_det``),
+    ``cudnn.deterministic`` (``cudnn_det``), and the discriminators'
+    resize (``resize``); records the operators torch names as having no
+    deterministic implementation."""
+
+    def __init__(self, torch_det=False, cudnn_det=False, resize=None):
+        self.torch_det, self.cudnn_det, self.resize = (torch_det, cudnn_det,
+                                                       resize)
+        self.named = set()
+
+    def __enter__(self):
+        import warnings
+
+        from renderloom_torch.models import discriminator
+
+        self._env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+        if self.torch_det:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+        torch.use_deterministic_algorithms(self.torch_det, warn_only=True)
+        torch.backends.cudnn.deterministic = self.cudnn_det
+        self._resize = discriminator.resize_bilinear
+        if self.resize is not None:
+            discriminator.resize_bilinear = self.resize
+        self._warn = warnings.catch_warnings(record=True)
+        self._log = self._warn.__enter__()
+        warnings.simplefilter("always")
+        return self
+
+    def __exit__(self, *exc):
+        from renderloom_torch.models import discriminator
+
+        self._warn.__exit__(*exc)
+        self.named |= {str(w.message).split(" does not have")[0]
+                       for w in self._log if "does not have a deterministic"
+                       in str(w.message)}
+        discriminator.resize_bilinear = self._resize
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+        if self._env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = self._env
+        return False
+
+
+def _gan_snapshot(state) -> dict:
+    clone = lambda opt: {k: v.clone() for k, v in opt.state_dict().items()}
+    return dict(g=clone(state.opt_g), d=clone(state.opt_d),
+                buffers=[b.clone() for m in (state.gen, state.dis)
+                         for b in m.buffers()],
+                rng=state.rng.get_state(), step=state.step)
+
+
+def _gan_restore(state, snap):
+    for name in ("g", "d"):
+        getattr(state, f"opt_{name}").load_state_dict(
+            {k: v.clone() for k, v in snap[name].items()})
+    with torch.no_grad():
+        for b, s in zip([b for m in (state.gen, state.dis)
+                         for b in m.buffers()], snap["buffers"]):
+            b.copy_(s)
+    state.rng.set_state(snap["rng"])
+    state.step = snap["step"]
+
+
+def _gan_run(state, snap, step, batches, lr0: bool) -> dict:
+    """From the snapshot, ``step`` over ``batches``: each update's flat
+    gradients per network, the metrics, the parameters after, and the
+    seconds of each step; with ``lr0`` both learning rates are 0."""
+    _gan_restore(state, snap)
+    grads, saved = {"g": [], "d": []}, {}
+    for name in ("g", "d"):
+        opt = getattr(state, f"opt_{name}")
+        saved[name] = (opt.step, opt.schedule)
+        inner = opt.step
+
+        def rec(gs, inner=inner, box=grads[name]):
+            box.append(torch.cat([x.reshape(-1) for x in gs]).float())
+            return inner(gs)
+
+        opt.step = rec
+        if lr0:
+            opt.schedule = lambda c: torch.zeros((), device=c.device)
+    metrics, seconds = [], []
+    try:
+        for b in batches:
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            m = step(state, b)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - tic)
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        for name, (s, sch) in saved.items():
+            opt = getattr(state, f"opt_{name}")
+            opt.step, opt.schedule = s, sch
+    return dict(grads=grads, metrics=metrics, seconds=seconds,
+                flat={n: getattr(state, f"opt_{n}").flat.clone()
+                      for n in ("g", "d")})
+
+
+def _grad_gap(a: dict, b: dict) -> dict:
+    """Each network's largest |Δg| over all updates of two runs, over
+    its largest |g|."""
+    return {n: max((x - y).abs().max().item() for x, y in
+                   zip(a["grads"][n], b["grads"][n]))
+            / max(x.abs().max().item() for x in a["grads"][n])
+            for n in a["grads"]}
+
+
+def _small_step_repro(name: str) -> dict:
+    """The flow step (FlowConfig(), batch 8) or the pose step
+    (PoseNetConfig() with occlusion 0.5, batch 16) at TRAIN_HW: two runs
+    of 4 steps from one seed, as the port runs them and with
+    ``cudnn.deterministic``, in turns; their bit-equality and steps/s
+    (steps 2-4)."""
+    import dataclasses
+
+    from renderloom_torch.cli.train_flow import synthetic_triplets
+    from renderloom_torch.cli.train_pose import synthetic_batches
+    from renderloom_torch.core.config import FlowConfig, PoseNetConfig
+    from renderloom_torch.train import flow as TF
+    from renderloom_torch.train import pose as TP
+
+    H, W = TRAIN_HW
+    if name == "flow":
+        cfg = FlowConfig()
+        raws = synthetic_triplets(np.random.default_rng(2), 4,
+                                  cfg.batch_size, H, W)
+        create, make = TF.create_flow_state, TF.make_flow_train_step
+    else:
+        cfg = dataclasses.replace(PoseNetConfig(), occlude_rate=0.5)
+        raws = synthetic_batches(np.random.default_rng(2), 4,
+                                 cfg.batch_size, H, W)
+        create, make = TP.create_pose_state, TP.make_pose_train_step
+    batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in r.items()}
+               for r in raws]
+    step = make(cfg)
+    out = {}
+    for tag in ("port", "cudnn.deterministic", "port again"):
+        runs = []
+        with _Settings(cudnn_det=tag == "cudnn.deterministic"):
+            for _ in range(2):
+                state = create(cfg, DEVICE, seed=3)
+                step(state, batches[0])
+                torch.cuda.synchronize()
+                tic = time.perf_counter()
+                for b in batches[1:]:
+                    step(state, b)
+                torch.cuda.synchronize()
+                runs.append((state.opt.flat.clone(),
+                             (len(batches) - 1) / (time.perf_counter() - tic)))
+        out[tag] = dict(bit_equal=torch.equal(runs[0][0], runs[1][0]),
+                        max_abs=(runs[0][0] - runs[1][0]).abs().max().item(),
+                        steps_per_sec=[r[1] for r in runs])
+    port = np.mean(out["port"]["steps_per_sec"]
+                   + out["port again"]["steps_per_sec"])
+    out["cost"] = 1 - np.mean(out["cudnn.deterministic"]["steps_per_sec"]) \
+        / port
+    print(f"  {name} step: two runs of 4 steps, " + "; ".join(
+        f"{tag} {'bit-equal' if r['bit_equal'] else 'differ'} (parameters "
+        f"{r['max_abs']:.3e}), " + ", ".join(f"{v:.2f}" for v in
+                                              r["steps_per_sec"])
+        + " steps/s" for tag, r in out.items() if tag != "cost")
+        + f"; cudnn.deterministic costs {100 * out['cost']:+.1f}% of steps/s "
+        f"({card_line()})")
+    if not out["cudnn.deterministic"]["bit_equal"]:
+        raise AssertionError(f"the {name} step does not repeat under "
+                             "cudnn.deterministic")
+    return out
+
+
+def _resize_cost(state, snap, step, batch) -> dict:
+    """The card's matmul resize against torch's antialiased
+    ``F.interpolate`` in the GAN step: the calls one step makes and
+    their shapes, forward + backward ms of each formulation at those
+    shapes (CUDA events), and the difference per step as a share of the
+    step's ms."""
+    from renderloom_torch.models import discriminator
+    from renderloom_torch.ops.image import resize_matmul
+
+    shapes = Counter()
+    real = discriminator.resize_bilinear
+
+    def rec(img, height, width):
+        shapes[(tuple(img.shape), height, width)] += 1
+        return real(img, height, width)
+
+    discriminator.resize_bilinear = rec
+    try:
+        _gan_run(state, snap, step, [batch], lr0=True)
+    finally:
+        discriminator.resize_bilinear = real
+    ms = {"matmul": 0.0, "F.interpolate": 0.0}
+    for (shape, h, w), n in shapes.items():
+        x = torch.rand(shape, device=DEVICE, requires_grad=True)
+        dy = torch.rand((shape[0], h, w, shape[3]), device=DEVICE)
+        for tag, fn in (("matmul", resize_matmul),
+                        ("F.interpolate", _resize_interpolate_aa)):
+            ms[tag] += n * cuda_ms(lambda: torch.autograd.grad(
+                fn(x, h, w), x, dy), iters=10)
+    step_ms = 1e3 * np.mean(_gan_run(state, snap, step, [batch],
+                                     lr0=True)["seconds"])
+    share = (ms["matmul"] - ms["F.interpolate"]) / step_ms
+    print(f"  gan step's resizes: {sum(shapes.values())} calls at "
+          f"{sorted(shapes)}; forward + backward per step: matmul "
+          f"{ms['matmul']:.3f} ms, F.interpolate {ms['F.interpolate']:.3f} "
+          f"ms; the difference {100 * share:+.2f}% of the step's "
+          f"{step_ms:.1f} ms ({card_line()})")
+    return dict(calls=sum(shapes.values()), ms=ms, step_ms=step_ms,
+                share=share)
+
+
+def phase_repro() -> dict:
+    """G: which operators keep the card's float32 GAN step (phase C's
+    configuration), the flow and the pose step (:func:`_small_step_repro`)
+    from repeating bit for bit, and what determinism costs."""
+    from renderloom_torch.cli.train_renderer import synthetic_batches
+    from renderloom_torch.train.gan import (create_gan_state,
+                                            make_gan_train_step,
+                                            make_perceptual)
+
+    cfg = _train_cfg()
+    d = cfg.data
+    B = cfg.batch_size
+    print(f"G. reproducibility: the float32 GAN step (phase C: hsm.yaml, "
+          f"batch {B} x {d.max_frames}-frame raw windows, "
+          f"{d.model_width}x{d.model_height}) run twice from one state per "
+          f"setting, and the flow and pose steps at "
+          f"{TRAIN_HW[1]}x{TRAIN_HW[0]}")
+    state = create_gan_state(cfg, DEVICE, seed=0)
+    step = make_gan_train_step(cfg, make_perceptual(cfg, DEVICE, seed=0),
+                               data_cfg=d)
+    batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in raw.items()}
+               for raw in synthetic_batches(np.random.default_rng(0), 3, B,
+                                            d.max_frames, d.load_height,
+                                            d.load_width)]
+    step(state, batches[0])             # warm-up
+    snap = _gan_snapshot(state)
+    out = {"gan": {}}
+
+    # gradients at learning rate 0, two runs of one step per setting
+    settings = {
+        "default": dict(),
+        "deterministic (torch + cuDNN + cuBLAS)": dict(torch_det=True,
+                                                       cudnn_det=True),
+        "deterministic, F.interpolate resize": dict(
+            torch_det=True, cudnn_det=True, resize=_resize_interpolate_aa),
+    }
+    for tag, kw in settings.items():
+        with _Settings(**kw) as s:
+            a = _gan_run(state, snap, step, batches[1:2], lr0=True)
+            b = _gan_run(state, snap, step, batches[1:2], lr0=True)
+        gap = _grad_gap(a, b)
+        out["gan"][tag] = dict(grad_gap=gap, named=sorted(s.named))
+        print(f"  gan, learning rate 0, {tag}: largest |dg| over the "
+              f"largest |g|: " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                          gap.items())
+              + f"; operators torch names without a deterministic CUDA "
+              f"implementation: {sorted(s.named) or 'none'}")
+    det = out["gan"]["deterministic (torch + cuDNN + cuBLAS)"]
+    if max(det["grad_gap"].values()) != 0 or det["named"]:
+        raise AssertionError(f"the GAN step is not reproducible under the "
+                             f"deterministic settings: {det}")
+
+    # the cost: the resize's matmul form, and windows/s in turns
+    out["gan"]["resize"] = _resize_cost(state, snap, step, batches[1])
+    costs = {}
+    for tag, kw in (("port", {}),
+                    ("F.interpolate resize", dict(
+                        resize=_resize_interpolate_aa)),
+                    ("cudnn.deterministic", dict(cudnn_det=True)),
+                    ("port again", {})):
+        with _Settings(**kw):
+            r = _gan_run(state, snap, step, batches, lr0=False)
+        costs[tag] = B * (len(batches) - 1) / sum(r["seconds"][1:])
+    port = (costs["port"] + costs["port again"]) / 2
+    print("  gan windows/s at the learning rate (steps 2-3 of 3, in turns): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in costs.items())
+          + "; cudnn.deterministic "
+          f"{100 * (costs['cudnn.deterministic'] / port - 1):+.1f}%, the "
+          f"F.interpolate resize "
+          f"{100 * (costs['F.interpolate resize'] / port - 1):+.1f}% against "
+          f"the port ({card_line()})")
+    out["gan"]["windows_per_sec"] = costs
+
+    # at the learning rate: two runs of two steps, bit for bit or not
+    for tag, kw in (("default", {}), ("cudnn.deterministic",
+                                      dict(cudnn_det=True))):
+        with _Settings(**kw):
+            a = _gan_run(state, snap, step, batches[1:], lr0=False)
+            b = _gan_run(state, snap, step, batches[1:], lr0=False)
+        same = all(torch.equal(a["flat"][n], b["flat"][n]) for n in "gd") \
+            and a["metrics"] == b["metrics"]
+        rel = max(abs(x[k] - y[k]) / max(abs(x[k]), 1e-30)
+                  for x, y in zip(a["metrics"], b["metrics"]) for k in x)
+        out["gan"][f"repeat_{tag}"] = dict(bit_equal=same, metrics_rel=rel)
+        print(f"  gan at the learning rate, {tag}: two runs of 2 steps "
+              f"{'bit-equal' if same else 'differ'} (metrics {rel:.3e} "
+              f"relative)")
+        if tag != "default" and not same:
+            raise AssertionError("the GAN step does not repeat under "
+                                 "cudnn.deterministic")
+
+    # the flow and pose steps (their warps differentiate no gather)
+    for name in ("flow", "pose"):
+        out[name] = _small_step_repro(name)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5385,6 +6204,14 @@ def main() -> int:
     evals = phase_eval(serve, probe)
     print(f"file serving and evaluation phases: V {t_q - t_v:.1f} s, Q "
           f"{time.perf_counter() - t_q:.1f} s")
+    t_l = time.perf_counter()
+    flow = phase_flow(serve)
+    t_k = time.perf_counter()
+    pose = phase_pose(serve, probe)
+    t_v2 = time.perf_counter()
+    learned = phase_serve_learned(serve, files, flow, pose, probe)
+    print(f"learned flow and pose phases: L {t_k - t_l:.1f} s, K "
+          f"{t_v2 - t_k:.1f} s, V2 {time.perf_counter() - t_v2:.1f} s")
     layouts = phase_raster_layouts(serve, fast)
     phase_cpu_match()
     raster_train = phase_raster_train()
@@ -5407,6 +6234,9 @@ def main() -> int:
     phase_motion_cpu_match()
     print(f"training from data phases: W {t_m - t_w:.1f} s, M "
           f"{t_m2 - t_m:.1f} s, M2 {time.perf_counter() - t_m2:.1f} s")
+    t_g = time.perf_counter()
+    repro = phase_repro()
+    print(f"reproducibility phase: G {time.perf_counter() - t_g:.1f} s")
     t_z = time.perf_counter()
     dp = phase_data_parallel(train)
     print(f"data-parallel phase: Z {time.perf_counter() - t_z:.1f} s")
@@ -5432,7 +6262,9 @@ def main() -> int:
                                "train_h5": w32["rasterize"],
                                "train_h5_bf16": w16["rasterize"],
                                "serve_exported": xs["launches"]["rasterize"],
-                               "train_dp2": dp2["rasterize"]},
+                               "train_dp2": dp2["rasterize"],
+                               **({"serve_files_learned": learned["launches"]
+                                   ["rasterize"]} if learned else {})},
              **raster_train,
              serve=dict(shape=f"{F_RASTER}x{H_FULL}x{W_FULL}x22 f32 label, "
                               f"no masks", **raster),
@@ -5461,7 +6293,9 @@ def main() -> int:
                                ["instance_norm"],
                                "serve_planner_fastpath_bf16": n8
                                ["instance_norm"],
-                               "train_dp2": dp2["instance_norm"]},
+                               "train_dp2": dp2["instance_norm"],
+                               **({"serve_files_learned": learned["launches"]
+                                   ["instance_norm"]} if learned else {})},
              **norm_train, serve=norm),
         dict(name="instance_norm_parity", route="cuda",
              source="renderloom_torch/csrc/instance_norm.cu",
@@ -5566,7 +6400,14 @@ def main() -> int:
           f"parallel world 2 vs 1: {dp['gan']['world2']:.4f} vs "
           f"{dp['gan']['world1']:.4f} windows/s, "
           f"{dp['motion']['world2']:.2f} vs {dp['motion']['world1']:.2f} "
-          f"seqs/s; bench " + ", ".join(
+          f"seqs/s; flow step {flow['float32']['steps_per_sec']:.2f} "
+          f"steps/s (bf16 {flow['bfloat16']['steps_per_sec']:.2f}), pose "
+          f"step {pose['steps_per_sec']:.2f} steps/s"
+          + (f", learned pipeline from files {learned['fps']:.3f} frames/s"
+             if learned else "")
+          + "; gan windows/s with cudnn.deterministic "
+          f"{repro['gan']['windows_per_sec']['cudnn.deterministic']:.4f} vs "
+          f"{repro['gan']['windows_per_sec']['port']:.4f}; bench " + ", ".join(
               f"{k} {v['value']}" for k, v in dp["bench"].items())
           + "; chip_smoke "
           f"done in "

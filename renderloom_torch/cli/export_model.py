@@ -25,7 +25,7 @@ from renderloom_torch.cli import cli_device
 from renderloom_torch.cli.infer_motion import CKPT_HELP as MOTION_HELP
 from renderloom_torch.cli.infer_motion import load_stats
 from renderloom_torch.cli.infer_renderer import CKPT_HELP as RENDERER_HELP
-from renderloom_torch.core.checkpoint import read_motion, read_renderer
+from renderloom_torch.core.checkpoint import read_params, read_renderer
 from renderloom_torch.core.config import (MotionConfig, RendererConfig,
                                           load_motion_config,
                                           load_renderer_config)
@@ -76,7 +76,7 @@ def main(argv=None) -> dict:
     rcfg = load_renderer_config(args.renderer_config) \
         if args.renderer_config else RendererConfig()
     H, W = rcfg.data.model_height, rcfg.data.model_width
-    m_params = read_motion(args.motion_ckpt) if args.motion_ckpt else None
+    m_params = read_params(args.motion_ckpt) if args.motion_ckpt else None
     g_params = g_stats = None
     if args.renderer_ckpt:
         g_params, g_stats = read_renderer(args.renderer_ckpt)

@@ -26,7 +26,7 @@ import os
 import numpy as np
 
 from renderloom_torch.cli import cli_device
-from renderloom_torch.core.checkpoint import ORBAX_HELP, read_motion
+from renderloom_torch.core.checkpoint import ORBAX_HELP, read_params
 from renderloom_torch.core.config import (MotionConfig, MotionDatasetConfig,
                                           load_motion_config)
 from renderloom_torch.data.amass import load_or_compute_stats
@@ -67,7 +67,7 @@ def main(argv=None):
     device = cli_device("infer_motion", args.device)
     set_float32_precision()
     cfg = load_motion_config(args.config) if args.config else MotionConfig()
-    params = read_motion(args.ckpt)
+    params = read_params(args.ckpt)
     print(f"loaded motion weights from {args.ckpt}")
     mean, std = load_stats(cfg.dataset)
     interp = make_interpolator(cfg, params, mean, std, device)

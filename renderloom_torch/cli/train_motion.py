@@ -11,7 +11,7 @@ epoch follows the JAX loop: ``train/`` metrics to
 test split (:class:`MotionEvaluator`, ``--eval-limit`` samples at most),
 logged under ``eval/``; a ``torch.save`` checkpoint (``model``,
 ``opt``, ``step``, ``rng``, ``dropout_rng``; ``core.checkpoint.
-read_motion`` reads its model) every ``save_step`` epochs and after the
+read_params`` reads its model) every ``save_step`` epochs and after the
 last; with ``--profile-dir``, a ``torch.profiler`` trace of steps 3–8.
 With ``--h5`` the normalization statistics come from the cached files
 of ``data_root`` or are computed from the train split and cached there.

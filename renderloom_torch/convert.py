@@ -28,6 +28,15 @@ folding, and seeded random weights.
   largest singular value, which is what folding does to a trained
   spectral conv (training modules keep the raw kernel, as flax's init
   does, and divide by σ at every call).
+* :func:`flax_init_` — flax's own initial weights for the convolutional
+  models the port trains from their initialisation (the flow UNet, the
+  pose head), drawn from a seed: truncated lecun-normal kernels, zero
+  biases, zero heads.
+
+The flow UNet's and the pose head's flax trees load by the same name
+mapping: their modules carry flax's names (``down{l}``, ``down{l}b``,
+``up{l}``, ``flow_head``; ``Conv_0``, ``Conv_1``, ``_ResBlock_{i}/
+Conv_{0,1,2}``, ``Conv_2``) and their kernels go HWIO ↔ OIHW.
 """
 
 from __future__ import annotations
@@ -191,4 +200,31 @@ def random_init_(module: nn.Module, seed: int) -> nn.Module:
             if isinstance(m, SNConv) and hasattr(m, "sn_u"):
                 m.sn_u.copy_(torch.randn(m.sn_u.shape, generator=g))
                 m.sn_sigma.fill_(1.0)
+    return module
+
+
+# flax's truncated-normal stddev correction for the cut at ±2σ
+_TRUNC_STD = 0.87962566103423978
+
+
+def flax_init_(module: nn.Module, seed: int) -> nn.Module:
+    """flax's default initialisers for every :class:`Conv` under
+    ``module``, drawn on the CPU in module order from ``seed``:
+    lecun-normal kernels (a normal of variance 1/fan_in, fan_in = I·kh·kw,
+    truncated at two of its deviations) and zero biases; a conv whose
+    ``zero_init`` is set (a head flax initialises with zeros) gets a zero
+    kernel."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if not isinstance(m, Conv):
+                continue
+            if getattr(m, "zero_init", False):
+                m.weight.zero_()
+            else:
+                std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD
+                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=g)
+            if m.bias is not None:
+                m.bias.zero_()
     return module

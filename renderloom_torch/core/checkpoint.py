@@ -5,8 +5,9 @@ Two formats are read:
 * the port's own ``torch.save`` files: the renderer checkpoint that
   ``renderloom_torch.cli.train_renderer`` writes (its ``"gen"`` entry, the
   training generator's state dict with its spectral-norm state), the
-  motion checkpoint that ``renderloom_torch.cli.train_motion`` writes
-  (its ``"model"`` entry), and a motion model's ``state_dict``;
+  checkpoints that ``renderloom_torch.cli.train_motion``, ``train_flow``
+  and ``train_pose`` write (their ``"model"`` entry), and a model's
+  ``state_dict``;
 * an ``.npz`` of flattened flax trees, for weights trained with the JAX
   package: keys ``params/<path>`` and, for the renderer,
   ``batch_stats/<path>`` (:func:`write_npz` writes one, and
@@ -47,7 +48,7 @@ def _flatten(tree: Mapping, prefix: str, out: dict):
 def write_npz(path: str, params: Mapping,
               batch_stats: Optional[Mapping] = None) -> None:
     """Save flax trees as the ``.npz`` that :func:`read_renderer` and
-    :func:`read_motion` read."""
+    :func:`read_params` read."""
     flat = {}
     _flatten(params, "params/", flat)
     _flatten(batch_stats or {}, "batch_stats/", flat)
@@ -96,10 +97,12 @@ def read_renderer(path: str) -> Tuple[dict, dict]:
     return flax_trees(ckpt["gen"])
 
 
-def read_motion(path: str) -> dict:
-    """The motion transformer's params at ``path``: an ``.npz`` of flax
-    trees, a ``train_motion`` checkpoint (its ``"model"`` entry), or a
-    ``torch.save`` of the model's ``state_dict``."""
+def read_params(path: str) -> dict:
+    """The params of a one-model checkpoint at ``path`` (the motion
+    transformer, the flow UNet, the pose head): an ``.npz`` of flax
+    trees, a ``train_motion`` / ``train_flow`` / ``train_pose``
+    checkpoint (its ``"model"`` entry), or a ``torch.save`` of the
+    model's ``state_dict``."""
     ckpt = _read(path)
     if path.endswith(".npz"):
         return _unflatten(ckpt, "params")

@@ -1,19 +1,22 @@
-"""Typed configuration: the motion and renderer dataclasses and their
-yaml loaders.
+"""Typed configuration: the motion, renderer, flow and pose dataclasses
+and their yaml loaders.
 
-A copy of the renderer and motion parts of the JAX package's
-``renderloom/core/config.py``, kept here so the port never imports the
-JAX package: the model architectures, the renderer's data settings,
-discriminators, optimizer, loss weights and ``compute_dtype``, and the
-motion stage's ``dataset`` section (:class:`MotionDatasetConfig`: the
-AMASS synthesis, projection, statistics-file and openpose settings), its
-optimizer (:class:`MotionOptimConfig`), loss weights and training
-schedule.  Defaults equal the
+A copy of the renderer, motion, flow and pose parts of the JAX
+package's ``renderloom/core/config.py``, kept here so the port never
+imports the JAX package: the model architectures, the renderer's data
+settings, discriminators, optimizer, loss weights and
+``compute_dtype``, the motion stage's ``dataset`` section
+(:class:`MotionDatasetConfig`: the AMASS synthesis, projection,
+statistics-file and openpose settings), its optimizer
+(:class:`MotionOptimConfig`), loss weights and training schedule, and
+the learned flow interpolator (:class:`FlowConfig`) and pose head
+(:class:`PoseNetConfig`).  Defaults equal the
 reference's shipped configs
 (``Human_Motion_Modelling/configs/config.yaml``,
 ``Pose_Guided_Neural_Rendering/configs/HSM.yaml``); yaml files in
 either the nested layout or the reference's flat key layout load
-through :func:`load_motion_config` / :func:`load_renderer_config`.
+through :func:`load_motion_config` / :func:`load_renderer_config`
+(:func:`load_flow_config`, :func:`load_pose_config`: flat keys).
 """
 
 from __future__ import annotations
@@ -339,6 +342,51 @@ class RendererConfig:
     compute_dtype: str = "float32"
 
 
+@dataclass(frozen=True)
+class FlowConfig:
+    """Learned flow-interpolator settings (the trainable DAIN
+    replacement, :mod:`renderloom_torch.models.flownet`)."""
+
+    base_filters: int = 24
+    levels: int = 4
+    lr: float = 2e-4
+    grad_clip: float = 1.0
+    w_photo: float = 0.5
+    w_smooth: float = 0.05
+    nr_epochs: int = 50
+    batch_size: int = 8
+    compute_dtype: str = "float32"
+    # Per-axis displacement bound (full-resolution px) of the separable
+    # inference warp (ops/flow.py:backward_warp_shift; cost linear in
+    # it).  Training always uses the unbounded gather warp, so this only
+    # bounds inference.
+    max_disp: int = 16
+
+
+@dataclass(frozen=True)
+class PoseNetConfig:
+    """The 2-D pose head (:mod:`renderloom_torch.models.posenet`)."""
+
+    base_filters: int = 32
+    blocks: int = 4
+    sigma: float = 6.0          # target gaussian σ in image pixels
+    conf_thres: float = 0.05
+    fg_weight: float = 20.0     # extra MSE weight on gaussian peaks
+    w_coord: float = 1.0
+    lr: float = 1e-3
+    grad_clip: float = 1.0
+    nr_epochs: int = 50
+    batch_size: int = 16
+    compute_dtype: str = "float32"
+    # random-erase occlusion augmentation: each image gets
+    # ``occlude_count`` rectangles, each applied with probability
+    # ``occlude_rate``, up to ``occlude_frac`` of the image side, filled
+    # with a random flat colour
+    occlude_rate: float = 0.0
+    occlude_count: int = 2
+    occlude_frac: float = 0.3
+
+
 # ---------------------------------------------------------------------------
 # YAML loading — accepts both the nested layout and the reference's flat
 # key layout.
@@ -398,3 +446,11 @@ def load_motion_config(path: str) -> MotionConfig:
 
 def load_renderer_config(path: str) -> RendererConfig:
     return renderer_config_from_dict(load_yaml(path))
+
+
+def load_flow_config(path: str) -> FlowConfig:
+    return _update_dataclass(FlowConfig(), load_yaml(path))
+
+
+def load_pose_config(path: str) -> PoseNetConfig:
+    return _update_dataclass(PoseNetConfig(), load_yaml(path))

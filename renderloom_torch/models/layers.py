@@ -92,6 +92,30 @@ class Conv(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class SameConv(Conv):
+    """2-D convolution of NHWC tensors with flax's ``padding="SAME"`` at
+    any stride and kernel: per side the output is ⌈n / s⌉, the padding
+    total = max((out − 1)·s + k − n, 0), ``total // 2`` before and the
+    rest after.  At stride 2 on an even side that is asymmetric ((0, 1)
+    for a 3×3 kernel, (2, 3) for a 7×7), where :class:`Conv`'s
+    symmetric ``(k − 1) // 2`` would shift the output by a pixel."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        k, s = self.weight.shape[-1], self.stride
+        pads = []
+        for n in (x.shape[2], x.shape[1]):          # F.pad: W first
+            total = max((-(-n // s) - 1) * s + k - n, 0)
+            pads += [total // 2, total - total // 2]
+        b = None if self.bias is None else self.bias.to(dt)
+        x = x.permute(0, 3, 1, 2).to(dt)
+        if pads[0] == pads[1] and pads[2] == pads[3]:
+            y = F.conv2d(x, self.weight.to(dt), b, s, (pads[2], pads[0]))
+        else:
+            y = F.conv2d(F.pad(x, pads), self.weight.to(dt), b, s)
+        return y.permute(0, 2, 3, 1)
+
+
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype,
                       types: tuple = (Conv,)) -> nn.Module:
     """Every module of ``types`` under ``module`` computes in ``dtype``."""

@@ -9,10 +9,9 @@ Port of the JAX package's ``renderloom/ops/crops.py``:
   square are ``jax.image.scale_and_translate`` with a per-sample scale
   and translation.  That call antialiases when it downsamples (a
   triangle kernel widened by 1/scale), which no single torch call
-  reproduces, so the two separable weight matrices of each sample are
-  built here from the formula of ``jax/_src/image/scale.py:
-  compute_weight_mat`` and applied with ``einsum``; the gradient reaches
-  the image;
+  reproduces, so the two separable weight matrices of each sample
+  (``ops.image.resample_weights``) are applied with ``einsum``; the
+  gradient reaches the image;
 * hands: static ``H//64·8`` squares around each hand heatmap's bbox
   center (channels 20, 21), sliced at a start clamped into the image as
   ``jax.lax.dynamic_slice`` clamps it; a hand without support gives a
@@ -24,6 +23,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from renderloom_torch.ops.image import resample_weights
 
 HEAT_THRES = 3.35e-4          # exp(-8): the 4-sigma support boundary
 FACE_CHANNEL = 3              # label = 3ch skeleton + 19 heatmaps → ch 3
@@ -47,28 +48,6 @@ def _masked_bbox(active: torch.Tensor):
     return ys, ye, xs, xe, row_any.any(dim=1)
 
 
-def _weight_mat(in_size: int, out_size: int, scale: torch.Tensor,
-                translation: torch.Tensor) -> torch.Tensor:
-    """(B, in, out) triangle-kernel resampling weights of
-    ``compute_weight_mat`` (antialiased) for per-sample ``scale`` and
-    ``translation`` (B,) float32."""
-    dev = scale.device
-    inv_scale = (1.0 / scale)[:, None]
-    kernel_scale = torch.clamp(inv_scale, min=1.0)[:, :, None]
-    out_idx = torch.arange(out_size, dtype=torch.float32, device=dev)
-    sample_f = ((out_idx + 0.5) * inv_scale - translation[:, None] * inv_scale
-                - 0.5)                                      # (B, out)
-    in_idx = torch.arange(in_size, dtype=torch.float32, device=dev)
-    x = (sample_f[:, None, :] - in_idx[None, :, None]).abs() / kernel_scale
-    w = torch.clamp(1.0 - x.abs(), min=0.0)
-    total = w.sum(dim=1, keepdim=True)
-    w = torch.where(total.abs() > 1000.0 * float(torch.finfo(torch.float32).eps),
-                    w / torch.where(total != 0, total, torch.ones_like(total)),
-                    torch.zeros_like(w))
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return torch.where(inside[:, None, :], w, torch.zeros_like(w))
-
-
 def face_crop(image: torch.Tensor, label: torch.Tensor,
               thres: float = HEAT_THRES) -> torch.Tensor:
     """(B, H, W, C≥3) image + (B, H, W, 22) label → (B, S, S, 3) face
@@ -89,8 +68,8 @@ def face_crop(image: torch.Tensor, label: torch.Tensor,
     y0 = (yc - half).float()
     x0 = (xc - half).float()
     scale = S / side.float()
-    wy = _weight_mat(H, S, scale, -y0 * scale).to(image.dtype)
-    wx = _weight_mat(W, S, scale, -x0 * scale).to(image.dtype)
+    wy = resample_weights(H, S, scale, -y0 * scale).to(image.dtype)
+    wx = resample_weights(W, S, scale, -x0 * scale).to(image.dtype)
     return torch.einsum("bhwc,bhs,bwt->bstc", image[..., -3:], wy, wx)
 
 

@@ -1,18 +1,26 @@
 """Flow-based background interpolation: pyramidal Lucas-Kanade flow and
 the bidirectional blend that synthesizes every in-between background.
 
-Port of the LK branch of the JAX package's ``renderloom/ops/flow.py``
+Port of the JAX package's ``renderloom/ops/flow.py``.  LK backend
 (``upsample_background``): flow is estimated once per keyframe pair and
 direction, at 1/flow_scale resolution for the serving pipeline, whose
 full-resolution frames are then warped with the clipped separable
 shift-and-blend warp, reproduced exactly (not ``grid_sample``), or at
 full resolution with the bilinear warp (``flow_scale=1``, the serving
-CLIs' backgrounds).  The learned-flow backend is not ported.  Images
-are batched NHWC (B, H, W, C); every function takes the batch the JAX
-code ``vmap``\\ s over.
+CLIs' backgrounds).  The reference's two usage patterns:
+``interpolate_pair`` (a keyframe pair and a time) and
+``train_background`` (frame i+1's background from frames i and i+2).
+A midpoint-only ``interp_fn(img0, img1, t)`` (the learned UNet,
+``models.flownet.make_learned_interp``) takes the place of LK in
+``frame_double_pairs``, ``train_background`` and, by recursive
+doubling, ``upsample_background``.  Images are batched NHWC
+(B, H, W, C); every function takes the batch the JAX code
+``vmap``\\ s over, and an ``interp_fn`` gets all pairs as one batch.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -141,8 +149,60 @@ def estimate_flow(img0: torch.Tensor, img1: torch.Tensor, levels: int = 4,
     return flow
 
 
+def interpolate_pair(img0: torch.Tensor, img1: torch.Tensor, t,
+                     levels: int = 4, iters: int = 3,
+                     radius: int = 7) -> torch.Tensor:
+    """The frames at time ``t`` ∈ (0, 1) between (B, H, W, C) keyframe
+    pairs: LK flow in both directions, img0 warped by t of flow1→0 and
+    img1 by 1−t of flow0→1, blended by (1−t, t), each weighted down by
+    its forward-backward consistency error."""
+    B = img0.shape[0]
+    flows = estimate_flow(torch.cat([img0, img1]), torch.cat([img1, img0]),
+                          levels, iters, radius)
+    f01, f10 = flows[:B], flows[B:]
+    w0, w1, c1, c0 = backward_warp(
+        torch.cat([img0, img1, img1, img0]),
+        torch.cat([t * f10, (1.0 - t) * f01, f01, f10])).split(B)
+    e0 = torch.abs(c1 - img0).mean(dim=-1, keepdim=True)
+    e1 = torch.abs(c0 - img1).mean(dim=-1, keepdim=True)
+    a0 = (1.0 - t) / (1.0 + e0)
+    a1 = t / (1.0 + e1)
+    return (a0 * w0 + a1 * w1) / (a0 + a1)
+
+
+def _interp(levels: int, iters: int, interp_fn: Optional[Callable]
+            ) -> Callable:
+    return interp_fn or (lambda a, b, t: interpolate_pair(a, b, t, levels,
+                                                          iters))
+
+
+def frame_double_pairs(frames: torch.Tensor, levels: int = 4,
+                       iters: int = 3,
+                       interp_fn: Optional[Callable] = None) -> torch.Tensor:
+    """(K, H, W, C) keyframes → (2K−1, H, W, C) with the midpoint of
+    each pair (one pass of the reference's recursive doubling), from
+    ``interp_fn(img0, img1, t)`` over all pairs as one batch (default:
+    LK, :func:`interpolate_pair`)."""
+    mids = _interp(levels, iters, interp_fn)(frames[:-1], frames[1:], 0.5)
+    K, H, W, C = frames.shape
+    out = torch.stack([frames[:-1], mids.to(frames.dtype)], dim=1)
+    return torch.cat([out.reshape(2 * (K - 1), H, W, C), frames[-1:]])
+
+
+def train_background(frames: torch.Tensor, levels: int = 4, iters: int = 3,
+                     interp_fn: Optional[Callable] = None) -> torch.Tensor:
+    """(F, H, W, C) real frames → (F, H, W, C) surrogate backgrounds:
+    frame i+1's from frames i and i+2, skipping the true middle frame,
+    so the renderer never sees a perfect background; the ends copy their
+    neighbours'."""
+    mids = _interp(levels, iters, interp_fn)(frames[:-2], frames[2:], 0.5)
+    return torch.cat([mids[:1], mids, mids[-1:]])
+
+
 def upsample_background(frames: torch.Tensor, rate: int, levels: int = 4,
-                        iters: int = 3, flow_scale: int = 1,
+                        iters: int = 3,
+                        interp_fn: Optional[Callable] = None,
+                        flow_scale: int = 1,
                         max_disp: int = 16) -> torch.Tensor:
     """(K, H, W, C) keyframes → ((K-1)·rate+1, H, W, C) backgrounds.
 
@@ -153,7 +213,19 @@ def upsample_background(frames: torch.Tensor, rate: int, levels: int = 4,
     the flow and the errors at 1/flow_scale resolution, upsamples them,
     and warps with the clipped shift warp (``max_disp``);
     ``flow_scale == 1`` (the JAX function's default, which the serving
-    CLIs use) works at full resolution with the bilinear warp."""
+    CLIs use) works at full resolution with the bilinear warp.
+
+    A midpoint-only ``interp_fn`` (the learned UNet) takes recursive
+    doubling instead, :func:`frame_double_pairs` log2(rate) times; the
+    rate must then be a power of two."""
+    if interp_fn is not None:
+        times = int(rate).bit_length() - 1
+        if 2 ** times != rate:
+            raise ValueError(f"rate {rate}: a learned interp_fn doubles, so "
+                             "the rate must be a power of two")
+        for _ in range(times):
+            frames = frame_double_pairs(frames, levels, iters, interp_fn)
+        return frames
     K, H, W, C = frames.shape
     if K < 2 or rate < 2:
         return frames

@@ -194,20 +194,65 @@ def gaussian_blur(img: torch.Tensor, radius: float = 10.0) -> torch.Tensor:
                                                              C)
 
 
+def resample_weights(in_size: int, out_size: int, scale: torch.Tensor,
+                     translation: torch.Tensor) -> torch.Tensor:
+    """(B, in, out) triangle-kernel resampling weights of
+    ``jax/_src/image/scale.py:compute_weight_mat`` (antialiased: the
+    kernel widened by 1/scale when it downsamples) for per-sample
+    ``scale`` and ``translation`` (B,) float32."""
+    dev = scale.device
+    inv_scale = (1.0 / scale)[:, None]
+    kernel_scale = torch.clamp(inv_scale, min=1.0)[:, :, None]
+    out_idx = torch.arange(out_size, dtype=torch.float32, device=dev)
+    sample_f = ((out_idx + 0.5) * inv_scale - translation[:, None] * inv_scale
+                - 0.5)                                      # (B, out)
+    in_idx = torch.arange(in_size, dtype=torch.float32, device=dev)
+    x = (sample_f[:, None, :] - in_idx[None, :, None]).abs() / kernel_scale
+    w = torch.clamp(1.0 - x.abs(), min=0.0)
+    total = w.sum(dim=1, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(torch.finfo(torch.float32).eps),
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return torch.where(inside[:, None, :], w, torch.zeros_like(w))
+
+
 def resize_bilinear(img: torch.Tensor, height: int,
                     width: int) -> torch.Tensor:
     """(B, H, W, C) → (B, height, width, C) with the semantics of
     ``jax.image.resize(..., "bilinear")``: half-pixel centers, and a
     triangle filter widened by the scale when downsampling (antialiased;
     plain ``F.interpolate`` is not, and differs by up to 1.17 on a 4×
-    downsample).  A bf16 image is resized in float32 and rounded back
-    (torch has no antialiased bf16 resize on the CPU; JAX's rounds its
-    weights and a partial product to bf16, a rounding-level
-    difference)."""
+    downsample).  On the CPU it is torch's antialiased ``F.interpolate``;
+    on the card :func:`resize_matmul` (the same weights, float32 rounding
+    apart), since the backward of the antialiased ``F.interpolate`` adds
+    with atomics there and would keep a train step from repeating bit for
+    bit.  A bf16 image is resized in float32 and rounded back (torch has
+    no antialiased bf16 resize on the CPU; JAX's rounds its weights and a
+    partial product to bf16, a rounding-level difference)."""
+    if img.is_cuda:
+        return resize_matmul(img, height, width)
     x = img.permute(0, 3, 1, 2)
     y = F.interpolate(x.float(), size=(height, width), mode="bilinear",
                       align_corners=False, antialias=True)
     return y.to(img.dtype).permute(0, 2, 3, 1)
+
+
+def resize_matmul(img: torch.Tensor, height: int,
+                  width: int) -> torch.Tensor:
+    """:func:`resize_bilinear` as ``jax.image.resize`` computes it: two
+    contractions with the weight matrices of :func:`resample_weights`,
+    in float32.  Its gradient is two matrix products, which repeat bit
+    for bit on the card."""
+    H, W = img.shape[1:3]
+    dev = img.device
+    # the scale m/n in float32, as jax.image.resize divides
+    one = lambda n, m: resample_weights(
+        n, m, torch.full((1,), float(m), device=dev) / float(n),
+        torch.zeros(1, device=dev))[0]
+    y = torch.einsum("hs,bhwc->bswc", one(H, height), img.float())
+    y = torch.einsum("wt,bswc->bstc", one(W, width), y)
+    return y.to(img.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -271,12 +271,13 @@ def _rank_main(rank, size, init_method, device, backend, fn, args, queue):
         shutdown()
 
 
-def run_ranks(fn: Callable, size: int, device="cpu",
+def run_ranks(fn: Callable, size: int, device,
               backend: Optional[str] = None, args: tuple = (),
               timeout: float = 600.0) -> List[Any]:
     """Run ``fn(*args)`` on ``size`` ranks, each a spawned process that
     has joined a process group at ``tcp://localhost`` on a free port
-    (:func:`init` with ``device`` and ``backend``); returns each rank's
+    (:func:`init` with ``device``, which the caller names, and
+    ``backend``); returns each rank's
     result (picklable: numpy arrays, numbers), rank 0 first.  Raises
     with the rank's traceback where one failed; every process is ended
     before it returns."""

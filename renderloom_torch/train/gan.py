@@ -58,16 +58,17 @@ class AmsgradIfFinite:
     """``optax.apply_if_finite(optax.amsgrad(lr_schedule, b1, b2),
     max_consecutive_errors)`` — with ``clip_norm``,
     ``optax.apply_if_finite(optax.chain(optax.clip_by_global_norm(
-    clip_norm), optax.amsgrad(...)), max_consecutive_errors)`` — over one
-    flat float32 buffer that holds
+    clip_norm), optax.amsgrad(...)), max_consecutive_errors)``; with
+    ``amsgrad=False`` the same around ``optax.adam(...)`` — over one flat
+    float32 buffer that holds
     every parameter (each parameter's ``.data`` becomes a view of it, so
     one update is a handful of kernels and needs no host
     synchronisation).
 
     Per update, with g the flattened gradients:
 
-    * non-finite g: the update is skipped (parameters and the AMSGrad
-      state stay) and ``notfinite_count`` grows by one; a finite g
+    * non-finite g: the update is skipped (parameters and the moments
+      stay) and ``notfinite_count`` grows by one; a finite g
       resets it to 0.  Once it exceeds ``max_consecutive_errors`` the
       update is applied all the same, as optax gives up;
     * with ``clip_norm``, g is clipped first, as optax does: with
@@ -75,9 +76,10 @@ class AmsgradIfFinite:
       ‖g‖ ≥ clip_norm (finiteness is judged on the raw g);
     * otherwise, in optax's order: ``mu = (1 − b1)·g + b1·mu``,
       ``nu = (1 − b2)·g² + b2·nu``, the bias corrections
-      ``1 − b^count`` with ``count`` the applied updates, ``nu_max =
-      max(nu_max, nu_hat)``, and ``p += −lr(count_before) ·
-      mu_hat / (√nu_max + eps)``.
+      ``1 − b^count`` with ``count`` the applied updates, and ``p +=
+      −lr(count_before) · mu_hat / (√v + eps)`` with ``v = nu_max =
+      max(nu_max, nu_hat)`` (AMSGrad) or ``v = nu_hat`` (Adam, optax's
+      ``eps_root`` 0; ``nu_max`` stays 0).
 
     Under data parallelism (``renderloom_torch.parallel``) g is first
     averaged over the ranks, one all-reduce of the flat vector per
@@ -90,8 +92,9 @@ class AmsgradIfFinite:
     def __init__(self, params: Sequence[torch.nn.Parameter],
                  schedule: Callable, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, max_consecutive_errors: int = 10,
-                 clip_norm: Optional[float] = None):
+                 clip_norm: Optional[float] = None, amsgrad: bool = True):
         self.params = list(params)
+        self.amsgrad = amsgrad
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.clip_norm = clip_norm
@@ -136,9 +139,11 @@ class AmsgradIfFinite:
             count_inc.to(torch.float32))
         mu_hat = mu / (1 - power(self.b1))
         nu_hat = nu / (1 - power(self.b2))
-        nu_max = torch.maximum(self.nu_max, nu_hat)
+        nu_max = (torch.maximum(self.nu_max, nu_hat) if self.amsgrad
+                  else self.nu_max)
         lr = self.schedule(self.count).to(g.dtype)
-        update = -lr * (mu_hat / (torch.sqrt(nu_max) + self.eps))
+        v = nu_max if self.amsgrad else nu_hat
+        update = -lr * (mu_hat / (torch.sqrt(v) + self.eps))
         self.flat.add_(torch.where(ok, update, torch.zeros_like(update)))
         for name, new in (("mu", mu), ("nu", nu), ("nu_max", nu_max),
                           ("count", count_inc)):
@@ -159,6 +164,17 @@ class AmsgradIfFinite:
         for k in ("mu", "nu", "nu_max", "count", "notfinite_count",
                   "total_notfinite"):
             setattr(self, k, state[k].to(self.flat.device))
+
+
+def adam_if_finite(params: Sequence[torch.nn.Parameter], lr: float,
+                   grad_clip: float) -> AmsgradIfFinite:
+    """``optax.apply_if_finite(optax.chain(optax.clip_by_global_norm(
+    grad_clip), optax.adam(lr)), 10)``, the optimizer of the flow UNet
+    and the pose head."""
+    return AmsgradIfFinite(
+        params, lambda count: torch.full_like(count, lr, dtype=torch.float32),
+        b1=0.9, b2=0.999, max_consecutive_errors=10, clip_norm=grad_clip,
+        amsgrad=False)
 
 
 def make_gan_optimizers(cfg: RendererConfig, gen: torch.nn.Module,

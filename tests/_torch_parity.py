@@ -246,3 +246,32 @@ def write_amass_h5(path: str, groups: dict, seed: int = 0) -> str:
                 grp.create_group(f"m{i}").create_dataset(
                     "joints", data=clip.transpose(2, 0, 1).astype(np.float64))
     return path
+
+
+def host_copy(tree):
+    """numpy copies of a JAX pytree's leaves (a donating step may reuse
+    the buffers)."""
+    return jax.tree.map(lambda x: np.array(x, copy=True), tree)
+
+
+def load_adam_state(opt, model, params, opt_state):
+    """Set the port's ``AmsgradIfFinite(amsgrad=False)`` ``opt`` over
+    ``model``'s parameters to a JAX state: the numpy param tree
+    ``params`` and the ``apply_if_finite(chain(clip_by_global_norm,
+    adam))`` state ``opt_state``, so a port step starts where a JAX step
+    did."""
+    from renderloom_torch import convert
+
+    adam = opt_state.inner_state[1][0]
+    names = [n for n, _ in model.named_parameters()]
+
+    def flat(tree):
+        sd = convert.state_dict_from_flax(tree)
+        return torch.cat([sd[n].reshape(-1) for n in names])
+
+    with torch.no_grad():
+        opt.flat.copy_(flat(params))
+    opt.mu, opt.nu = flat(adam.mu), flat(adam.nu)
+    opt.count = torch.tensor(int(adam.count), dtype=torch.int32)
+    opt.notfinite_count = torch.tensor(int(opt_state.notfinite_count),
+                                       dtype=torch.int32)

@@ -3,7 +3,7 @@
 (configs/smoke_motion.yaml): ``--synthetic`` and ``--h5`` (a tiny AMASS
 h5 the test writes), the ``train/`` and ``eval/`` records of
 ``metrics.jsonl``, the checkpoint and a resume that continues from its
-step, the statistics computed and cached, and ``read_motion`` of the
+step, the statistics computed and cached, and ``read_params`` of the
 checkpoint."""
 
 import json
@@ -16,7 +16,7 @@ import torch
 from _torch_parity import single_thread, write_amass_h5  # noqa: F401
 from renderloom_torch import convert
 from renderloom_torch.cli import train_motion
-from renderloom_torch.core.checkpoint import read_motion
+from renderloom_torch.core.checkpoint import read_params
 from renderloom_torch.core.config import MotionDatasetConfig
 from renderloom_torch.data.amass import stats_paths
 
@@ -56,8 +56,8 @@ def test_synthetic_train_save_and_resume(tmp_path):
     ck = torch.load(os.path.join(b, "checkpoint.pt"))
     assert ck["step"] == 4 and int(ck["opt"]["count"]) == 4
     assert os.path.exists(os.path.join(a, "code.zip"))
-    # read_motion reads the checkpoint's model as flax trees
-    params = read_motion(os.path.join(a, "checkpoint.pt"))
+    # read_params reads the checkpoint's model as flax trees
+    params = read_params(os.path.join(a, "checkpoint.pt"))
     want = convert.flax_trees(out["state"].model)[0]
     np.testing.assert_array_equal(params["dec_1"]["ffn"]["linear2"]
                                   ["kernel"], want["dec_1"]["ffn"]
