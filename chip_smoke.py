@@ -266,6 +266,32 @@ Z. the motion step (motion.yaml, dropout 0) and the GAN step (hsm.yaml,
    --nproc_per_node=1`` on NCCL; and ``python -m renderloom_torch.bench``
    once per metric, its JSON lines printed;
 
+then the perceptual backbones, data-parallel serving and the layer
+variants (after phase Z):
+
+U. phase C's float32 GAN step, 2 steps on each alternate perceptual
+   backbone (``make_perceptual(..., network=...)``: VGG16, AlexNet,
+   ResNet-50, Inception-v3, robust ResNet-50, VGG-Face; seeded random
+   weights; one G/D state stepped through all): K1, K2 and K2b launched
+   as in phase C, the first step's K2 and K2b calls held against their
+   twins on the step's own tensors (the first call of each shape),
+   finite metrics and no skipped update; windows/s of the second step,
+   peak memory, the perceptual term's forward and backward ms per step;
+   each backbone's taps card against CPU at 64×96 (Inception 96×128);
+J. data-parallel serving: 4 clips of phase 4's configuration (float32,
+   the standard generator) over two spawned ranks on the card (gloo):
+   each rank's generator replicated from rank 0's, its 2 clips
+   prepared (K1) and rolled out (K2), the frames and masks gathered in
+   clip order and held against world 1 on the same clips (1e-3); each
+   rank's K1 and K2 launches beside world 1's;
+I. every layer variant of ``models/layers.py`` (``NonLocalBlock``,
+   ``PartialConv``, ``hyper_conv2d``, ``weight_demodulated_conv2d``,
+   ``LayerNorm2d``, ``HyperSpade``, ``PartialConvBlock``,
+   ``PartialResBlock``, ``PartialConv3d``) forward and backward on the
+   card against the CPU at B 4, 80×120, C 256 (``PartialConv3d`` at
+   (2, 8, 40, 60, 64)), with the K2 and K2b launches of those with
+   instance norms;
+
 and last prints the ``{"kernels": [...]}`` line, the card line, and the
 ``{"ok": true, "device": {...}}`` line.
 
@@ -2417,10 +2443,12 @@ def phase_raster_train():
 # ---------------------------------------------------------------------------
 
 
-def _norm_call_recorder(fwd: Counter, bwd: Counter):
+def _norm_call_recorder(fwd: Counter, bwd: Counter, on_fwd=None,
+                        on_bwd=None):
     """Swap the K2 / K2b wrappers for recorders of each call's (shape,
-    affine, slope, r3centered); returns the function that puts them
-    back."""
+    affine, slope, r3centered), which also hand each call's arguments
+    and result to ``on_fwd`` / ``on_bwd`` where given; returns the
+    function that puts them back."""
     from renderloom_torch.ops import norm_kernel as NK
 
     f0, b0 = NK.instance_norm_cuda, NK.instance_norm_bwd_cuda
@@ -2428,12 +2456,19 @@ def _norm_call_recorder(fwd: Counter, bwd: Counter):
     def fwd_rec(x, scale=None, bias=None, slope=None, eps=1e-5, stats=None,
                 parity=False, r3centered=False):
         fwd[(tuple(x.shape), scale is not None, slope, r3centered)] += 1
-        return f0(x, scale, bias, slope, eps, stats, parity, r3centered)
+        out = f0(x, scale, bias, slope, eps, stats, parity, r3centered)
+        if on_fwd is not None:
+            on_fwd(x, scale, bias, slope, eps, stats, parity, r3centered,
+                   out)
+        return out
 
     def bwd_rec(x, dy, stats, scale=None, bias=None, slope=None,
                 r3centered=False):
         bwd[(tuple(x.shape), scale is not None, slope, r3centered)] += 1
-        return b0(x, dy, stats, scale, bias, slope, r3centered)
+        out = b0(x, dy, stats, scale, bias, slope, r3centered)
+        if on_bwd is not None:
+            on_bwd(x, dy, stats, scale, bias, slope, r3centered, out)
+        return out
 
     # the wrappers count their launches on the function their module
     # name points at, so the recorders carry the counts meanwhile
@@ -6172,6 +6207,484 @@ def phase_repro() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# U. the GAN step on each alternate perceptual backbone
+# ---------------------------------------------------------------------------
+
+# Card against CPU, float32 (TF32 off), each backbone's taps at 64×96
+# (Inception 96×128) on seeded weights and input: the largest error of a
+# tap over its largest magnitude.  Limit 3.4x the largest reading
+# (2.94e-6, VGG-Face, NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+BACKBONE_TAP_TOL = 1e-5
+
+
+def _backbone_hw(net: str):
+    return (96, 128) if net == "inception_v3" else (64, 96)
+
+
+def _backbone_cpu_match(net: str) -> float:
+    """Card vs CPU taps of ``net`` (seed-11 weights, seed-12 input)."""
+    import copy
+
+    from renderloom_torch.models.backbones import build_backbone
+    from renderloom_torch.train.gan import set_float32_precision
+
+    set_float32_precision()
+    model, layers, _ = build_backbone(net, seed=11)
+    h, w = _backbone_hw(net)
+    x = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(2, h, w, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = model(x)
+        got = copy.deepcopy(model).to(DEVICE)(x.to(DEVICE))
+    return max(((got[k].cpu() - want[k]).abs().max()
+                / want[k].abs().max()).item() for k in layers)
+
+
+# K2 and K2b on a step's own tensors against their twins: each output
+# (K2's y and each residual, K2b's dx) over its largest magnitude.  Phase
+# B holds them elementwise on random inputs; a step's activations carry
+# means of many deviations (a conv's bias, a channel of small variance),
+# where the moments' summation order moves a whole channel, so the
+# main-path check is scaled by the call.  Limit about 3.5x the largest
+# reading (1.40e-5, K2 in phase U, PERF.md).
+MAIN_PATH_NORM_TOL = 5e-5
+
+
+def _norm_twin_checker(errs: dict):
+    """:func:`_norm_call_recorder` with the first call of each (shape,
+    affine, slope) also run through its twin on the same main-path
+    tensors: K2's output and residuals and K2b's dx each to
+    ``MAIN_PATH_NORM_TOL`` of their largest magnitude, dγ and dβ to
+    ``DPARAM_TOL`` of their terms' magnitudes.  ``errs`` collects the
+    largest |kernel − twin| ("K2", "K2b") and the largest of it over
+    the output's largest ("K2 rel", "K2b rel"); raises on a call beyond
+    its limit.  Returns the function that puts the wrappers back."""
+    from renderloom_torch.ops import norm_kernel as NK
+
+    seen = set()
+
+    def hold(kind, key, got, want):
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / max(want.float().abs().max().item(), 1e-30)
+        errs[kind] = max(errs.get(kind, 0.0), err)
+        errs[f"{kind} rel"] = max(errs.get(f"{kind} rel", 0.0), rel)
+        if rel > MAIN_PATH_NORM_TOL:
+            raise AssertionError(f"{kind} {key}: error {err}, {rel} of the "
+                                 f"largest")
+
+    def fwd(x, scale, bias, slope, eps, stats, parity, r3centered, out):
+        key = ("fwd", tuple(x.shape), scale is not None, slope)
+        if key in seen or parity or r3centered:
+            return
+        seen.add(key)
+        want, want_stats = NK._plain_forward(x, scale, bias, slope, eps)
+        hold("K2", key, out, want)
+        if stats is not None:
+            for k in range(3):
+                hold("K2", key + (f"residual {k}",), stats[..., k],
+                     want_stats[..., k])
+
+    def bwd(x, dy, stats, scale, bias, slope, r3centered, got):
+        key = ("bwd", tuple(x.shape), scale is not None, slope)
+        if key in seen or r3centered:
+            return
+        seen.add(key)
+        want = NK.instance_norm_bwd_plain(x, dy, stats, scale, bias, slope)
+        hold("K2b", key, got[0], want[0])
+        if scale is None:
+            return
+        xhat = ((x - stats[:, None, None, :, 0])
+                - stats[:, None, None, :, 1]) * stats[:, None, None, :, 2]
+        z = xhat * scale + bias
+        dz = torch.where(z >= 0, dy, dy * slope) if slope is not None \
+            else dy
+        mags = ((dz * xhat).abs().sum((0, 1, 2)), dz.abs().sum((0, 1, 2)))
+        for g_, w_, mag in zip(got[1:], want[1:], mags):
+            ratio = ((g_ - w_).abs() / mag).max().item()
+            if ratio > DPARAM_TOL:
+                raise AssertionError(f"K2b {key}: dparam {ratio}")
+
+    return _norm_call_recorder(Counter(), Counter(), fwd, bwd)
+
+
+def phase_backbones(train) -> dict:
+    """U: phase C's float32 GAN step (hsm.yaml, batch 4 × 4-frame raw
+    windows, 480×320, four discriminators) for 2 steps on each alternate
+    perceptual backbone (seeded random weights, ``make_perceptual(...,
+    network=...)``): K1, K2 and K2b launched as in phase C, the first
+    step's K2 and K2b calls held against their twins on the step's own
+    tensors (first call of each shape), finite metrics and no skipped
+    update; windows/s of the second step, peak memory, the perceptual
+    term's forward and backward ms per step; and each backbone's taps
+    card against CPU."""
+    from renderloom_torch.cli.train_renderer import synthetic_batches
+    from renderloom_torch.models.backbones import BACKBONES
+    from renderloom_torch.train.gan import (create_gan_state,
+                                            make_gan_train_step,
+                                            make_perceptual)
+
+    cfg = _train_cfg()
+    d = cfg.data
+    B, L, H, W = cfg.batch_size, d.max_frames, d.model_height, d.model_width
+    print(f"U. the float32 GAN step on each alternate perceptual backbone "
+          f"(phase C: {W}x{H}, batch {B} x {L}-frame raw windows, 2 steps "
+          f"each, seeded random weights; one G/D state stepped through all)")
+    state = create_gan_state(cfg, DEVICE, seed=0)
+    want = derived_train_launches(cfg, state.gen, state.dis, L - 2)
+    if want != train["per_step"]:
+        raise AssertionError(f"derived launches {want} differ from phase C's"
+                             f" {train['per_step']}")
+    raws = list(synthetic_batches(np.random.default_rng(21),
+                                  2 * len(BACKBONES), B, L, d.load_height,
+                                  d.load_width))
+    out = {}
+    for i, net in enumerate(BACKBONES):
+        tic = time.perf_counter()
+        perc = make_perceptual(cfg, DEVICE, seed=0, network=net)
+        step = make_gan_train_step(cfg, perc, data_cfg=d)
+        batches = [{k: torch.from_numpy(v).to(DEVICE) for k, v in raw.items()}
+                   for raw in raws[2 * i:2 * i + 2]]
+        errs = {}
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        restore = _norm_twin_checker(errs)
+        try:
+            step(state, batches[0])
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        t0 = time.perf_counter()
+        metrics = step(state, batches[1])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = _train_launches()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        vals = {k: float(v) for k, v in metrics.items()}
+        if launches != {k: 2 * v for k, v in want.items()}:
+            raise AssertionError(f"{net}: launches {launches}, per step "
+                                 f"{want}")
+        if not all(np.isfinite(v) for v in vals.values()) or \
+                vals["notfinite/g"] or vals["notfinite/d"]:
+            raise AssertionError(f"{net}: metrics {vals}")
+        pred = torch.rand((B, H, W, 3), device=DEVICE, requires_grad=True)
+        target = torch.rand((B, H, W, 3), device=DEVICE)
+        perc_ms = 2 * (L - 2) * cuda_ms(
+            lambda: perc(pred, target).backward(), iters=3, warmup=1)
+        tap_err = _backbone_cpu_match(net)
+        n_p = sum(p.numel() for p in perc.parameters())
+        out[net] = dict(wps=B / sec, peak_gib=peak, perc_ms=perc_ms,
+                        launches=launches, k2_err=errs.get("K2", 0.0),
+                        k2b_err=errs.get("K2b", 0.0),
+                        k2_rel=errs.get("K2 rel", 0.0),
+                        k2b_rel=errs.get("K2b rel", 0.0), tap_err=tap_err,
+                        g_perc=vals["g/perc"], params=n_p,
+                        seconds=time.perf_counter() - tic)
+        print(f"  {net} ({n_p:,} params): {B / sec:.4f} windows/s (step 2 "
+              f"{sec * 1e3:.1f} ms), peak {peak:.2f} GiB, perceptual term "
+              f"{perc_ms:.1f} ms a step (forward and backward, "
+              f"{2 * (L - 2)} calls), g/perc {vals['g/perc']:.5g}; launches "
+              f"in 2 steps {launches} (phase C per step "
+              f"{train['per_step']}); K2 vs twin {errs.get('K2', 0):.3e} "
+              f"({errs.get('K2 rel', 0):.2e} of the largest), K2b "
+              f"{errs.get('K2b', 0):.3e} ({errs.get('K2b rel', 0):.2e}; "
+              f"limit {MAIN_PATH_NORM_TOL:.0e}); taps card vs CPU "
+              f"{tap_err:.3e} of the largest (limit {BACKBONE_TAP_TOL:.0e}); "
+              f"{out[net]['seconds']:.1f} s")
+        if tap_err > BACKBONE_TAP_TOL:
+            raise AssertionError(f"{net}: taps card vs CPU {tap_err}")
+        del perc, step, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# J. data-parallel serving
+# ---------------------------------------------------------------------------
+
+# World 2 against world 1 on the same clips, the card's serving tolerance
+# (phase 5's card vs CPU): each rank's batch is half of world 1's, and
+# cuDNN's algorithms and K2's plan follow the batch.
+DP_SERVE_TOL = 1e-3
+
+
+def serve_clips(n: int, L: int, H: int, W: int, seed: int) -> dict:
+    """``n`` raw clips of ``L`` frames at H×W (images and backgrounds in
+    [0, 255], one standing person per clip drifting across the frame,
+    one joint in twenty below the confidence threshold), numpy."""
+    rng = np.random.default_rng(seed)
+    box = np.array([W / 4, 3 * H / 4])
+    start = rng.uniform([0, 0], [W, H] - box, (n, 1, 1, 2))
+    drift = rng.uniform(-2, 2, (n, 1, 1, 2)) * np.arange(L)[None, :, None,
+                                                            None]
+    xy = start + drift + _PERSON * box + rng.uniform(-3, 3, (n, L, 19, 2))
+    conf = np.where(rng.uniform(size=(n, L, 19, 1)) > 0.05, 0.9, 0.0)
+    img = lambda: rng.uniform(0, 255, (n, L, H, W, 3)).astype(np.float32)
+    return {"images": img(), "dain": img(),
+            "poses": np.concatenate([xy, conf], -1).astype(np.float32)}
+
+
+def dp_serve_run(rcfg, g_trees, clips, rate: int, device) -> dict:
+    """Data-parallel serving on this rank (world 1 without a process
+    group): the inference generator from ``g_trees`` (numpy flax params
+    and batch_stats; without them seeded random weights, seed 1 + rank,
+    so that :func:`~renderloom_torch.parallel.mesh.replicate` has to make
+    every rank's rank 0's), replicated; this rank's contiguous block of
+    ``clips`` (a dict of numpy arrays with a leading clip axis, prepared
+    — label, back, key_img — or raw — images, dain, poses, which the
+    rank prepares, K1 — or the arguments of :func:`serve_clips`); the
+    segment rollout on it (K2); the global fused frames and masks
+    gathered in clip order.  Returns them (rank 0 only), this rank's
+    kernel launches and seconds."""
+    from renderloom_torch.convert import random_init_
+    from renderloom_torch.data.hsm import prepare_batch
+    from renderloom_torch.parallel import mesh
+    from renderloom_torch.train.gan import (make_inference_pair,
+                                            make_segment_rollout,
+                                            set_float32_precision)
+
+    device = torch.device(device)
+    set_float32_precision()         # as build_pipeline: no TF32
+    rank, size = mesh.world()
+    gen = make_inference_pair(rcfg, *(g_trees or (None, None)), device)
+    if g_trees is None and rank:
+        random_init_(gen, 1 + rank)
+    mesh.replicate(gen)
+    if not isinstance(clips, dict):
+        clips = serve_clips(*clips)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in mesh.shard_batch(clips).items()}
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else lambda: None)
+    _reset_launches()
+    sync()
+    tic = time.perf_counter()
+    with torch.inference_mode():
+        if "poses" in batch:
+            p = prepare_batch(batch, rcfg.data, want_masks=False)
+            batch = {"label": p["label"], "back": p["back"],
+                     "key_img": p["image"]}
+        fused, masks = make_segment_rollout(gen, rate)(batch)
+    sync()
+    seconds = time.perf_counter() - tic
+    launches = _kernel_launches()
+    fused, masks = mesh.gather_batch(fused), mesh.gather_batch(masks)
+    out = dict(launches=launches, seconds=seconds, world=size,
+               local=int(len(batch["label"])))
+    if rank == 0:
+        out.update(fused=fused.cpu().numpy(), masks=masks.cpu().numpy())
+    return out
+
+
+def phase_dp_serve(serve) -> dict:
+    """J: data-parallel serving, two ranks on this card over gloo (for
+    correctness, not speed): 4 clips of phase 4's configuration, float32,
+    the standard generator on seeded weights, 2 clips a rank; each rank
+    prepares its clips' labels (K1) and runs the segment rollout (K2);
+    the gathered frames and masks against world 1 on the same 4 clips."""
+    from renderloom_torch.parallel import run_ranks
+
+    rcfg, rate, K = serve["rcfg"], serve["rate"], serve["K"]
+    H, W = rcfg.data.model_height, rcfg.data.model_width
+    n, L = 4, (K - 1) * rate + 1
+    spec = (n, L, H, W, 31)
+    print(f"J. data-parallel serving: {n} clips ({W}x{H}, rate {rate}, {K} "
+          f"keyframes, L = {L}), float32 standard generator, world 2 (gloo, "
+          f"both ranks on this card, {n // 2} clips a rank) vs world 1")
+    tic = time.perf_counter()
+    one = dp_serve_run(rcfg, None, spec, rate, DEVICE)
+    t_one = time.perf_counter() - tic
+    tic = time.perf_counter()
+    two = run_ranks(dp_serve_run, 2, DEVICE, backend="gloo",
+                    args=(rcfg, None, spec, rate, DEVICE))
+    t_two = time.perf_counter() - tic
+    g = lambda r: r["launches"]
+    want = {"rasterize": 1, "instance_norm": _count_norms(serve["gen"])
+            * (rate - 1)}
+    for who, r in [("world 1", one)] + [(f"rank {i}", r)
+                                        for i, r in enumerate(two)]:
+        if {k: g(r)[k] for k in want} != want or g(r)["instance_norm_bwd"]:
+            raise AssertionError(f"{who}: launches {g(r)}, want {want}")
+    if tuple(one["fused"].shape) != (n, L, H, W, 3):
+        raise AssertionError(f"fused shape {one['fused'].shape}")
+    if not np.isfinite(one["fused"]).all():
+        raise AssertionError("non-finite frames")
+    errs = {}
+    for part in ("fused", "masks"):
+        errs[part] = compare(f"world 2 vs world 1, {part}",
+                             torch.from_numpy(two[0][part]),
+                             torch.from_numpy(one[part]), DP_SERVE_TOL)
+    print(f"  launches world 1 {g(one)}, world 2 per rank "
+          f"{[g(r) for r in two]}; rollout seconds world 1 "
+          f"{one['seconds']:.3f}, ranks {[round(r['seconds'], 3) for r in two]}"
+          f"; {t_one:.1f} s and {t_two:.1f} s with the set-up")
+    return dict(errs=errs, launches1=g(one), launches2=[g(r) for r in two],
+                seconds1=one["seconds"], seconds2=[r["seconds"] for r in two])
+
+
+# ---------------------------------------------------------------------------
+# I. the layer variants
+# ---------------------------------------------------------------------------
+
+# Card against CPU, float32 (TF32 off), forward and backward of each
+# variant at a generator-like width: the output and each gradient over
+# its largest magnitude (a gradient far below the call's largest over
+# 1e-2 of that).  Limits 3.5-6x the largest readings on an NVIDIA H100
+# 80GB HBM3 at 700 W (outputs 2.65e-6, gradients 1.74e-5, behind a
+# leaky by the mean 1.44e-4; PERF.md).
+VARIANT_OUT_TOL, VARIANT_GRAD_TOL, VARIANT_MEAN_TOL = 1e-5, 1e-4, 5e-4
+# (B, H, W, C) of the 2-D variants; PartialConv3d's (B, D, H, W, C)
+VARIANT_SHAPE, VARIANT_3D_SHAPE = (4, 80, 120, 256), (2, 8, 40, 60, 64)
+
+
+def _variant_cases():
+    """(name, module, inputs (numpy), which inputs take a gradient,
+    call) at ``VARIANT_SHAPE`` and ``VARIANT_3D_SHAPE``."""
+    from renderloom_torch.convert import random_init_
+    from renderloom_torch.models import layers as TL
+
+    B, H, W, C = VARIANT_SHAPE
+    B3, D3, H3, W3, C3 = VARIANT_3D_SHAPE
+    rng = np.random.default_rng(41)
+    a = lambda *shape: rng.normal(size=shape).astype(np.float32)
+
+    def holes(shape):
+        m = (rng.uniform(size=shape) > 0.1).astype(np.float32)
+        m[:, H // 8:3 * H // 8, W // 6:5 * W // 12] = 0.0
+        return m
+
+    def init(mod, seed):
+        """Seeded conv weights (``random_init_``); every 1-D parameter
+        (biases, norm scales, γ, β) 0.1·N(0, 1) around 1 for a weight,
+        0 otherwise."""
+        random_init_(mod, seed)
+        g = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for name, p in mod.named_parameters():
+                if p.dim() == 1:
+                    p.copy_(float(name.endswith("weight"))
+                            + 0.1 * torch.randn(p.shape, generator=g))
+        return mod
+
+    nl = TL.NonLocalBlock(C, spectral=False)
+    cases = [
+        ("NonLocalBlock", init(nl, 1), [a(B, H, W, C)], [True],
+         lambda m, x: m(x)),
+        ("PartialConv stride 2", init(TL.PartialConv(C, C, 3, 2), 2),
+         [a(B, H, W, C), holes((B, H, W, 1))], [True, False],
+         lambda m, x, k: m(x, k)),
+        ("hyper_conv2d", None, [a(B, H, W, 64), 0.05 * a(B, 3, 3, 64, C),
+                                a(B, C)], [True, True, True],
+         lambda m, x, k, b: TL.hyper_conv2d(x, k, b)),
+        ("weight_demodulated_conv2d", None,
+         [a(B, H, W, 64), a(3, 3, 64, C), np.abs(a(B, 64)) + 0.5],
+         [True, True, True],
+         lambda m, x, k, s: TL.weight_demodulated_conv2d(x, k, s)),
+        ("LayerNorm2d", init(TL.LayerNorm2d(C), 3), [a(B, H, W, C)], [True],
+         lambda m, x: m(x)),
+        ("HyperSpade", init(TL.HyperSpade(C, [64, 32, None], 3, hyper=True),
+                            4),
+         [a(B, H, W, C), a(B, H // 2, W // 2, 64), a(B, H, W, 32),
+          rng.uniform(size=(B, H // 4, W // 4, 1)).astype(np.float32),
+          0.05 * a(B, 3, 3, 64, 2 * C), 0.1 * a(B, 2 * C)],
+         [True, True, True, False, True, True],
+         lambda m, x, c0, c1, k1, kw, kb: m(x, [c0, (c1, k1), None],
+                                            (kw, kb))),
+        ("PartialConvBlock", init(TL.PartialConvBlock(C, C), 5),
+         [a(B, H, W, C), holes((B, H, W, 1))], [True, False],
+         lambda m, x, k: m(x, k)),
+        ("PartialResBlock", init(TL.PartialResBlock(C // 2, C), 6),
+         [a(B, H, W, C // 2), holes((B, H, W, 1))], [True, False],
+         lambda m, x, k: m(x, k)),
+        ("PartialConv3d", init(TL.PartialConv3d(C3, C3), 7),
+         [a(B3, D3, H3, W3, C3), (rng.uniform(size=(B3, D3, H3, W3, 1))
+                                  > 0.2).astype(np.float32)], [True, False],
+         lambda m, x, k: m(x, k)),
+    ]
+    with torch.no_grad():
+        nl.gamma.fill_(0.5)
+    return cases
+
+
+def _variant_run(module, inputs, wants_grad, call, device):
+    """Outputs and gradients (inputs', then parameters' by name) of Σ
+    out·c, c fixed per output shape, on ``device``."""
+    xs = [torch.from_numpy(x).to(device).requires_grad_(g)
+          for x, g in zip(inputs, wants_grad)]
+    out = call(module, *xs)
+    out = out[0] if isinstance(out, tuple) else out
+    ct = torch.from_numpy(np.random.default_rng(43).normal(
+        size=tuple(out.shape)).astype(np.float32)).to(device)
+    (out * ct).sum().backward()
+    grads = {f"d input {i}": x.grad
+             for i, (x, g) in enumerate(zip(xs, wants_grad)) if g}
+    if module is not None:
+        grads.update({f"d{n}": p.grad for n, p in module.named_parameters()})
+    return out.detach(), grads
+
+
+def phase_layer_variants() -> dict:
+    """I: every layer variant forward and backward on the card against
+    the CPU at a generator-like width, with K2 and K2b launches counted
+    for those with instance norms (HyperSpade 1, PartialConvBlock 1,
+    PartialResBlock 2, each forward and backward)."""
+    import copy
+
+    from renderloom_torch.train.gan import set_float32_precision
+
+    set_float32_precision()
+    B, H, W, C = VARIANT_SHAPE
+    print(f"I. the layer variants on the card vs the CPU (B {B}, {W}x{H}, C "
+          f"{C}; PartialConv3d {VARIANT_3D_SHAPE}), forward and backward, "
+          f"float32")
+    norms = {"HyperSpade": 1, "PartialConvBlock": 1, "PartialResBlock": 2}
+    out, launches = {}, {}
+    for name, module, inputs, wants_grad, call in _variant_cases():
+        tic = time.perf_counter()
+        card = copy.deepcopy(module).to(DEVICE) if module is not None \
+            else None
+        y_cpu, g_cpu = _variant_run(module, inputs, wants_grad, call, "cpu")
+        _reset_launches()
+        y, g = _variant_run(card, inputs, wants_grad, call, DEVICE)
+        torch.cuda.synchronize()
+        run = _kernel_launches()
+        n = norms.get(name, 0)
+        if (run["instance_norm"], run["instance_norm_bwd"]) != (n, n):
+            raise AssertionError(f"{name}: launches {run}, want {n} and {n}")
+        if n:
+            launches[name] = {k: run[k] for k in ("instance_norm",
+                                                  "instance_norm_bwd")}
+        top = max(v.abs().max().item() for v in g_cpu.values())
+        diff = lambda a, b: (a.cpu() - b).abs()
+        err_out = diff(y, y_cpu).max().item() / y_cpu.abs().max().item()
+        # each gradient over its largest; one whose largest lies below
+        # 1e-2 of the call's largest (a partial conv's bias ahead of an
+        # instance norm, which the norm cancels but for the holes) over
+        # the call's largest.  Behind a leaky (the partial blocks) a
+        # pre-activation within rounding of 0 takes the other slope on
+        # the card, moving its gradient by 0.8·dy: those hold the mean
+        # error over the mean magnitude
+        kink = name in ("PartialConvBlock", "PartialResBlock")
+        grads = {k: (diff(g[k], v).mean() / v.abs().mean()).item() if kink
+                 else diff(g[k], v).max().item()
+                 / max(v.abs().max().item(), 1e-2 * top)
+                 for k, v in g_cpu.items()}
+        worst = max(grads, key=grads.get)
+        err_grad = grads[worst]
+        limit = VARIANT_MEAN_TOL if kink else VARIANT_GRAD_TOL
+        out[name] = dict(out=err_out, grad=err_grad, worst=worst,
+                         mean=kink, seconds=time.perf_counter() - tic)
+        print(f"  {name}: output {err_out:.3e}, gradients {err_grad:.3e} "
+              f"({worst}) of their {'mean' if kink else 'largest'} (limits "
+              f"{VARIANT_OUT_TOL:.0e}, {limit:.0e}); K2 "
+              f"{run['instance_norm']}, K2b {run['instance_norm_bwd']}; "
+              f"{out[name]['seconds']:.1f} s")
+        if err_out > VARIANT_OUT_TOL or err_grad > limit:
+            raise AssertionError(f"{name}: card vs CPU {err_out}, "
+                                 f"{err_grad}")
+    return dict(errs=out, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6240,6 +6753,21 @@ def main() -> int:
     t_z = time.perf_counter()
     dp = phase_data_parallel(train)
     print(f"data-parallel phase: Z {time.perf_counter() - t_z:.1f} s")
+    t_u = time.perf_counter()
+    backbones = phase_backbones(train)
+    t_j = time.perf_counter()
+    dp_serve = phase_dp_serve(serve)
+    t_i = time.perf_counter()
+    variants = phase_layer_variants()
+    print(f"backbone, data-parallel serving and layer-variant phases: U "
+          f"{t_j - t_u:.1f} s, J {t_i - t_j:.1f} s, I "
+          f"{time.perf_counter() - t_i:.1f} s")
+    bb = lambda k: {f"train_backbone_{net}_2_steps": r["launches"][k]
+                    for net, r in backbones.items()}
+    dps = lambda k: {"serve_dp_world1": dp_serve["launches1"][k],
+                     **{f"serve_dp2_rank{i}": r[k] for i, r in
+                        enumerate(dp_serve["launches2"])}}
+    var = lambda k: sum(r[k] for r in variants["launches"].values())
     xf, xs = exported["fastpath_bf16"], exported["standard_f32"]
     dp2 = {k: sum(r[k] for r in dp["gan"]["launches2"])
            for k in dp["gan"]["launches2"][0]}
@@ -6264,7 +6792,8 @@ def main() -> int:
                                "serve_exported": xs["launches"]["rasterize"],
                                "train_dp2": dp2["rasterize"],
                                **({"serve_files_learned": learned["launches"]
-                                   ["rasterize"]} if learned else {})},
+                                   ["rasterize"]} if learned else {}),
+                               **bb("rasterize"), **dps("rasterize")},
              **raster_train,
              serve=dict(shape=f"{F_RASTER}x{H_FULL}x{W_FULL}x22 f32 label, "
                               f"no masks", **raster),
@@ -6295,7 +6824,11 @@ def main() -> int:
                                ["instance_norm"],
                                "train_dp2": dp2["instance_norm"],
                                **({"serve_files_learned": learned["launches"]
-                                   ["instance_norm"]} if learned else {})},
+                                   ["instance_norm"]} if learned else {}),
+                               **bb("instance_norm"), **dps("instance_norm"),
+                               "layer_variants": var("instance_norm")},
+             train_backbones_max_abs_err=max(
+                 r["k2_err"] for r in backbones.values()),
              **norm_train, serve=norm),
         dict(name="instance_norm_parity", route="cuda",
              source="renderloom_torch/csrc/instance_norm.cu",
@@ -6368,7 +6901,11 @@ def main() -> int:
              launches_by_path={"train_3_steps": train["launches"]
                                ["instance_norm_bwd"],
                                "train_h5": w32["instance_norm_bwd"],
-                               "train_dp2": dp2["instance_norm_bwd"]},
+                               "train_dp2": dp2["instance_norm_bwd"],
+                               **bb("instance_norm_bwd"),
+                               "layer_variants": var("instance_norm_bwd")},
+             train_backbones_max_abs_err=max(
+                 r["k2b_err"] for r in backbones.values()),
              **norm_bwd),
         dict(name="instance_norm_bwd_r3centered", route="cuda",
              source="renderloom_torch/csrc/instance_norm.cu",
@@ -6405,6 +6942,8 @@ def main() -> int:
           f"step {pose['steps_per_sec']:.2f} steps/s"
           + (f", learned pipeline from files {learned['fps']:.3f} frames/s"
              if learned else "")
+          + "; gan windows/s by perceptual backbone " + ", ".join(
+              f"{k} {v['wps']:.4f}" for k, v in backbones.items())
           + "; gan windows/s with cudnn.deterministic "
           f"{repro['gan']['windows_per_sec']['cudnn.deterministic']:.4f} vs "
           f"{repro['gan']['windows_per_sec']['port']:.4f}; bench " + ", ".join(

@@ -11,13 +11,17 @@ folding, and seeded random weights.
   kernels go HWIO → OIHW (the inverse of
   ``renderloom/data/torch_import.py:_conv_w``), dense kernels (in, out) →
   (out, in), ``scale`` → ``weight``, the motion transformer's learned
-  position table (``embedding``) as it is; ``load_state_dict(strict=True)``
+  position table (``embedding``) and the layer variants' ``gamma`` and
+  ``beta`` as they are, 3-D kernels DHWIO → OIDHW;
+  ``load_state_dict(strict=True)``
   refuses a tree that misses or adds a name.  With ``stats`` (the
   ``batch_stats`` tree) the spectral-norm state loads too:
   ``<conv>/sn/conv/kernel/u`` → ``<conv>.sn_u`` and ``…/sigma`` →
   ``<conv>.sn_sigma``, for modules in the training form
-  (:func:`renderloom_torch.models.layers.enable_spectral_norm`).  This
-  loads the generator, the discriminator set and the VGG19 tree alike.
+  (:func:`renderloom_torch.models.layers.enable_spectral_norm`), and a
+  batch norm's ``mean`` and ``var`` → ``running_mean`` and
+  ``running_var``.  This loads the generator, the discriminator set, the
+  perceptual backbones and the layer variants alike.
 * :func:`flax_trees` — the reverse direction: a module's (or a saved
   state dict's) parameters and spectral-norm state as numpy flax trees,
   for comparing a trained module with the JAX package's state and for
@@ -100,11 +104,13 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     for prefix, name, leaf in _leaves(params):
         if name == "kernel" and leaf.ndim == 4:        # HWIO → OIHW
             out[prefix + "weight"] = leaf.transpose(3, 2, 0, 1)
+        elif name == "kernel" and leaf.ndim == 5:      # DHWIO → OIDHW
+            out[prefix + "weight"] = leaf.transpose(4, 3, 0, 1, 2)
         elif name == "kernel" and leaf.ndim == 2:      # (in, out) → (out, in)
             out[prefix + "weight"] = leaf.T
         elif name == "scale":
             out[prefix + "weight"] = leaf
-        elif name in ("bias", "embedding"):
+        elif name in ("bias", "embedding", "gamma", "beta"):
             out[prefix + name] = leaf
         else:
             raise KeyError(f"no torch counterpart for {prefix}{name}")
@@ -113,9 +119,10 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
 
 def state_dict_from_flax_stats(stats: Mapping, prefix: str = ""
                                ) -> Dict[str, torch.Tensor]:
-    """Flat torch buffers of a flax ``batch_stats`` tree of spectral-norm
+    """Flat torch buffers of a flax ``batch_stats`` tree: spectral-norm
     state (``{…: {"sn": {"conv/kernel/u": (1, O), "conv/kernel/sigma":
-    ()}}}``)."""
+    ()}}}``) and batch norms' running statistics (``{…: {"mean": (C,),
+    "var": (C,)}}`` → ``running_mean``, ``running_var``)."""
     out = {}
     for k, v in stats.items():
         if k == "sn":
@@ -123,6 +130,9 @@ def state_dict_from_flax_stats(stats: Mapping, prefix: str = ""
                 np.asarray(v["conv/kernel/u"], np.float32))
             out[prefix + "sn_sigma"] = torch.tensor(
                 np.asarray(v["conv/kernel/sigma"], np.float32))
+        elif k in ("mean", "var"):
+            out[prefix + "running_" + k] = torch.tensor(
+                np.asarray(v, np.float32))
         else:
             out.update(state_dict_from_flax_stats(v, f"{prefix}{k}."))
     return out
@@ -159,12 +169,17 @@ def flax_trees(module) -> Tuple[dict, dict]:
             # spectral-norm fold sum in an order that follows the layout
             _set(params, path + ["kernel"],
                  np.ascontiguousarray(v.transpose(2, 3, 1, 0)))
+        elif leaf == "weight" and v.ndim == 5:         # OIDHW → DHWIO
+            _set(params, path + ["kernel"],
+                 np.ascontiguousarray(v.transpose(2, 3, 4, 1, 0)))
         elif leaf == "weight" and v.ndim == 2:         # (out, in) → (in, out)
             _set(params, path + ["kernel"], np.ascontiguousarray(v.T))
         elif leaf == "weight":
             _set(params, path + ["scale"], v)
-        elif leaf in ("bias", "embedding"):
+        elif leaf in ("bias", "embedding", "gamma", "beta"):
             _set(params, path + [leaf], v)
+        elif leaf in ("running_mean", "running_var"):
+            _set(stats, path + [leaf[len("running_"):]], v)
         elif leaf == "sn_u":
             _set(stats, path + ["sn", "conv/kernel/u"], v)
         elif leaf == "sn_sigma":

@@ -41,6 +41,14 @@ at each call, half the bytes); the norms' γ, β stay float32.
 Parameter names follow the flax param tree (``conv``, ``norm``,
 ``spade0``, ...), so :mod:`renderloom_torch.convert` loads a JAX tree by
 name.
+
+The layer variants of the JAX package's layer library that the shipped
+configs do not use follow at the end: :class:`NonLocalBlock`,
+:class:`PartialConv`, :class:`ApplyNoise`, :func:`hyper_conv2d`,
+:func:`weight_demodulated_conv2d`, :class:`LayerNorm2d`,
+:class:`HyperSpade`, :class:`PartialConvBlock`,
+:class:`PartialResBlock` and :class:`PartialConv3d`; their instance
+norms go through the same kernels.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from renderloom_torch.ops.image import resize_bilinear
 from renderloom_torch.ops.norm_kernel import instance_norm
 
 LEAKY_SLOPE = 0.2
@@ -92,28 +101,56 @@ class Conv(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+def same_pads(sizes, kernels, stride: int) -> list:
+    """flax's ``padding="SAME"`` per spatial axis: the output is ⌈n / s⌉,
+    the padding total = max((out − 1)·s + k − n, 0), ``total // 2``
+    before and the rest after; a list of (before, after)."""
+    pads = []
+    for n, k in zip(sizes, kernels):
+        total = max((-(-n // stride) - 1) * stride + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def conv_same(x: torch.Tensor, weight: torch.Tensor,
+              bias: Optional[torch.Tensor] = None, stride: int = 1,
+              groups: int = 1) -> torch.Tensor:
+    """Convolution of a channels-last tensor (N, *spatial, C) with an
+    (O, I, *kernel) weight, 2-D or 3-D, and flax's ``padding="SAME"``
+    (:func:`same_pads`), on the channels-first view; channels-last out."""
+    conv = F.conv2d if weight.dim() == 4 else F.conv3d
+    xc = x.movedim(-1, 1)
+    pads = same_pads(xc.shape[2:], weight.shape[2:], stride)
+    if all(a == b for a, b in pads):
+        y = conv(xc, weight, bias, stride, tuple(a for a, _ in pads), 1,
+                 groups)
+    else:               # F.pad takes the last axis first
+        y = conv(F.pad(xc, [v for p in reversed(pads) for v in p]), weight,
+                 bias, stride, 0, 1, groups)
+    return y.movedim(1, -1)
+
+
 class SameConv(Conv):
     """2-D convolution of NHWC tensors with flax's ``padding="SAME"`` at
-    any stride and kernel: per side the output is ⌈n / s⌉, the padding
-    total = max((out − 1)·s + k − n, 0), ``total // 2`` before and the
-    rest after.  At stride 2 on an even side that is asymmetric ((0, 1)
-    for a 3×3 kernel, (2, 3) for a 7×7), where :class:`Conv`'s
-    symmetric ``(k − 1) // 2`` would shift the output by a pixel."""
+    any stride and kernel (:func:`same_pads`).  At stride 2 on an even
+    side that is asymmetric ((0, 1) for a 3×3 kernel, (2, 3) for a
+    7×7), where :class:`Conv`'s symmetric ``(k − 1) // 2`` would shift
+    the output by a pixel."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        k, s = self.weight.shape[-1], self.stride
-        pads = []
-        for n in (x.shape[2], x.shape[1]):          # F.pad: W first
-            total = max((-(-n // s) - 1) * s + k - n, 0)
-            pads += [total // 2, total - total // 2]
         b = None if self.bias is None else self.bias.to(dt)
-        x = x.permute(0, 3, 1, 2).to(dt)
-        if pads[0] == pads[1] and pads[2] == pads[3]:
-            y = F.conv2d(x, self.weight.to(dt), b, s, (pads[2], pads[0]))
-        else:
-            y = F.conv2d(F.pad(x, pads), self.weight.to(dt), b, s)
-        return y.permute(0, 2, 3, 1)
+        return conv_same(x.to(dt), self.weight.to(dt), b, self.stride)
+
+
+class SameConv3d(SameConv):
+    """:class:`SameConv` over NDHWC volumes, a k×k×k kernel."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3,
+                 stride: int = 1, use_bias: bool = True):
+        super().__init__(in_ch, features, kernel, stride, use_bias)
+        self.weight = nn.Parameter(
+            torch.empty(features, in_ch, kernel, kernel, kernel))
 
 
 def set_compute_dtype(module: nn.Module, dtype: torch.dtype,
@@ -353,3 +390,255 @@ def upsample2x(x: torch.Tensor) -> torch.Tensor:
     y = F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
                       mode="nearest")
     return y.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# layer variants the shipped configs do not use (the JAX package's
+# layers.py:433-726, the reference's layer library)
+# ---------------------------------------------------------------------------
+
+
+def _max_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2×2 max pool, stride 2, an odd edge dropped (flax's VALID)."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+class NonLocalBlock(nn.Module):
+    """SAGAN self-attention: θ, φ, g 1×1 spectral convs without bias (C/8,
+    C/8, C/2), a 2×2 max pool on φ and g, softmax attention over the
+    pooled positions, a 1×1 out-projection back to C, and the residual
+    ``x + γ·out`` with γ starting at 0."""
+
+    def __init__(self, channels: int, spectral: bool = True):
+        super().__init__()
+        C = channels
+        self.theta = SNConv(C, C // 8, 1, 1, spectral, use_bias=False)
+        self.phi = SNConv(C, C // 8, 1, 1, spectral, use_bias=False)
+        self.g = SNConv(C, C // 2, 1, 1, spectral, use_bias=False)
+        self.out = SNConv(C // 2, C, 1, 1, spectral, use_bias=False)
+        self.gamma = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x: torch.Tensor,
+                update_stats: bool = False) -> torch.Tensor:
+        B, H, W, C = x.shape
+        q = self.theta(x, update_stats).reshape(B, H * W, C // 8)
+        k = _max_pool2(self.phi(x, update_stats)).reshape(B, -1, C // 8)
+        v = _max_pool2(self.g(x, update_stats)).reshape(B, -1, C // 2)
+        attn = torch.softmax(q @ k.transpose(1, 2), dim=-1)
+        out = (attn @ v).reshape(B, H, W, C // 2)
+        return x + self.gamma * self.out(out, update_stats)
+
+
+class PartialConv(nn.Module):
+    """Mask-normalized convolution (NVIDIA's partial conv), flax
+    ``"SAME"`` padding.  ``forward(x, mask)`` → ``(out, new_mask)``
+    with ``mask`` single-channel (B, H, W, 1): the conv sees ``x·mask``
+    only, its output is scaled by k² / (valid pixels in the window),
+    the bias is added only where a window saw a valid pixel and the
+    output is 0 elsewhere, and the new mask is 1 where it did.  The
+    valid count is a ones-kernel convolution of the mask with the same
+    padding."""
+
+    conv_type = SameConv
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3,
+                 stride: int = 1, use_bias: bool = True):
+        super().__init__()
+        self.kernel, self.stride = kernel, stride
+        self.conv = self.conv_type(in_ch, features, kernel, stride,
+                                   use_bias=False)
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias \
+            else None
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+        raw = self.conv(x * mask)
+        nd = raw.dim() - 2
+        ones = raw.new_ones((1, 1) + (self.kernel,) * nd)
+        valid = conv_same(mask.to(raw.dtype), ones, None, self.stride)
+        seen = valid > 0
+        out = raw * torch.where(
+            seen, self.kernel ** nd / torch.clamp(valid, min=1e-8), 0.0)
+        if self.bias is not None:
+            out = torch.where(seen, out + self.bias, 0.0)
+        return out, seen.to(mask.dtype)
+
+
+class PartialConv3d(PartialConv):
+    """:class:`PartialConv` over NDHWC volumes with a k×k×k kernel and
+    the mask (B, D, H, W, 1); the scale is k³ / valid."""
+
+    conv_type = SameConv3d
+
+
+def noise_like(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Standard normal noise of shape (*x.shape[:-1], 1) from
+    ``generator`` (on ``x``'s device), in ``x``'s dtype."""
+    return torch.randn(x.shape[:-1] + (1,), generator=generator,
+                       dtype=x.dtype, device=x.device)
+
+
+class ApplyNoise(nn.Module):
+    """Gaussian noise, one draw per pixel shared by the channels, times a
+    learned scale that starts at 0 (the flax ``scale``, here ``weight``
+    as every flax scale is).  Without a generator the input passes
+    through."""
+
+    def __init__(self):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(1))
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if generator is None:
+            return x
+        return x + self.weight * noise_like(x, generator)
+
+
+def hyper_conv2d(x: torch.Tensor, kernel: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None,
+                 stride: int = 1) -> torch.Tensor:
+    """Per-sample convolution with supplied weights: ``x`` (B, H, W, Cin),
+    ``kernel`` (B, kh, kw, Cin, Cout) one HWIO filter bank per sample,
+    ``bias`` (B, Cout) or None; flax ``"SAME"`` padding.  One grouped
+    convolution (``groups=B``) over the samples stacked as channels."""
+    B, H, W, ci = x.shape
+    kh, kw, co = kernel.shape[1], kernel.shape[2], kernel.shape[4]
+    xs = x.permute(1, 2, 0, 3).reshape(1, H, W, B * ci)
+    w = kernel.permute(0, 4, 3, 1, 2).reshape(B * co, ci, kh, kw)
+    y = conv_same(xs, w, None, stride, groups=B)
+    y = y.reshape(y.shape[1], y.shape[2], B, co).permute(2, 0, 1, 3)
+    return y if bias is None else y + bias[:, None, None, :]
+
+
+def weight_demodulated_conv2d(x: torch.Tensor, kernel: torch.Tensor,
+                              style: torch.Tensor, eps: float = 1e-8,
+                              stride: int = 1) -> torch.Tensor:
+    """StyleGAN2 weight demodulation: ``kernel`` (kh, kw, Cin, Cout)
+    shared, ``style`` (B, Cin) per sample; w' = w·style, divided per
+    output channel by √(Σw'² + eps), applied by :func:`hyper_conv2d`."""
+    w = kernel[None] * style[:, None, None, :, None]
+    denom = torch.sqrt((w * w).sum(dim=(1, 2, 3), keepdim=True) + eps)
+    return hyper_conv2d(x, w / denom, stride=stride)
+
+
+class LayerNorm2d(nn.Module):
+    """Per-sample layer norm over all of (H, W, C) in float32, with the
+    unbiased standard deviation: ``(x − mean) / (std + eps)``, then a
+    per-channel affine whose γ starts ~ U[0, 1) and β at 0."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 affine: bool = True):
+        super().__init__()
+        self.eps = eps
+        if affine:
+            self.gamma = nn.Parameter(torch.rand(channels))
+            self.beta = nn.Parameter(torch.zeros(channels))
+        else:
+            self.gamma = self.beta = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B = x.shape[0]
+        flat = x.reshape(B, -1).float()
+        shape = (B,) + (1,) * (x.dim() - 1)
+        mean = flat.mean(dim=1).reshape(shape)
+        std = flat.std(dim=1, correction=1).reshape(shape)
+        out = (x - mean) / (std + self.eps)
+        if self.gamma is not None:
+            out = out * self.gamma + self.beta
+        return out.to(x.dtype)
+
+
+class HyperSpade(nn.Module):
+    """SPADE over several conditions, the first of which may take
+    per-sample affine weights: ``forward(x, cond_inputs, norm_weights)``
+    normalizes x without affine (K2) and, for each condition i in turn,
+    applies ``out·(1 + γ) + β`` with (γ, β) from a k×k conv of the
+    condition (``affine_i``), resized to x's size by nearest pixels.  A
+    condition may be a ``(condition, mask)`` pair: its (γ, β) are then
+    gated by ``1 − mask``, the mask resized by JAX's antialiased linear
+    resize.  ``norm_weights`` = (kernel (B, k, k, Cin, 2C), bias (B, 2C)
+    or None) routes condition 0 through :func:`hyper_conv2d`.
+
+    ``cond_channels[i]``: condition i's channel count, None for a
+    condition that is always absent; ``hyper``: condition 0 always comes
+    with ``norm_weights`` and has no conv of its own."""
+
+    def __init__(self, features: int, cond_channels, kernel: int = 3,
+                 hyper: bool = False):
+        super().__init__()
+        for i, c in enumerate(cond_channels):
+            if c is not None and not (i == 0 and hyper):
+                setattr(self, f"affine_{i}",
+                        SameConv(c, 2 * features, kernel))
+
+    def forward(self, x: torch.Tensor, cond_inputs,
+                norm_weights=None) -> torch.Tensor:
+        out = instance_norm(x.contiguous())
+        H, W = x.shape[1:3]
+        for i, ci in enumerate(cond_inputs):
+            if ci is None:
+                continue
+            cond, mask = ci if isinstance(ci, (tuple, list)) else (ci, None)
+            if cond.shape[1:3] != (H, W):
+                cond = F.interpolate(cond.permute(0, 3, 1, 2), size=(H, W),
+                                     mode="nearest-exact").permute(0, 2, 3, 1)
+            if i == 0 and norm_weights is not None:
+                affine = hyper_conv2d(cond, *norm_weights)
+            else:
+                affine = getattr(self, f"affine_{i}")(cond)
+            gamma, beta = affine.chunk(2, dim=-1)
+            if mask is not None:
+                if mask.shape[1:3] != (H, W):
+                    mask = resize_bilinear(mask, H, W)
+                gamma, beta = gamma * (1.0 - mask), beta * (1.0 - mask)
+            out = out * (1.0 + gamma) + beta
+        return out
+
+
+class PartialConvBlock(nn.Module):
+    """'CNA' over a partial conv, threading the validity mask: partial
+    conv → affine instance norm (or none) → leaky (or none)."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3,
+                 stride: int = 1, norm: str = "instance",
+                 activation: str = "leaky"):
+        super().__init__()
+        if norm not in ("instance", "none"):
+            raise ValueError(f"unknown norm {norm!r}")
+        if activation not in ("leaky", "none"):
+            raise ValueError(f"unknown activation {activation!r}")
+        self.activation = activation
+        self.pconv = PartialConv(in_ch, features, kernel, stride)
+        self.norm = InstanceNorm(features) if norm == "instance" else None
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+        x, mask = self.pconv(x, mask)
+        slope = LEAKY_SLOPE if self.activation == "leaky" else None
+        if self.norm is not None:
+            x = self.norm(x, slope)         # the leaky rides in the store
+        elif slope is not None:
+            x = leaky(x)
+        return x, mask
+
+
+class PartialResBlock(nn.Module):
+    """Residual block 'CNACNA' of partial convs threading the mask through
+    both; the shortcut is x, or a 1×1 partial conv of x under the input
+    mask where the channel counts differ."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3):
+        super().__init__()
+        self.pconv0 = PartialConv(in_ch, features, kernel)
+        self.norm0 = InstanceNorm(features)
+        self.pconv1 = PartialConv(features, features, kernel)
+        self.norm1 = InstanceNorm(features)
+        self.shortcut = in_ch != features
+        if self.shortcut:
+            self.pconv_s = PartialConv(in_ch, features, 1)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor):
+        h, m = self.pconv0(x, mask)
+        h, m = self.pconv1(self.norm0(h, LEAKY_SLOPE), m)
+        h = self.norm1(h, LEAKY_SLOPE)
+        s = self.pconv_s(x, mask)[0] if self.shortcut else x
+        return s + h, m

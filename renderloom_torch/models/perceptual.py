@@ -1,6 +1,6 @@
-"""VGG19 perceptual loss.
+"""Perceptual loss on VGG19 or an alternate backbone.
 
-Port of the VGG19 path of the JAX package's
+Port of the JAX package's
 ``renderloom/models/perceptual.py`` (``VGG19Features``,
 ``PerceptualLoss``): inputs in [-1, 1] are renormalized to ImageNet
 statistics, run through the VGG19 trunk (3×3 convolutions with zero
@@ -25,7 +25,10 @@ one the JAX package drew).
 the flax module's ``dtype``: the renormalized input and the float32
 kernels are cast to it at each convolution, and each tap's L1 is
 reduced in float32.  :meth:`PerceptualLoss.lpips` is the JAX package's
-uncalibrated LPIPS-style distance.
+uncalibrated LPIPS-style distance.  Both iterate the taps, so they run
+on any backbone; ``network=`` picks one of
+:mod:`renderloom_torch.models.backbones` instead of VGG19, as the JAX
+``PerceptualLoss(network=...)`` does.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from renderloom_torch.convert import load_flax_params
+from renderloom_torch.models.backbones import build_backbone
 from renderloom_torch.models.layers import Conv, set_compute_dtype
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -164,32 +168,58 @@ class VGG19Features(nn.Module):
 class PerceptualLoss(nn.Module):
     """L1 perceptual criterion: ``loss(pred, target)`` over the taps.
 
-    Weights: those at ``weights_path`` or :func:`find_vgg_weights`
-    (``pretrained`` is then True); without any, ``require_pretrained``
-    raises, and otherwise the trunk keeps the initial weights of its
-    modules for the caller to fill (``make_perceptual`` draws them from
-    a seed)."""
+    ``network="vgg19"`` (the default): the weights at ``weights_path``
+    or :func:`find_vgg_weights` (``pretrained`` is then True); without
+    any, ``require_pretrained`` raises, and otherwise the trunk keeps
+    the initial weights of its modules for the caller to fill
+    (``make_perceptual`` draws them from a seed).
+
+    Another ``network`` (:data:`renderloom_torch.models.backbones.
+    BACKBONES`: ``vgg16``, ``alexnet``, ``resnet50``, ``inception_v3``,
+    ``robust_resnet50``, ``vgg_face_dag``) is the JAX package's
+    alternate-backbone branch: its own taps unless ``layers`` names
+    others, uniform tap weights unless ``weights`` are given, the
+    torchvision-schema weights at ``weights_path`` or seeded random ones
+    (:func:`~renderloom_torch.models.backbones.build_backbone`), which
+    ``require_pretrained`` refuses, naming the network.  The alternate
+    backbones compute in float32 whatever ``compute_dtype`` is."""
 
     def __init__(self, layers: Sequence[str] = DEFAULT_LAYERS,
                  weights: Sequence[float] = DEFAULT_WEIGHTS,
                  compute_dtype: torch.dtype = torch.float32,
                  weights_path: Optional[str] = None,
-                 require_pretrained: bool = False):
+                 require_pretrained: bool = False,
+                 network: str = "vgg19"):
         super().__init__()
-        self.weights = tuple(weights)
-        self.model = set_compute_dtype(VGG19Features(layers), compute_dtype)
-        path = weights_path or find_vgg_weights()
-        self.pretrained = bool(path)
-        if path:
-            tree = (load_torchvision_pth(path)
-                    if path.endswith((".pth", ".pt"))
-                    else load_torchvision_npz(path))["params"]
-            # the trunk holds the convs up to its deepest tap
-            own = {n.split(".")[0] for n, _ in self.model.named_parameters()}
-            load_flax_params(self.model, {k: v for k, v in tree.items()
-                                          if k in own})
-        elif require_pretrained:
-            raise RuntimeError(NO_WEIGHTS_HELP)
+        if network != "vgg19":
+            if require_pretrained and not weights_path:
+                raise RuntimeError(
+                    f"PerceptualLoss[{network}]: no pretrained weights "
+                    "provided (pass a torchvision .pth/.npz as "
+                    "weights_path)")
+            self.model, self.layers, self.pretrained = build_backbone(
+                network, None if layers is DEFAULT_LAYERS else layers,
+                weights_path)
+            # the [1/32 … 1] schedule is VGG19's
+            self.weights = (tuple(weights) if weights is not DEFAULT_WEIGHTS
+                            else (1.0,) * len(self.layers))
+        else:
+            self.layers, self.weights = tuple(layers), tuple(weights)
+            self.model = set_compute_dtype(VGG19Features(layers),
+                                           compute_dtype)
+            path = weights_path or find_vgg_weights()
+            self.pretrained = bool(path)
+            if path:
+                tree = (load_torchvision_pth(path)
+                        if path.endswith((".pth", ".pt"))
+                        else load_torchvision_npz(path))["params"]
+                # the trunk holds the convs up to its deepest tap
+                own = {n.split(".")[0]
+                       for n, _ in self.model.named_parameters()}
+                load_flax_params(self.model, {k: v for k, v in tree.items()
+                                              if k in own})
+            elif require_pretrained:
+                raise RuntimeError(NO_WEIGHTS_HELP)
         self.register_buffer("mean", torch.tensor(IMAGENET_MEAN),
                              persistent=False)
         self.register_buffer("std", torch.tensor(IMAGENET_STD),
@@ -205,7 +235,7 @@ class PerceptualLoss(nn.Module):
         with torch.no_grad():
             f_tgt = self.model(self.renormalize(target))
         loss = 0.0
-        for name, w in zip(self.model.layers, self.weights):
+        for name, w in zip(self.layers, self.weights):
             loss = loss + w * (f_pred[name] - f_tgt[name]).abs().float().mean()
         return loss
 
@@ -218,10 +248,10 @@ class PerceptualLoss(nn.Module):
         f_pred = self.model(self.renormalize(pred))
         f_tgt = self.model(self.renormalize(target))
         dist = 0.0
-        for name in self.model.layers:
+        for name in self.layers:
             d = _unit_normalize(f_pred[name]) - _unit_normalize(f_tgt[name])
             dist = dist + (d * d).mean(dim=(1, 2, 3))
-        return dist / len(self.model.layers)
+        return dist / len(self.layers)
 
 
 def _unit_normalize(feat: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:

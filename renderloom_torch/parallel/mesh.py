@@ -11,6 +11,10 @@ averages the gradients once per optimizer update
 (:func:`all_reduce_mean`, which ``train/gan.py:AmsgradIfFinite.step``
 calls on its flat gradient vector), so every rank takes the same update;
 the step metrics are averaged too (:func:`mean_metrics`).
+Data-parallel serving takes the same three pieces: the inference
+generator replicated, each rank's block of clips through the segment
+rollout (no collective in the forward), and the outputs gathered back
+in clip order (:func:`gather_batch`).
 The losses keep their global-batch value: a loss that divides by a
 count over the batch divides by this rank's share of the global batch's
 count (:func:`count_share`, which the train steps take once per frame or
@@ -227,6 +231,24 @@ def shard_batch(batch: Any, global_batch: Optional[int] = None) -> Any:
     if isinstance(batch, dict):
         return {key: take(v) for key, v in batch.items()}
     return take(batch)
+
+
+def gather_batch(x: torch.Tensor) -> torch.Tensor:
+    """The global batch of this rank's block ``x``: every rank's block
+    concatenated along the leading axis in rank order (the inverse of
+    :func:`shard_batch`), on ``x``'s device, through the host under gloo
+    as :func:`replicate` is.  ``x`` itself without a process group.
+    What serving reads where the JAX package reads its globally sharded
+    output."""
+    if not _live():
+        return x
+    src = x.detach()
+    if src.is_cuda and dist.get_backend() == "gloo":
+        src = src.cpu()
+    src = src.contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, src)
+    return torch.cat(parts).to(x.device)
 
 
 def local_batch(global_batch: int) -> int:

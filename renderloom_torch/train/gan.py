@@ -244,27 +244,43 @@ def create_gan_state(cfg: RendererConfig, device, seed: int = 0,
 
 def make_perceptual(cfg: RendererConfig, device, seed: int = 0,
                     params: Optional[dict] = None,
-                    require_pretrained: bool = False) -> PerceptualLoss:
-    """The VGG19 perceptual loss on ``device`` in the config's compute
-    dtype: the flax tree ``params`` (``PerceptualLoss().variables
-    ["params"]`` of the JAX package); else the torchvision weights that
-    ``find_vgg_weights`` finds; else fixed random weights from ``seed``,
-    which ``require_pretrained`` refuses."""
-    if cfg.perceptual.model != "vgg19":
-        raise NotImplementedError(
-            f"perceptual model {cfg.perceptual.model!r}: the port has VGG19")
-    dtype = torch_dtype(cfg.compute_dtype)
-    if params is not None:
-        vgg = PerceptualLoss(cfg.perceptual.layers, cfg.perceptual.weights,
-                             dtype)
-        load_flax_params(vgg.model, params)
+                    require_pretrained: bool = False,
+                    network: str = "vgg19",
+                    weights_path: Optional[str] = None) -> PerceptualLoss:
+    """The perceptual loss on ``device``, frozen, as the JAX package's
+    ``PerceptualLoss(network=, weights_path=)`` builds it.  The config's
+    ``perceptual.model`` is not read (the JAX package reads it nowhere):
+    the training CLI, the bench and ``chip_smoke.py`` pass no
+    ``network`` and train on VGG19 whatever the config names.
+
+    VGG19: the config's taps and tap weights, in its compute dtype, with
+    the flax tree ``params`` (``PerceptualLoss().variables["params"]``
+    of the JAX package); else the torchvision weights at
+    ``weights_path`` or those ``find_vgg_weights`` finds; else fixed
+    random weights from ``seed``, which ``require_pretrained`` refuses.
+    Another ``network``: its own taps with uniform weights, in float32,
+    with the weights at ``weights_path`` or random ones from ``seed``
+    (refused likewise); ``params`` is VGG19's only."""
+    if network != "vgg19":
+        if params is not None:
+            raise ValueError("params is a VGG19 tree; load another "
+                             "network's through weights_path")
+        vgg = PerceptualLoss(network=network, weights_path=weights_path,
+                             require_pretrained=require_pretrained)
     else:
         vgg = PerceptualLoss(cfg.perceptual.layers, cfg.perceptual.weights,
-                             dtype, require_pretrained=require_pretrained)
-        if not vgg.pretrained:
-            random_init_(vgg, seed)
-            print("PerceptualLoss: no VGG19 weights found — using fixed "
-                  "random features (set VGG19_NPZ for parity)")
+                             torch_dtype(cfg.compute_dtype),
+                             weights_path=weights_path,
+                             require_pretrained=(require_pretrained
+                                                 and params is None))
+        if params is not None:
+            load_flax_params(vgg.model, params)
+    if params is None and not vgg.pretrained:
+        random_init_(vgg, seed)
+        print("PerceptualLoss: no VGG19 weights found — using fixed random "
+              "features (set VGG19_NPZ for parity)" if network == "vgg19"
+              else f"PerceptualLoss[{network}]: no weights — using fixed "
+              "random features")
     for p in vgg.parameters():
         p.requires_grad_(False)
     return vgg.to(device).eval()
