@@ -292,6 +292,38 @@ I. every layer variant of ``models/layers.py`` (``NonLocalBlock``,
    (2, 8, 40, 60, 64)), with the K2 and K2b launches of those with
    instance norms;
 
+then the last modules of the JAX package (after phase I):
+
+CI. checkpoint import from the reference: writes the reference's files
+   (``write_reference_checkpoints``: netG and netD at hsm.yaml's widths
+   with spectral ``weight_orig``/``weight_u``/``weight_v``, a
+   ``module.`` prefix and the dead keys; ``model_epoch399.pth`` at
+   motion.yaml's with its ``opt_epoch399.pth`` AMSGrad moments; a
+   torchvision VGG19 with its classifier), seeded, in torch's legacy
+   format, and imports each with ``cli/import_checkpoint`` (seconds
+   printed); then (a) runs the pipeline CLI on phase 4's clip (as phase
+   V writes it) from the imported files and from ``.npz`` files of the
+   trees the ``map_*`` functions return: frames, backgrounds and
+   Predict_motion bit for bit, K1 1 and K2 162 per clip; (b)
+   ``train_motion --resume`` from the imported checkpoint: its AMSGrad
+   count and moments bit for bit the ``.pth``'s, then 2 steps; (c)
+   ``train_renderer --synthetic --resume`` from the imported G and D
+   with ``VGG19_NPZ`` the imported ``.npz``, 2 steps at phase C's batch,
+   K1, K2 and K2b against the counts derived from the module structure;
+SK. ``render_skeleton_frames`` on a motion of motion.yaml's
+   ``max_seq_length`` (321) frames at 512×512: K1 in its cfhw layout,
+   one launch per chunk of 32 frames, each chunk bit for bit its twin;
+   call and device ms of a full and the last chunk beside the bound and
+   the twin; the uint8 frames of the first and the last chunk equal the
+   CPU's;
+BW. ``build_dataset warp`` in both modes on an 8-frame 768×512 clip of
+   PNGs against the same command with ``--device cpu``, in PNG levels
+   with a planted control, and the seconds per clip;
+TP. ``parallel.shard_params_tp`` on the serving generator at full
+   width, one forward at B = 2 on two spawned ranks on the card (gloo)
+   against world 1 (``tp_run``): the output, each rank's parameter
+   bytes, K2 launches per rank;
+
 and last prints the ``{"kernels": [...]}`` line, the card line, and the
 ``{"ok": true, "device": {...}}`` line.
 
@@ -819,7 +851,8 @@ def k1_ops_from_sass(text: str) -> dict:
 K1_OPS = {}
 
 
-def raster_bound(tables, H, W, label_bytes, emit_masks, layout):
+def raster_bound(tables, H, W, label_bytes, emit_masks, layout,
+                 brush=4.0):
     """(bound ms, its side, kept share, operations' ms) of one K1 call
     on these tables:
     the label (and masks) written once, against the operations of the
@@ -830,7 +863,7 @@ def raster_bound(tables, H, W, label_bytes, emit_masks, layout):
     if not K1_OPS:
         raise AssertionError("K1_OPS is counted from the SASS in phase 1")
     keep = RK.tile_terms(*tables, H, W, emit_masks=emit_masks,
-                         layout=layout)
+                         layout=layout, brush=brush)
     th, tw = RK.TILES[layout]
     dev = tables[0].device
     rows = torch.clamp(H - torch.arange(0, H, th, device=dev), max=th)
@@ -863,12 +896,12 @@ def same_bits(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
-def _k1_check(tag, tables, H, W, dtype, masks, layout):
+def _k1_check(tag, tables, H, W, dtype, masks, layout, brush=4.0):
     """K1 against its twin, every output bit for bit; returns the error
     and the kernel's output."""
     from renderloom_torch.ops import rasterize_kernel as RK
 
-    args = (*tables, H, W, dtype, masks)
+    args = (*tables, H, W, dtype, masks, brush)
     got = RK.rasterize_tables_cuda(*args, layout=layout)
     want = RK.rasterize_tables_plain(*args, layout=layout)
     torch.cuda.synchronize()
@@ -876,19 +909,19 @@ def _k1_check(tag, tables, H, W, dtype, masks, layout):
     return err, got
 
 
-def _k1_times(tag, tables, H, W, dtype, masks, layout):
+def _k1_times(tag, tables, H, W, dtype, masks, layout, brush=4.0):
     """One launch per call (profile), call/device/twin ms, the bound on
     these tables and the kept share."""
     from renderloom_torch.ops import rasterize_kernel as RK
 
-    args = (*tables, H, W, dtype, masks)
+    args = (*tables, H, W, dtype, masks, brush)
     f = lambda: RK.rasterize_tables_cuda(*args, layout=layout)
     one_kernel(f"K1 {tag}", f, "raster_kernel")
     ms, dev = cuda_ms(f), device_ms(f)
     plain = cuda_ms(lambda: RK.rasterize_tables_plain(*args, layout=layout),
                     3, 1)
     bnd, by, share, ops_ms = raster_bound(
-        tables, H, W, torch.finfo(dtype).bits // 8, masks, layout)
+        tables, H, W, torch.finfo(dtype).bits // 8, masks, layout, brush)
     print(f"    call {ms:.4f} ms, device {dev:.4f} ms ({bnd / dev:.1%} of "
           f"bound), twin {plain:.4f} ms, bound {bnd:.4f} ms ({by}; "
           f"operations {ops_ms:.4f} ms), kept {share:.2%} of (tile, term) "
@@ -2367,9 +2400,10 @@ def _raster_recorder(calls: list):
 
     def rec(joints, skel, caps, height, width, out_dtype=torch.float32,
             emit_masks=False, brush=None, layout="nhwc"):
-        calls.append(((joints.clone(), skel.clone(), caps.clone(), height,
-                       width, out_dtype, emit_masks), {"layout": layout}))
         kw = {} if brush is None else {"brush": brush}
+        calls.append(((joints.clone(), skel.clone(), caps.clone(), height,
+                       width, out_dtype, emit_masks), {"layout": layout,
+                                                       **kw}))
         return orig(joints, skel, caps, height, width, out_dtype, emit_masks,
                     layout=layout, **kw)
 
@@ -6685,6 +6719,760 @@ def phase_layer_variants() -> dict:
     return dict(errs=out, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# CI. checkpoint import from the reference
+# ---------------------------------------------------------------------------
+
+REF_EPOCH_G, REF_EPOCH_M = 6, 399        # netG/netD_epoch006, model_epoch399
+# torchvision's VGG19 classifier (in, out) per layer index
+VGG_CLASSIFIER = ((0, 25088, 4096), (3, 4096, 4096), (6, 4096, 1000))
+
+
+def _sn_vectors(w: np.ndarray, rng: np.random.Generator, iters: int = 3):
+    """torch's spectral-norm ``weight_u`` (O,) and ``weight_v`` (I·kh·kw,)
+    after ``iters`` power steps from a random u, as float32."""
+    mat = w.reshape(w.shape[0], -1).astype(np.float64)
+    u = rng.normal(size=mat.shape[0])
+    u /= np.linalg.norm(u)
+    for _ in range(iters):
+        v = mat.T @ u
+        v /= np.linalg.norm(v)
+        u = mat @ v
+        u /= np.linalg.norm(u)
+    return u.astype(np.float32), v.astype(np.float32)
+
+
+class _RefState:
+    """A reference-named state dict under construction: seeded values
+    at the shapes of the port's flax trees (HWIO kernels, (in, out)
+    dense kernels)."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.sd = {}
+
+    def _w(self, shape, fan_in):
+        return (self.rng.normal(size=shape) / np.sqrt(fan_in)).astype(
+            np.float32)
+
+    def _b(self, n, scale=0.1):
+        return (scale * self.rng.normal(size=n)).astype(np.float32)
+
+    def plain(self, src: str, leaf: dict):
+        kh, kw, i, o = leaf["kernel"].shape
+        self.sd[f"{src}.weight"] = self._w((o, i, kh, kw), kh * kw * i)
+        self.sd[f"{src}.bias"] = self._b(o)
+
+    def spectral(self, src: str, leaf: dict):
+        kh, kw, i, o = leaf["kernel"].shape
+        w = self._w((o, i, kh, kw), kh * kw * i)
+        u, v = _sn_vectors(w, self.rng)
+        self.sd.update({f"{src}.weight_orig": w, f"{src}.weight_u": u,
+                        f"{src}.weight_v": v, f"{src}.bias": self._b(o)})
+
+    def norm(self, src: str, leaf: dict):
+        n = leaf["scale"].shape[0]
+        self.sd[f"{src}.weight"] = 1.0 + self._b(n)
+        self.sd[f"{src}.bias"] = self._b(n)
+
+    def dense(self, src: str, leaf: dict):
+        i, o = leaf["kernel"].shape
+        self.sd[f"{src}.weight"] = self._w((o, i), i)
+        self.sd[f"{src}.bias"] = self._b(o)
+
+    def tensors(self, prefix: str = "") -> dict:
+        return {prefix + k: torch.from_numpy(v) for k, v in self.sd.items()}
+
+
+_BLOCK_TAGS = (("0", "conv_block_0"), ("1", "conv_block_1"),
+               ("_s", "conv_block_s"))
+
+
+def reference_generator_state(params: dict, seed: int) -> dict:
+    """netG's state dict under the reference's names
+    (``Pose_Guided_Neural_Rendering/models/generator.py``, as
+    ``renderloom_torch.data.torch_import.map_generator_params`` reads
+    them) for a generator whose flax params are ``params`` (shapes
+    only): seeded spectral ``weight_orig`` with consistent ``weight_u``
+    and ``weight_v``, a DataParallel ``module.`` prefix, and the
+    reference's dead ``label_embedding`` and top-level ``conv_mask``."""
+    import re
+
+    st = _RefState(seed)
+    emb = params["ref_embed"]
+    st.spectral("ref_embedding.conv_first.layers.conv",
+                emb["conv_first"]["conv"])
+    for k in sorted(k for k in emb if k.startswith("down_")):
+        st.spectral(f"ref_embedding.{k}.layers.conv", emb[k]["conv"])
+    st.plain("down_first.layers.conv", params["down_first"])
+    for blk in params:
+        if not re.fullmatch(r"(down|res|up)_\d+", blk):
+            continue
+        for mine, tag in _BLOCK_TAGS:
+            if f"conv{mine}" in params[blk]:
+                st.spectral(f"{blk}.{tag}.layers.conv",
+                            params[blk][f"conv{mine}"]["conv"])
+                st.plain(f"{blk}.{tag}.layers.norm.mlps.0.0.layers.conv",
+                         params[blk][f"spade{mine}"]["affine"])
+    st.plain("conv_img.layers.conv", params["conv_img"]["conv"])
+    mn, mg = params["mask_net"], "flow_network_temp"
+    for mine, ref in (("lbl", "down_lbl"), ("img", "down_img")):
+        names = [f"{mine}_in"] + [f"{mine}_down{j}" for j in range(
+            sum(k.startswith(f"{mine}_down") for k in mn))]
+        for i, name in enumerate(names):
+            st.spectral(f"{mg}.{ref}.{i}.layers.conv",
+                        mn[name]["conv"]["conv"])
+            st.norm(f"{mg}.{ref}.{i}.layers.norm", mn[name]["norm"])
+    for i in range(sum(re.fullmatch(r"res\d+", k) is not None for k in mn)):
+        for mine, tag in _BLOCK_TAGS:
+            if f"conv{mine}" in mn[f"res{i}"]:
+                src = f"{mg}.res_flow.{i}.{tag}.layers"
+                st.spectral(f"{src}.conv",
+                            mn[f"res{i}"][f"conv{mine}"]["conv"])
+                st.norm(f"{src}.norm", mn[f"res{i}"][f"norm{mine}"])
+    n_up = sum(re.fullmatch(r"up\d+", k) is not None for k in mn)
+    for k in range(n_up):              # [Upsample, conv] pairs, top first
+        level = mn[f"up{n_up - 1 - k}"]
+        st.spectral(f"{mg}.up_flow.{2 * k + 1}.layers.conv",
+                    level["conv"]["conv"])
+        st.norm(f"{mg}.up_flow.{2 * k + 1}.layers.norm", level["norm"])
+    st.plain(f"{mg}.conv_mask.0.layers.conv", mn["conv_mask"]["conv"]["conv"])
+    # dead in the reference's forward; the importer skips them
+    st.spectral("label_embedding.conv_first.layers.conv",
+                emb["conv_first"]["conv"])
+    st.plain("conv_mask.layers.conv", mn["conv_mask"]["conv"]["conv"])
+    return st.tensors("module.")
+
+
+def reference_discriminator_state(params: dict, seed: int) -> dict:
+    """netD's state dict under the reference's names
+    (``models/discriminator.py``: ``net_D``, ``net_D_face``,
+    ``net_D_hand``, ``discriminator_<s>.layer<i>.0.layers.{conv,norm}``,
+    the head the last layer) for a discriminator set whose flax params
+    are ``params`` (shapes only), ``module.``-prefixed."""
+    st = _RefState(seed)
+    for mine, ref in (("net_d", "net_D"), ("net_d_face", "net_D_face"),
+                      ("net_d_hand", "net_D_hand")):
+        for scale, layers in sorted(params.get(mine, {}).items()):
+            s = int(scale[len("scale"):])
+            n = sum(k.startswith("layer") for k in layers)
+            for li in range(n):
+                src = f"{ref}.discriminator_{s}.layer{li}.0.layers"
+                st.spectral(f"{src}.conv",
+                            layers[f"layer{li}"]["conv"]["conv"])
+                st.norm(f"{src}.norm", layers[f"layer{li}"]["norm"])
+            st.spectral(f"{ref}.discriminator_{s}.layer{n}.0.layers.conv",
+                        layers["head"]["conv"])
+    return st.tensors("module.")
+
+
+def reference_motion_state(params: dict, seed: int) -> dict:
+    """``model_epochNNN.pth`` under the reference's names
+    (``Human_Motion_Modelling/models/transformer.py``: fused-QKV
+    ``in_proj``, ``multihead_attn``, ``encoder.norm``) for a motion
+    transformer whose flax params are ``params`` (shapes only), in the
+    order the optimizer's slots follow."""
+    st = _RefState(seed)
+
+    def attention(src, blk):
+        d = blk["q_proj"]["kernel"].shape[0]
+        st.sd[f"{src}.in_proj_weight"] = st._w((3 * d, d), d)
+        st.sd[f"{src}.in_proj_bias"] = st._b(3 * d)
+        st.dense(f"{src}.out_proj", blk["out_proj"])
+
+    st.dense("input_embed", params["input_embed"])
+    st.dense("joints_embed", params["joints_embed"])
+    for side, n_norms in (("enc", 2), ("dec", 3)):
+        ref = "encoder" if side == "enc" else "decoder"
+        i = 0
+        while f"{side}_{i}" in params:
+            blk, src = params[f"{side}_{i}"], f"{ref}.layers.{i}"
+            attention(f"{src}.self_attn", blk["self_attn"])
+            if side == "dec":
+                attention(f"{src}.multihead_attn", blk["cross_attn"])
+            st.dense(f"{src}.linear1", blk["ffn"]["linear1"])
+            st.dense(f"{src}.linear2", blk["ffn"]["linear2"])
+            for j in range(1, n_norms + 1):
+                st.norm(f"{src}.norm{j}", blk[f"norm{j}"])
+            i += 1
+        st.norm(f"{ref}.norm", params[f"{ref}_norm"])
+    return st.tensors()
+
+
+def reference_opt_state(model_state: dict, steps: int, seed: int,
+                        str_slots: bool = False,
+                        step_tensor: bool = True) -> dict:
+    """``opt_epochNNN.pth`` as the reference's trainer saves it
+    (``{'transformer': Adam(amsgrad=True).state_dict()}``,
+    models/trainer.py:221-225): one slot per parameter of
+    ``model_state`` in its order, with seeded moments (``max_exp_avg_sq``
+    at least ``exp_avg_sq``); the slot keys ints (or strings, with
+    ``str_slots``), ``step`` a float tensor as recent torch stores it
+    (or an int, as older torch)."""
+    rng = np.random.default_rng(seed)
+    state = {}
+    for i, v in enumerate(model_state.values()):
+        nu = rng.uniform(0, 1e-4, v.shape).astype(np.float32)
+        state[str(i) if str_slots else i] = {
+            "step": torch.tensor(float(steps)) if step_tensor else steps,
+            "exp_avg": torch.from_numpy(
+                (1e-3 * rng.normal(size=v.shape)).astype(np.float32)),
+            "exp_avg_sq": torch.from_numpy(nu),
+            "max_exp_avg_sq": torch.from_numpy(
+                nu * rng.uniform(1, 2, v.shape).astype(np.float32))}
+    group = {"lr": 1e-4, "betas": (0.5, 0.999), "eps": 1e-8,
+             "weight_decay": 0.0, "amsgrad": True, "lr_mult": 1.0,
+             "params": list(range(len(model_state)))}
+    return {"transformer": {"state": state, "param_groups": [group]}}
+
+
+def reference_vgg19_state(seed: int, classifier=VGG_CLASSIFIER) -> dict:
+    """A torchvision ``vgg19()`` state dict of seeded values:
+    ``features.N`` at the real shapes and ``classifier.N`` at
+    ``classifier``'s (index, in, out)."""
+    from renderloom_torch.models.perceptual import TORCHVISION_CONV_IDX
+
+    g = torch.Generator().manual_seed(seed)
+    state, ch = {}, 3
+    for name, idx in TORCHVISION_CONV_IDX.items():
+        out = (64, 128, 256, 512, 512)[int(name.split("_")[1]) - 1]
+        state[f"features.{idx}.weight"] = torch.randn(
+            out, ch, 3, 3, generator=g) / (9 * ch) ** 0.5
+        state[f"features.{idx}.bias"] = 0.1 * torch.randn(out, generator=g)
+        ch = out
+    for idx, n_in, n_out in classifier:
+        state[f"classifier.{idx}.weight"] = torch.randn(
+            n_out, n_in, generator=g) / n_in ** 0.5
+        state[f"classifier.{idx}.bias"] = 0.1 * torch.randn(n_out,
+                                                           generator=g)
+    return state
+
+
+def write_reference_checkpoints(out_dir: str, rcfg, mcfg, seed: int = 0,
+                                legacy: bool = True,
+                                vgg_classifier=VGG_CLASSIFIER,
+                                **opt_kw) -> dict:
+    """The reference's published files for ``rcfg``'s and ``mcfg``'s
+    widths, of seeded values, in torch's legacy format (the reference
+    trained on torch 1.3-1.4) or the zip format: ``netG_epoch006.pth``,
+    ``netD_epoch006.pth``, ``model_epoch399.pth``, ``opt_epoch399.pth``
+    (``opt_kw``: :func:`reference_opt_state`'s options) and
+    ``vgg19.pth``; returns their paths by kind."""
+    from renderloom_torch.convert import flax_trees
+    from renderloom_torch.models.discriminator import DiscriminatorSet
+    from renderloom_torch.models.layers import enable_spectral_norm
+    from renderloom_torch.models.motion_transformer import build_motion_model
+    from renderloom_torch.models.renderer import Generator
+
+    os.makedirs(out_dir, exist_ok=True)
+    model = reference_motion_state(
+        flax_trees(build_motion_model(mcfg))[0], seed + 2)
+    states = {
+        "netG": (f"netG_epoch{REF_EPOCH_G:03d}.pth", reference_generator_state(
+            flax_trees(enable_spectral_norm(Generator(rcfg.gen)))[0], seed)),
+        "netD": (f"netD_epoch{REF_EPOCH_G:03d}.pth",
+                 reference_discriminator_state(flax_trees(
+                     enable_spectral_norm(DiscriminatorSet(rcfg.dis)))[0],
+                     seed + 1)),
+        "model": (f"model_epoch{REF_EPOCH_M:03d}.pth", model),
+        "opt": (f"opt_epoch{REF_EPOCH_M:03d}.pth",
+                reference_opt_state(model, REF_EPOCH_M * 7, seed + 3,
+                                    **opt_kw)),
+        "vgg19": ("vgg19.pth", reference_vgg19_state(seed + 4,
+                                                      vgg_classifier)),
+    }
+    paths = {}
+    for kind, (name, state) in states.items():
+        paths[kind] = os.path.join(out_dir, name)
+        torch.save(state, paths[kind],
+                   _use_new_zipfile_serialization=not legacy)
+    return paths
+
+
+def _flat_moment(tree: dict, model) -> torch.Tensor:
+    """A flax moment tree as one vector in ``model``'s parameter order
+    (the optimizer's flat layout)."""
+    from renderloom_torch.convert import state_dict_from_flax
+
+    sd = state_dict_from_flax(tree)
+    return torch.cat([sd[n].reshape(-1) for n, _ in model.named_parameters()])
+
+
+def phase_import(serve, probe) -> dict:
+    """CI: the reference's checkpoints (seeded, at full width, legacy
+    format) imported by ``cli/import_checkpoint`` and used: (a) the
+    pipeline CLI on phase V's clip from the imported files, bit for bit
+    the same CLI on ``.npz`` files of the trees ``map_*`` return; (b)
+    ``train_motion --resume`` from the imported motion checkpoint, its
+    AMSGrad state the ``.pth``'s moments bit for bit, 2 steps; (c)
+    ``train_renderer --synthetic --resume`` from the imported G and D
+    with ``VGG19_NPZ`` the imported ``.npz``, 2 steps at phase C's
+    batch."""
+    import shutil
+
+    from renderloom_torch.cli import import_checkpoint as IC
+    from renderloom_torch.cli import train_motion as TM
+    from renderloom_torch.cli import train_renderer as TR
+    from renderloom_torch.core.checkpoint import write_npz
+    from renderloom_torch.data import torch_import as TI
+    from renderloom_torch.models.layers import InstanceNorm, Spade
+    from renderloom_torch.models.perceptual import find_vgg_weights
+    from renderloom_torch.train.motion import create_motion_state
+
+    if not probe["PIL"]:
+        raise AssertionError("phase CI needs PIL for the pipeline CLI")
+    mcfg, rcfg, rate, K = (serve[k] for k in ("mcfg", "rcfg", "rate", "K"))
+    H, W = rcfg.data.model_height, rcfg.data.model_width
+    L = (K - 1) * rate + 1
+    work = os.path.join(ROOT, "build", "chip_smoke_import")   # not copied
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    print(f"CI. checkpoint import: the reference's netG/netD (hsm.yaml), "
+          f"model/opt (motion.yaml) and torchvision VGG19 as seeded "
+          f"legacy-format .pth files, imported and used")
+    tic = time.perf_counter()
+    ref = write_reference_checkpoints(os.path.join(work, "ref"), rcfg, mcfg)
+    print(f"  wrote the reference files in {time.perf_counter() - tic:.2f} "
+          f"s: " + ", ".join(f"{os.path.basename(p)} "
+                             f"{os.path.getsize(p) / 2**20:.1f} MiB"
+                             for p in ref.values()))
+    m_yaml = _yaml_cfg(os.path.join(work, "motion.yaml"), mcfg)
+    r_yaml = _yaml_cfg(os.path.join(work, "renderer.yaml"), rcfg)
+    t_yaml = _yaml_cfg(os.path.join(work, "train.yaml"), _train_cfg())
+    out = {"motion": os.path.join(work, "motion", "checkpoint.pt"),
+           "renderer": os.path.join(work, "renderer", "checkpoint.pt"),
+           "vgg19": os.path.join(work, "vgg19_features.npz")}
+    seconds = {}
+    for kind, argv in (
+            ("motion", ["--pth", ref["model"], "--opt", ref["opt"],
+                        "--config", m_yaml]),
+            ("renderer", ["--pth", ref["netG"], "--pth-d", ref["netD"],
+                          "--config", r_yaml]),
+            ("vgg19", ["--pth", ref["vgg19"]])):
+        tic = time.perf_counter()
+        IC.main(["--kind", kind, *argv, "--out", out[kind]])
+        seconds[kind] = time.perf_counter() - tic
+    print("  import_checkpoint seconds: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in seconds.items()))
+
+    # (a) the pipeline CLI from the imported files against the same CLI on
+    # the trees map_* return
+    g_trees = TI.map_generator_params(TI.flatten_state_dict(
+        TI.read_pth(ref["netG"])))
+    m_state = TI.flatten_state_dict(TI.read_pth(ref["model"]))
+    m_params = TI.map_motion_params(m_state)
+    npz = (os.path.join(work, "motion_mapped.npz"),
+           os.path.join(work, "renderer_mapped.npz"))
+    write_npz(npz[0], m_params)
+    write_npz(npz[1], *g_trees)
+    motion_t, conf_t, keys_t = serve["inputs"]
+    keys_u8 = (keys_t[0] * 255).round().to(torch.uint8).cpu().numpy()
+    inputs = _serve_files_inputs(work, keys_u8,
+                                 motion_t[0].double().cpu().numpy(),
+                                 conf_t[0].double().cpu().numpy(), mcfg)
+    per_step = sum(isinstance(m, (InstanceNorm, Spade))
+                   for m in serve["gen"].modules())
+    S = (L - 1) // rate
+    chunks = -(-S // max(min(16, S), 64 // rate))
+    want = {"rasterize": chunks, "rasterize_packed": 0,
+            "instance_norm": chunks * (rate - 1) * per_step,
+            "instance_norm_parity": 0, "instance_norm_r3": 0}
+    runs = {}
+    for tag, ckpts in (("imported", (out["motion"], out["renderer"])),
+                       ("mapped", npz)):
+        _reset_launches()
+        res = _serve_by_files(work, inputs, ckpts, (m_yaml, r_yaml), mcfg,
+                              rate, DEVICE)
+        torch.cuda.synchronize()
+        res["launches"] = _serve_launches()
+        runs[tag] = res
+        print(f"  pipeline CLI from the {tag} files: launches "
+              f"{res['launches']} (derived {want}); seconds " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in res["seconds"].items()))
+        if res["launches"] != want:
+            raise AssertionError(f"CI {tag}: kernel launches "
+                                 f"{res['launches']}")
+    a, b = runs["imported"], runs["mapped"]
+    if a["frames"].shape != (L, H, W, 3):
+        raise AssertionError(f"CI frames {a['frames'].shape}")
+    for part in ("frames", "dain", "pred"):
+        if not np.array_equal(a[part], b[part]):
+            raise AssertionError(f"CI: {part} from the imported files "
+                                 f"differ from the mapped trees'")
+    fps = L / sum(a["seconds"].values())
+    print(f"  (a) {L} frames from the imported files equal the mapped "
+          f"trees' bit for bit (frames, backgrounds, Predict_motion); "
+          f"{fps:.3f} frames/s from files ({card_line()})")
+
+    # (b) the motion CLI resumes from the imported checkpoint
+    state = create_motion_state(mcfg, DEVICE, mcfg.seed)
+    TM.load_checkpoint(out["motion"], state)
+    count, mu, nu, nu_max = TI.map_motion_opt_state(
+        TI.read_pth(ref["opt"]), list(m_state))
+    if int(state.opt.count) != count or state.step != REF_EPOCH_M:
+        raise AssertionError(f"CI motion: count {int(state.opt.count)}, "
+                             f"step {state.step}")
+    for name, tree in (("mu", mu), ("nu", nu), ("nu_max", nu_max)):
+        same_bits(f"(b) resumed optimizer {name} vs the .pth's moments",
+                  getattr(state.opt, name),
+                  _flat_moment(tree, state.model).to(DEVICE))
+    # slot 0 (input_embed.weight) straight from the file, no mapping
+    raw = TI.read_pth(ref["opt"])["transformer"]["state"][0]["exp_avg"]
+    same_bits("(b) input_embed.weight's exp_avg, raw", state.opt.mu[
+        :raw.numel()], raw.reshape(-1).to(DEVICE))
+    _reset_launches()
+    tic = time.perf_counter()
+    res = TM.main(["--synthetic", "--resume", "--config", m_yaml,
+                   "--out-dir", os.path.dirname(out["motion"]),
+                   "--epochs", str(REF_EPOCH_M + 2), "--steps-per-epoch",
+                   "1", "--device", DEVICE])
+    torch.cuda.synchronize()
+    t_motion = time.perf_counter() - tic
+    st = res["state"]
+    if (st.step != REF_EPOCH_M + 2 or int(st.opt.count) != count + 2
+            or int(st.opt.total_notfinite)
+            or not bool(torch.isfinite(st.opt.flat).all())):
+        raise AssertionError(f"CI motion resume: step {st.step}, count "
+                             f"{int(st.opt.count)}")
+    print(f"  (b) train_motion --resume: step {REF_EPOCH_M} -> {st.step}, "
+          f"AMSGrad count {count} -> {int(st.opt.count)}, finite, no "
+          f"skipped update; {t_motion:.2f} s")
+
+    # (c) the renderer CLI resumes from the imported G and D
+    saved = os.environ.get("VGG19_NPZ")
+    os.environ["VGG19_NPZ"] = out["vgg19"]
+    try:
+        if find_vgg_weights() != out["vgg19"]:
+            raise AssertionError("VGG19_NPZ is not the imported npz")
+        _reset_launches()
+        tic = time.perf_counter()
+        res = TR.main(["--synthetic", "--resume", "--config", t_yaml,
+                       "--out-dir", os.path.dirname(out["renderer"]),
+                       "--epochs", str(REF_EPOCH_G + 2), "--steps-per-epoch",
+                       "1", "--seed", "0", "--device", DEVICE])
+        torch.cuda.synchronize()
+        t_render = time.perf_counter() - tic
+    finally:
+        if saved is None:
+            os.environ.pop("VGG19_NPZ", None)
+        else:
+            os.environ["VGG19_NPZ"] = saved
+    st, hist = res["state"], res["epochs"]
+    launches = _train_launches()
+    derived = Counter()
+    for e in hist:
+        for k, v in derived_train_launches(_train_cfg(), st.gen, st.dis,
+                                           e["frames"] - 2).items():
+            derived[k] += e["steps"] * v
+    derived = {k: derived[k] for k in launches}
+    finite = all(bool(torch.isfinite(o.flat).all())
+                 for o in (st.opt_g, st.opt_d))
+    skipped = int(st.opt_g.total_notfinite) + int(st.opt_d.total_notfinite)
+    print(f"  (c) train_renderer --synthetic --resume: step {REF_EPOCH_G} -> "
+          f"{st.step} ({[e['steps'] for e in hist]} steps), launches "
+          f"{launches} (derived {derived}); {t_render:.2f} s")
+    if (st.step != REF_EPOCH_G + 2 or launches != derived or not finite
+            or skipped):
+        raise AssertionError(f"CI renderer resume: step {st.step}, "
+                             f"launches {launches}, skipped {skipped}")
+    per_step = {k: v // 2 for k, v in launches.items()}
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(seconds=seconds, serve_launches=runs["imported"]["launches"],
+                train_launches=launches, train_per_step=per_step,
+                serve_fps=fps, motion_s=t_motion, renderer_s=t_render)
+
+
+# ---------------------------------------------------------------------------
+# SK. skeleton frames (K1's cfhw layout)
+# ---------------------------------------------------------------------------
+
+SK_HW = 512                     # render_skeleton_frames' default size
+
+
+def skeleton_motion(L: int, seed: int) -> np.ndarray:
+    """A (19, 2, L) normalized motion of the standing person
+    (``_PERSON``) walking and swaying, inside [-1.6, 1.6], so that ×128
+    + 256 keeps every joint in a 512×512 frame."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 4 * np.pi, L)
+    body = (_PERSON - 0.5) * np.array([0.8, 2.0])          # (19, 2)
+    path = np.stack([0.5 * np.sin(t / 2), 0.1 * np.sin(t)])  # (2, L)
+    wiggle = 0.05 * np.sin(t[None, None] + rng.uniform(0, 6, (19, 2, 1)))
+    return (body[:, :, None] + path[None] + wiggle).astype(np.float32)
+
+
+def phase_skeleton(mcfg) -> dict:
+    """SK: ``render_skeleton_frames`` on a motion of ``max_seq_length``
+    frames at 512×512: K1 in the cfhw layout once per chunk, each chunk
+    bit for bit its twin, the uint8 frames the CPU's (first and last
+    chunk), per-chunk times beside the bound."""
+    from renderloom_torch.ops import rasterize_kernel as RK
+    from renderloom_torch.utils import visualize as V
+
+    L, n = mcfg.dataset.max_seq_length, SK_HW
+    chunks = -(-L // V.SKELETON_CHUNK)
+    print(f"SK. skeleton frames: render_skeleton_frames on a {L}-frame "
+          f"motion at {n}x{n} (brush {V.SKELETON_BRUSH}), K1 cfhw in "
+          f"{chunks} chunks of at most {V.SKELETON_CHUNK} frames")
+    # motion2gif's ×128 + 256 at 512×512
+    pixels = skeleton_motion(L, 5) * (n / 4.0) + n / 2.0
+    V.render_skeleton_frames(pixels[..., :V.SKELETON_CHUNK], n, n, DEVICE)
+    calls = []
+    _reset_launches()
+    restore = _raster_recorder(calls)
+    try:
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        frames = V.render_skeleton_frames(pixels, n, n, DEVICE)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - tic
+    finally:
+        restore()
+    launches = dict(RK.rasterize_tables_cuda.layout_launches)
+    print(f"  {L} frames in {seconds:.3f} s ({L / seconds:.1f} frames/s, "
+          f"with the host copies); launches {launches}")
+    if launches != {"nhwc": 0, "packed": 0, "cfhw": chunks} or \
+            len(calls) != chunks:
+        raise AssertionError(f"SK launches {launches}")
+    if frames.shape != (L, n, n, 3) or frames.dtype != np.uint8 or \
+            not frames.any():
+        raise AssertionError(f"SK frames {frames.shape} {frames.dtype}")
+    for i, (args, kw) in enumerate(calls):
+        if kw != {"layout": "cfhw", "brush": V.SKELETON_BRUSH} or \
+                args[6] is not True:
+            raise AssertionError(f"SK call {i}: {kw}, masks {args[6]}")
+        _k1_check(f"chunk {i} ({args[0].shape[0]} frames)", args[:3], n, n,
+                  torch.float32, True, "cfhw", V.SKELETON_BRUSH)
+    times = {}
+    for i in (0, chunks - 1):
+        F_ = calls[i][0][0].shape[0]
+        times[F_] = _k1_times(f"cfhw {F_} frames at {n}x{n}, brush "
+                              f"{V.SKELETON_BRUSH}", calls[i][0][:3], n, n,
+                              torch.float32, True, "cfhw", V.SKELETON_BRUSH)
+    # the CPU's frames of the first and the last chunk
+    last = (chunks - 1) * V.SKELETON_CHUNK
+    tic = time.perf_counter()
+    cpu = np.concatenate([
+        V.render_skeleton_frames(pixels[..., :V.SKELETON_CHUNK], n, n, "cpu"),
+        V.render_skeleton_frames(pixels[..., last:], n, n, "cpu")])
+    t_cpu = time.perf_counter() - tic
+    card = np.concatenate([frames[:V.SKELETON_CHUNK], frames[last:]])
+    if not np.array_equal(card, cpu):
+        raise AssertionError(f"SK: card frames differ from the CPU's at "
+                             f"{int((card != cpu).sum())} values")
+    print(f"  the card's uint8 frames of chunks 0 and {chunks - 1} "
+          f"({len(cpu)} frames) equal the CPU's ({t_cpu:.1f} s on the "
+          f"host); {card_line()}")
+    full = times[V.SKELETON_CHUNK]
+    return dict(full, launches=launches["cfhw"], seconds=seconds,
+                chunks=chunks, chunk_frames=V.SKELETON_CHUNK,
+                last_chunk=times[L - last])
+
+
+# ---------------------------------------------------------------------------
+# BW. background warping (build_dataset warp)
+# ---------------------------------------------------------------------------
+
+BW_FRAMES, BW_HW = 8, (512, 768)         # extract_clips' 768×512
+# card against CPU in PNG levels (largest, share of values not equal),
+# with a planted control (the CPU's backgrounds a frame later) that must
+# lie beyond both.  The two runs differ by float32 rounding in the LK
+# flow, which moves a value near a level boundary to the next level.
+# Reading in train mode on an NVIDIA H100 80GB HBM3 at 700 W: 1 level on
+# 0.2329% of values (the control: 47 levels, 5.03%); the limits are one
+# level more and about four times the share.
+BW_MAX_LEVELS, BW_SHARE_TOL = 2, 0.01
+
+
+def _warp_clip(path: str, seed: int):
+    """An 8-frame clip of 768×512 PNGs: a textured background with a
+    bright blob moving a few pixels a frame."""
+    from PIL import Image
+
+    H, W = BW_HW
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W]
+    base = 0.3 + 0.1 * np.sin(xx / 7.0)[..., None] * np.cos(yy / 11.0)[
+        ..., None] + 0.05 * rng.uniform(size=(1, 1, 3))
+    os.makedirs(path)
+    for k in range(BW_FRAMES):
+        cx, cy = W / 3 + 6 * k, H / 2 + 2 * k
+        blob = np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / 400.0)[..., None]
+        img = np.clip(base + 0.6 * blob, 0, 1)
+        Image.fromarray((img * 255).astype(np.uint8)).save(
+            os.path.join(path, f"frame{k:05d}.png"))
+
+
+def phase_warp(probe) -> dict:
+    """BW: ``build_dataset warp`` in both modes on an 8-frame 768×512
+    clip on the card, against the same command with ``--device cpu``."""
+    import shutil
+
+    from renderloom_torch.cli import build_dataset as BD
+
+    if not probe["PIL"]:
+        raise AssertionError("phase BW needs PIL")
+    work = os.path.join(ROOT, "build", "chip_smoke_warp")
+    shutil.rmtree(work, ignore_errors=True)
+    _warp_clip(os.path.join(work, "frames", "clip0"), 8)
+    print(f"BW. build_dataset warp on a {BW_FRAMES}-frame "
+          f"{BW_HW[1]}x{BW_HW[0]} clip, train and test (rate 4) modes, "
+          f"card against --device cpu")
+    out = {}
+    for mode in ("train", "test"):
+        runs = {}
+        for dev in (DEVICE, DEVICE, "cpu"):       # the first is a warm-up
+            dst = os.path.join(work, f"{mode}_{dev}")
+            shutil.rmtree(dst, ignore_errors=True)
+            secs = BD.main(["warp", "--frames", os.path.join(work, "frames"),
+                            "--out", dst, "--mode", mode, "--device", dev])
+            runs[dev] = (_png_dir(os.path.join(dst, "clip0")),
+                         secs["clip0"])
+        card, cpu = runs[DEVICE][0], runs["cpu"][0]
+        n = BW_FRAMES if mode == "train" else (BW_FRAMES - 1) * 4 + 1
+        if card.shape != (n, *BW_HW, 3):
+            raise AssertionError(f"BW {mode}: {card.shape}")
+        levels, share = _levels(card, cpu)
+        c_levels, c_share = _levels(card[1:], cpu[:-1])
+        print(f"  {mode}: {n} frames; card vs CPU {levels} levels, "
+              f"{share:.4%} of values (limits {BW_MAX_LEVELS}, "
+              f"{BW_SHARE_TOL:.0%}); control (a frame later) {c_levels} "
+              f"levels, {c_share:.2%}; seconds per clip: card "
+              f"{runs[DEVICE][1]:.3f}, CPU {runs['cpu'][1]:.3f}")
+        if levels > BW_MAX_LEVELS or share > BW_SHARE_TOL:
+            raise AssertionError(f"BW {mode}: {levels} levels, {share}")
+        if c_levels <= BW_MAX_LEVELS or c_share <= BW_SHARE_TOL:
+            raise AssertionError(f"BW {mode}: the control reads within "
+                                 f"the limits")
+        out[mode] = dict(levels=levels, share=share, card_s=runs[DEVICE][1],
+                         cpu_s=runs["cpu"][1])
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"  ({card_line()})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# TP. tensor-parallel sharding
+# ---------------------------------------------------------------------------
+
+# world 2 against world 1, the generator's image and mask over their
+# largest magnitude.  Reading on an NVIDIA H100 80GB HBM3 at 700 W: 0 on
+# both ranks (TF32 off; cuDNN sums each output channel of a split conv
+# as the whole conv does, its algorithms fixed by the shapes); the limit
+# is float32 rounding through the generator's depth, the CPU tests'.
+TP_RTOL = 1e-5
+TP_BATCH = 2
+TP_MIN_ELEMS = 1 << 14          # shard_params_tp's default
+
+
+def tp_inputs(batch: int, H: int, W: int, seed: int) -> list:
+    """The generator's inputs for :func:`tp_run`: label, previous label,
+    warped and previous image, uniform in [-1, 1], numpy float32."""
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(-1, 1, (batch, H, W, c)).astype(np.float32)
+            for c in (22, 22, 3, 3)]
+
+
+def tp_run(rcfg, g_trees, batch: int, seed: int, device,
+           min_elems: int = 1 << 14, grads: bool = False) -> dict:
+    """The serving generator on this rank (world 1 without a process
+    group): built from ``g_trees`` (numpy flax params and batch_stats;
+    seeded random weights, seed 1, without), replicated, split by
+    ``parallel.shard_params_tp`` over the world, then one forward on
+    ``batch`` seeded inputs (label, previous label, warped and previous
+    image at the config's size).  Returns the image and mask, the split
+    weights' names, the parameter bytes before and after, the kernel
+    launches and the forward's seconds; with ``grads``, the forward
+    records the gradient and the gradients of the sum of the image and
+    mask with respect to every weight are returned too (this rank's
+    slice of a split one), by parameter name."""
+    from renderloom_torch.parallel import mesh
+    from renderloom_torch.train.gan import (make_inference_pair,
+                                            set_float32_precision)
+
+    device = torch.device(device)
+    set_float32_precision()         # as build_pipeline: no TF32
+    gen = make_inference_pair(rcfg, *(g_trees or (None, None)), device)
+    mesh.replicate(gen)
+    nbytes = lambda: sum(p.numel() * p.element_size()
+                         for p in gen.parameters())
+    before = nbytes()
+    mesh.shard_params_tp(gen, min_elems=min_elems)
+    inputs = [torch.from_numpy(x).to(device) for x in tp_inputs(
+        batch, rcfg.data.model_height, rcfg.data.model_width, seed)]
+    sync = (torch.cuda.synchronize if device.type == "cuda"
+            else lambda: None)
+    _reset_launches()
+    sync()
+    tic = time.perf_counter()
+    with torch.inference_mode(not grads):
+        img, mask = gen(*inputs)
+    sync()
+    out = dict(img=img.detach().float().cpu().numpy(),
+               mask=mask.detach().float().cpu().numpy(),
+               split=mesh.tp_split(gen), bytes=(before, nbytes()),
+               launches=_kernel_launches(),
+               seconds=time.perf_counter() - tic, world=mesh.world()[1])
+    if grads:
+        named = [(n, p) for n, p in gen.named_parameters()
+                 if n.endswith("weight")]
+        got = torch.autograd.grad(img.sum() + mask.sum(),
+                                  [p for _, p in named])
+        out["grads"] = {n: g.cpu().numpy() for (n, _), g in zip(named, got)}
+    return out
+
+
+def phase_tp(serve) -> dict:
+    """TP: two spawned ranks on this card over gloo (correctness, not
+    speed) run ``shard_params_tp`` on the serving generator at full width
+    and one forward at B = 2, against world 1."""
+    from renderloom_torch.parallel import run_ranks
+
+    rcfg = serve["rcfg"]
+    H, W = rcfg.data.model_height, rcfg.data.model_width
+    print(f"TP. tensor-parallel serving generator (hsm.yaml, {W}x{H}, "
+          f"B = {TP_BATCH}, seeded weights): world 2 (gloo, both ranks on "
+          f"this card) vs world 1")
+    one = tp_run(rcfg, None, TP_BATCH, 13, DEVICE, TP_MIN_ELEMS)
+    tic = time.perf_counter()
+    two = run_ranks(tp_run, 2, DEVICE, backend="gloo",
+                    args=(rcfg, None, TP_BATCH, 13, DEVICE, TP_MIN_ELEMS))
+    t_two = time.perf_counter() - tic
+    n_norm = _count_norms(serve["gen"])
+    for who, r in [("world 1", one)] + [(f"rank {i}", r)
+                                        for i, r in enumerate(two)]:
+        if r["launches"]["instance_norm"] != n_norm:
+            raise AssertionError(f"TP {who}: launches {r['launches']}")
+    if one["split"] or not two[0]["split"] or two[0]["split"] != \
+            two[1]["split"]:
+        raise AssertionError("TP: split layers")
+    if not np.isfinite(one["img"]).all():
+        raise AssertionError("TP: non-finite output")
+    errs = {}
+    for r_i, r in enumerate(two):
+        for part in ("img", "mask"):
+            ref = one[part]
+            err = float(np.abs(r[part] - ref).max() / np.abs(ref).max())
+            errs[f"rank{r_i}_{part}"] = err
+    worst = max(errs.values())
+    print(f"  {len(two[0]['split'])} weights split; parameter bytes world 1 "
+          f"{one['bytes'][0]:,}, ranks {[r['bytes'][1] for r in two]}; K2 "
+          f"launches world 1 {one['launches']['instance_norm']}, ranks "
+          f"{[r['launches']['instance_norm'] for r in two]} ({n_norm} "
+          f"derived); world 2 vs world 1 over the largest: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {TP_RTOL:.0e}); forward seconds world 1 "
+          f"{one['seconds']:.3f}, ranks "
+          f"{[round(r['seconds'], 3) for r in two]}; {t_two:.1f} s with "
+          f"the spawn ({card_line()})")
+    if not worst <= TP_RTOL:
+        raise AssertionError(f"TP: world 2 vs world 1 {worst}")
+    return dict(errs=errs, launches1=one["launches"],
+                launches2=[r["launches"] for r in two],
+                bytes1=one["bytes"][0], bytes2=[r["bytes"][1] for r in two],
+                split=len(two[0]["split"]))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6762,6 +7550,21 @@ def main() -> int:
     print(f"backbone, data-parallel serving and layer-variant phases: U "
           f"{t_j - t_u:.1f} s, J {t_i - t_j:.1f} s, I "
           f"{time.perf_counter() - t_i:.1f} s")
+    t_ci = time.perf_counter()
+    imported = phase_import(serve, probe)
+    t_sk = time.perf_counter()
+    skeleton = phase_skeleton(serve["mcfg"])
+    t_bw = time.perf_counter()
+    warp = phase_warp(probe)
+    t_tp = time.perf_counter()
+    tp = phase_tp(serve)
+    print(f"import, skeleton, warp and tensor-parallel phases: CI "
+          f"{t_sk - t_ci:.1f} s, SK {t_bw - t_sk:.1f} s, BW "
+          f"{t_tp - t_bw:.1f} s, TP {time.perf_counter() - t_tp:.1f} s")
+    ci_s, ci_t = imported["serve_launches"], imported["train_launches"]
+    tps = lambda k: {"tp_world1_forward": tp["launches1"][k],
+                     **{f"tp_world2_rank{i}_forward": r[k]
+                        for i, r in enumerate(tp["launches2"])}}
     bb = lambda k: {f"train_backbone_{net}_2_steps": r["launches"][k]
                     for net, r in backbones.items()}
     dps = lambda k: {"serve_dp_world1": dp_serve["launches1"][k],
@@ -6793,7 +7596,10 @@ def main() -> int:
                                "train_dp2": dp2["rasterize"],
                                **({"serve_files_learned": learned["launches"]
                                    ["rasterize"]} if learned else {}),
-                               **bb("rasterize"), **dps("rasterize")},
+                               **bb("rasterize"), **dps("rasterize"),
+                               "serve_files_imported": ci_s["rasterize"],
+                               "train_imported_resumed_2_steps":
+                                   ci_t["rasterize"]},
              **raster_train,
              serve=dict(shape=f"{F_RASTER}x{H_FULL}x{W_FULL}x22 f32 label, "
                               f"no masks", **raster),
@@ -6826,7 +7632,12 @@ def main() -> int:
                                **({"serve_files_learned": learned["launches"]
                                    ["instance_norm"]} if learned else {}),
                                **bb("instance_norm"), **dps("instance_norm"),
-                               "layer_variants": var("instance_norm")},
+                               "layer_variants": var("instance_norm"),
+                               "serve_files_imported":
+                                   ci_s["instance_norm"],
+                               "train_imported_resumed_2_steps":
+                                   ci_t["instance_norm"],
+                               **tps("instance_norm")},
              train_backbones_max_abs_err=max(
                  r["k2_err"] for r in backbones.values()),
              **norm_train, serve=norm),
@@ -6889,10 +7700,18 @@ def main() -> int:
         dict(name="rasterize_cfhw", route="cuda",
              source="renderloom_torch/csrc/rasterize.cu",
              replaces="renderloom/ops/rasterize_pallas.py:172 (_kernel)",
-             launches=0, launches_by_path={},
-             **layouts[("cfhw", torch.float32, True)],
-             shape=f"{F_RASTER}x19+3x{H_FULL}x{W_FULL} f32 heatmaps and "
-                   f"skeleton + masks; on no serving or training path"),
+             launches=skeleton["launches"],
+             launches_by_path={"skeleton_frames": skeleton["launches"]},
+             **{k: skeleton[k] for k in ("max_abs_err", "ms", "device_ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms", "kept_share")},
+             shape=f"{skeleton['chunk_frames']}x19+3x{SK_HW}x{SK_HW} f32 "
+                   f"heatmaps and skeleton + masks, brush 2 (a "
+                   f"render_skeleton_frames chunk)",
+             last_chunk=skeleton["last_chunk"],
+             serve_shape=dict(
+                 layouts[("cfhw", torch.float32, True)],
+                 shape=f"{F_RASTER}x19+3x{H_FULL}x{W_FULL} f32 + masks")),
         dict(name="instance_norm_bwd", route="cuda",
              source="renderloom_torch/csrc/instance_norm.cu",
              replaces="renderloom/models/layers.py:114 (_in_bwd, the custom "
@@ -6903,7 +7722,9 @@ def main() -> int:
                                "train_h5": w32["instance_norm_bwd"],
                                "train_dp2": dp2["instance_norm_bwd"],
                                **bb("instance_norm_bwd"),
-                               "layer_variants": var("instance_norm_bwd")},
+                               "layer_variants": var("instance_norm_bwd"),
+                               "train_imported_resumed_2_steps":
+                                   ci_t["instance_norm_bwd"]},
              train_backbones_max_abs_err=max(
                  r["k2b_err"] for r in backbones.values()),
              **norm_bwd),
@@ -6948,6 +7769,13 @@ def main() -> int:
           f"{repro['gan']['windows_per_sec']['cudnn.deterministic']:.4f} vs "
           f"{repro['gan']['windows_per_sec']['port']:.4f}; bench " + ", ".join(
               f"{k} {v['value']}" for k, v in dp["bench"].items())
+          + f"; pipeline from imported checkpoints "
+          f"{imported['serve_fps']:.3f} frames/s; skeleton frames "
+          f"{skeleton['chunk_frames']}-frame chunk "
+          f"{skeleton['device_ms']:.4f} "
+          f"device ms (bound {skeleton['bound_ms']:.4f}); build_dataset "
+          f"warp {warp['train']['card_s']:.3f} s (train) and "
+          f"{warp['test']['card_s']:.3f} s (test) a clip"
           + "; chip_smoke "
           f"done in "
           f"{time.perf_counter() - tic:.1f} s")

@@ -84,7 +84,8 @@ def save_checkpoint(path: str, state) -> None:
     torch.save({"step": state.step, "model": state.model.state_dict(),
                 "opt": state.opt.state_dict(),
                 "rng": state.rng.get_state(),
-                "dropout_rng": state.dropout_rng.get_state()}, path)
+                "dropout_rng": (None if state.dropout_rng is None
+                                else state.dropout_rng.get_state())}, path)
 
 
 def load_checkpoint(path: str, state) -> None:
@@ -92,7 +93,10 @@ def load_checkpoint(path: str, state) -> None:
     state.model.load_state_dict(ckpt["model"])
     state.opt.load_state_dict(ckpt["opt"])
     state.rng.set_state(ckpt["rng"].cpu())
-    state.dropout_rng.set_state(ckpt["dropout_rng"].cpu())
+    # a checkpoint imported from the reference (cli/import_checkpoint)
+    # has no dropout generator: the fresh one, seeded from the config
+    if ckpt["dropout_rng"] is not None:
+        state.dropout_rng.set_state(ckpt["dropout_rng"].cpu())
     state.step = ckpt["step"]
 
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from renderloom_torch.core.config import MotionDatasetConfig
+from renderloom_torch.core.registry import DATASETS
 from renderloom_torch.data.hsm import process_shard
 from renderloom_torch.ops import pose as pose_ops
 
@@ -62,6 +63,7 @@ def center_window(data: np.ndarray, max_len: int, align: int = 16
     return data[:, :, :keep], 0
 
 
+@DATASETS.register("amass")
 class AmassReader:
     """Sample index and raw window loading for the AMASS joints h5."""
 

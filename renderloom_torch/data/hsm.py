@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from renderloom_torch.core.config import RendererDataConfig
+from renderloom_torch.core.registry import DATASETS
 from renderloom_torch.ops.image import (affine_warp, compose_affine,
                                         gaussian_blur, resize_matrix,
                                         separable_resize,
@@ -58,6 +59,7 @@ def decode_images(bufs: Sequence[np.ndarray]) -> np.ndarray:
     return native.batch_decode(bufs, h, w)
 
 
+@DATASETS.register("hsm")
 class HsmReader:
     """Window sampler over the HumanSloMo h5 (train or test phase)."""
 

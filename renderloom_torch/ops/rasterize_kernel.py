@@ -344,7 +344,8 @@ def _as_dict(outs, layout: str, emit_masks: bool) -> Dict[str, torch.Tensor]:
 @torch.library.custom_op("renderloom::rasterize", mutates_args=())
 def rasterize_op(joints: torch.Tensor, skel: torch.Tensor,
                  caps: torch.Tensor, height: int, width: int,
-                 out_dtype: torch.dtype, emit_masks: bool, layout: str
+                 out_dtype: torch.dtype, emit_masks: bool, layout: str,
+                 brush: float = R.SKELETON_BRUSH
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
     """K1 as the registered operator ``renderloom::rasterize``, what a
@@ -356,7 +357,7 @@ def rasterize_op(joints: torch.Tensor, skel: torch.Tensor,
     run = (rasterize_tables_cuda if joints.is_cuda
            else rasterize_tables_plain)
     out = run(joints, skel, caps, height, width, out_dtype, emit_masks,
-              layout=layout)
+              brush=brush, layout=layout)
     empty = lambda dtype: joints.new_empty((0,), dtype=dtype)
     masks = ((out["mask"], out["part_mask"]) if emit_masks
              else (empty(torch.float32), empty(torch.float32)))
@@ -367,7 +368,7 @@ def rasterize_op(joints: torch.Tensor, skel: torch.Tensor,
 
 @rasterize_op.register_fake
 def _rasterize_fake(joints, skel, caps, height, width, out_dtype,
-                    emit_masks, layout):
+                    emit_masks, layout, brush=R.SKELETON_BRUSH):
     _check_layout(layout, height, width, emit_masks)
     F = joints.shape[0]
     new = lambda *shape, dtype=out_dtype: joints.new_empty(shape,
@@ -386,24 +387,26 @@ def _rasterize_fake(joints, skel, caps, height, width, out_dtype,
 
 def rasterize_tables(joints, skel, caps, height: int, width: int,
                      out_dtype=torch.float32, emit_masks: bool = False,
-                     layout: str = "nhwc") -> Dict[str, torch.Tensor]:
+                     layout: str = "nhwc", brush: float = R.SKELETON_BRUSH
+                     ) -> Dict[str, torch.Tensor]:
     """The label in ``layout`` and ``out_dtype`` (see the module
     docstring) plus, with ``emit_masks``, the human and part masks
-    (F, H, W) f32 0/1: the CUDA kernel for CUDA tables, the plain twin
-    for CPU tables.  Under ``torch.export`` (fake tables) the call goes
-    through the registered operator :func:`rasterize_op`; eager calls
-    skip its dispatch and reach the same kernel."""
+    (F, H, W) f32 0/1, the skeleton's limbs of radius ``brush``: the
+    CUDA kernel for CUDA tables, the plain twin for CPU tables.  Under
+    ``torch.export`` (fake tables) the call goes through the registered
+    operator :func:`rasterize_op`; eager calls skip its dispatch and
+    reach the same kernel."""
     if _build.traced(joints):
         return _as_dict(torch.ops.renderloom.rasterize(
             joints, skel, caps, height, width, out_dtype, emit_masks,
-            layout), layout, emit_masks)
+            layout, brush), layout, emit_masks)
     if joints.is_cuda:
         return rasterize_tables_cuda(joints, skel, caps, height, width,
-                                     out_dtype, emit_masks, layout=layout)
+                                     out_dtype, emit_masks, brush, layout)
     if joints.device.type != "cpu":
         raise ValueError(f"unsupported device {joints.device}")
     return rasterize_tables_plain(joints, skel, caps, height, width,
-                                  out_dtype, emit_masks, layout=layout)
+                                  out_dtype, emit_masks, brush, layout)
 
 
 def rasterize_frames_fused(coords: torch.Tensor, conf: torch.Tensor,
@@ -413,12 +416,14 @@ def rasterize_frames_fused(coords: torch.Tensor, conf: torch.Tensor,
                            out_dtype=torch.float32,
                            emit_masks: bool = False,
                            draws: Optional[Dict[str, torch.Tensor]] = None,
-                           layout: str = "nhwc"
+                           layout: str = "nhwc",
+                           brush: float = R.SKELETON_BRUSH
                            ) -> Dict[str, torch.Tensor]:
     """coords (F, J, 2), conf (F, J) → the label stack of F frames in
-    ``layout`` (the JAX function's ``layout``); ``draws`` (from
-    :func:`draw_train_tables`) makes it the train path."""
+    ``layout`` (the JAX function's ``layout``), limbs of radius
+    ``brush``; ``draws`` (from :func:`draw_train_tables`) makes it the
+    train path."""
     tables = build_tables(coords.float(), conf.float(), height, width,
                           gauss_sigma, thres, foot_thres, draws)
     return rasterize_tables(*(t.contiguous() for t in tables), height,
-                            width, out_dtype, emit_masks, layout)
+                            width, out_dtype, emit_masks, layout, brush)

@@ -22,6 +22,10 @@ step for all their counts), and a loss summed over the batch is scaled
 by the world size (:func:`times_world`), so the mean over ranks of each
 rank's loss and gradient is the global batch's.
 
+Tensor parallelism (:func:`shard_params_tp`, the JAX package's
+``model`` axis) splits the large conv and linear weights' output
+channels over a process group and all-gathers each split layer's output.
+
 Without an initialized process group every function is the world-size-1
 identity.  gloo reduces CUDA tensors through the host: the two-rank
 check on a one-card machine runs both ranks on that card over gloo (NCCL
@@ -329,6 +333,135 @@ def run_ranks(fn: Callable, size: int, device,
     if errors:
         raise RuntimeError("a rank failed:\n" + "\n".join(errors))
     return results
+
+
+class _SumGradients(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``group``.
+    A split layer's input is the same on every rank, and each rank's
+    slice of the layer gives only its share of that input's gradient
+    (Megatron-LM's copy to the model-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        host = grad.cpu() if grad.is_cuda and \
+            dist.get_backend(ctx.group) == "gloo" else grad.clone()
+        dist.all_reduce(host, group=ctx.group)
+        return host.to(grad.device), None
+
+
+class _GatherChannels(torch.autograd.Function):
+    """All-gather along ``dim`` over ``group`` in rank order; the
+    backward keeps this rank's slice of the gradient.  Every rank
+    computes the same layers downstream of the gather, so that slice is
+    the whole gradient of this rank's output (the column-parallel
+    gather of Megatron-LM).  ``torch.distributed.nn.functional.
+    all_gather`` would sum the ranks' gradients instead, the world size
+    times this one here.  Through the host under gloo, as
+    :func:`gather_batch`."""
+
+    @staticmethod
+    def forward(ctx, y, dim, group):
+        ctx.dim, ctx.n = dim, y.shape[dim]
+        ctx.rank = dist.get_rank(group)
+        src = y.detach()
+        if src.is_cuda and dist.get_backend(group) == "gloo":
+            src = src.cpu()
+        src = src.contiguous()
+        parts = [torch.empty_like(src)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, src, group=group)
+        return torch.cat(parts, dim=dim).to(y.device)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None
+
+
+def _tp_forward(self, *args, **kwargs):
+    """A split layer's forward: its slice of the output channels without
+    the bias, all-gathered over its group along the channel axis, then
+    the whole bias added; the input's gradient summed over the group."""
+    x = _SumGradients.apply(args[0], self.tp_group)
+    bias = self.bias
+    self.bias = None
+    try:
+        y = type(self).forward(self, x, *args[1:], **kwargs)
+    finally:
+        self.bias = bias
+    y = _GatherChannels.apply(y, self.tp_dim, self.tp_group)
+    if bias is None:
+        return y
+    shape = [1] * y.dim()
+    shape[self.tp_dim] = -1
+    return y + bias.to(y.dtype).reshape(shape)
+
+
+def shard_params_tp(module: torch.nn.Module, group=None,
+                    min_elems: int = 1 << 14) -> torch.nn.Module:
+    """Tensor-parallel split of ``module``'s layers over ``group`` (the
+    world by default): the counterpart of the JAX package's
+    ``parallel/mesh.py:shard_params_tp`` over its ``model`` mesh axis.
+
+    A conv or linear weight with at least ``min_elems`` elements whose
+    output-channel count divides evenly by the group's size is split:
+    each rank keeps only its contiguous slice of the output channels
+    (torch's OIHW and (out, in) layouts put them on dim 0, flax's last,
+    so the same leaves qualify).  Every other parameter and buffer stays
+    whole on every rank, the split layers' biases included, and so do
+    convs with spectral-norm power-iteration state (their σ is that of
+    the whole kernel): fold the spectral norm first, as the serving
+    generator is.  A split layer's output is all-gathered over the group
+    along the channel axis before the next layer, where XLA inserts that
+    collective itself in JAX; its bias is added after the gather.  In
+    the backward each rank takes its slice of the output's gradient
+    (:class:`_GatherChannels`) and the input's gradient is summed over
+    the group (:class:`_SumGradients`), so every gradient is JAX's: a
+    split weight's this rank's slice of it, a whole one's in full.
+    Changes ``module`` in place and returns it; without a process group
+    or with a group of size 1 it changes nothing.  The split layers
+    carry ``tp_group`` and ``tp_dim`` (their output's channel axis);
+    :func:`tp_split` names them."""
+    from renderloom_torch.models.layers import Conv, SNConv
+
+    if not _live():
+        return module
+    group = group if group is not None else dist.group.WORLD
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
+    if size == 1:
+        return module
+    spectral = {id(m.conv) for m in module.modules()
+                if isinstance(m, SNConv) and hasattr(m, "sn_u")}
+    for m in module.modules():
+        if isinstance(m, (Conv, torch.nn.Linear)):
+            dim = -1                            # channels-last outputs
+        elif isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d)):
+            dim = 1
+        else:
+            continue
+        w = m.weight
+        if (id(m) in spectral or w.dim() < 2 or w.numel() < min_elems
+                or w.shape[0] % size):
+            continue
+        n = w.shape[0] // size
+        m.weight = torch.nn.Parameter(
+            w.detach()[rank * n:(rank + 1) * n].clone(),
+            requires_grad=w.requires_grad)
+        m.tp_group, m.tp_dim = group, dim
+        m.forward = _tp_forward.__get__(m)
+    return module
+
+
+def tp_split(module: torch.nn.Module) -> List[str]:
+    """Names of the weights :func:`shard_params_tp` split in ``module``
+    (each as its full parameter name)."""
+    return [f"{name}.weight" if name else "weight"
+            for name, m in module.named_modules() if hasattr(m, "tp_group")]
 
 
 def shutdown():

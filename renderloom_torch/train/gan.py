@@ -79,7 +79,9 @@ class AmsgradIfFinite:
       ``1 − b^count`` with ``count`` the applied updates, and ``p +=
       −lr(count_before) · mu_hat / (√v + eps)`` with ``v = nu_max =
       max(nu_max, nu_hat)`` (AMSGrad) or ``v = nu_hat`` (Adam, optax's
-      ``eps_root`` 0; ``nu_max`` stays 0).
+      ``eps_root`` 0; ``nu_max`` stays 0).  The schedule reads
+      ``schedule_count``, optax's own count of the schedule's state,
+      which equals ``count`` unless moments were spliced in.
 
     Under data parallelism (``renderloom_torch.parallel``) g is first
     averaged over the ranks, one all-reduce of the flat vector per
@@ -110,6 +112,9 @@ class AmsgradIfFinite:
         self.nu = torch.zeros_like(self.flat)
         self.nu_max = torch.zeros_like(self.flat)
         self.count = zero()
+        # optax's scale_by_schedule keeps a count of its own: equal to
+        # ``count`` but where moments are spliced in (train/motion.py)
+        self.schedule_count = zero()
         self.notfinite_count = zero()
         self.total_notfinite = zero()
 
@@ -141,12 +146,13 @@ class AmsgradIfFinite:
         nu_hat = nu / (1 - power(self.b2))
         nu_max = (torch.maximum(self.nu_max, nu_hat) if self.amsgrad
                   else self.nu_max)
-        lr = self.schedule(self.count).to(g.dtype)
+        lr = self.schedule(self.schedule_count).to(g.dtype)
         v = nu_max if self.amsgrad else nu_hat
         update = -lr * (mu_hat / (torch.sqrt(v) + self.eps))
         self.flat.add_(torch.where(ok, update, torch.zeros_like(update)))
         for name, new in (("mu", mu), ("nu", nu), ("nu_max", nu_max),
-                          ("count", count_inc)):
+                          ("count", count_inc),
+                          ("schedule_count", bump(self.schedule_count))):
             setattr(self, name, torch.where(ok, new, getattr(self, name)))
         self.total_notfinite = torch.where(isfinite, self.total_notfinite,
                                            bump(self.total_notfinite))
@@ -155,14 +161,16 @@ class AmsgradIfFinite:
 
     def state_dict(self) -> dict:
         return {k: getattr(self, k) for k in
-                ("flat", "mu", "nu", "nu_max", "count", "notfinite_count",
-                 "total_notfinite")}
+                ("flat", "mu", "nu", "nu_max", "count", "schedule_count",
+                 "notfinite_count", "total_notfinite")}
 
     def load_state_dict(self, state: dict):
         with torch.no_grad():
             self.flat.copy_(state["flat"])
-        for k in ("mu", "nu", "nu_max", "count", "notfinite_count",
-                  "total_notfinite"):
+        state = dict(state)
+        state.setdefault("schedule_count", state["count"])
+        for k in ("mu", "nu", "nu_max", "count", "schedule_count",
+                  "notfinite_count", "total_notfinite"):
             setattr(self, k, state[k].to(self.flat.device))
 
 

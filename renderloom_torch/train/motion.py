@@ -35,7 +35,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from renderloom_torch.convert import load_flax_params
+from renderloom_torch.convert import load_flax_params, state_dict_from_flax
 from renderloom_torch.core.config import MotionConfig
 from renderloom_torch.models.motion_transformer import (MotionTransformer,
                                                         build_motion_model,
@@ -118,6 +118,44 @@ def create_motion_state(cfg: MotionConfig, device, seed: int = 0,
         # each rank its own dropout masks (rank 0: seed + 2)
         torch.Generator(device=device).manual_seed(
             seed + 2 + (world()[0] << 32)))
+
+
+def splice_amsgrad_state(opt: AmsgradIfFinite, model: torch.nn.Module,
+                         count: int, mu: dict, nu: dict,
+                         nu_max: dict) -> AmsgradIfFinite:
+    """Set ``opt``'s AMSGrad moments, in place, to the flax trees ``mu``,
+    ``nu`` and ``nu_max`` and its update count to ``count``: the port of
+    the JAX package's ``train/motion.py:splice_amsgrad_state``, which
+    resumes from the reference's ``opt_epochNNN.pth``
+    (``Human_Motion_Modelling/models/trainer.py:100-118``).  Each tree is
+    laid out in ``model``'s parameter order, the order of ``opt``'s flat
+    buffers.  The parameters, the skip counters and the schedule's own
+    count (``schedule_count``) stay as they are, as the JAX package keeps
+    its clip, apply_if_finite and schedule states fresh.
+
+    torch's ``exp_avg_sq`` and ``max_exp_avg_sq`` are spliced as they
+    are, as in JAX, although torch keeps the maximum of the uncorrected
+    second moment and this optimizer that of the corrected one
+    (:class:`~renderloom_torch.train.gan.AmsgradIfFinite`)."""
+    named = list(model.named_parameters())
+    if [id(p) for _, p in named] != [id(p) for p in opt.params]:
+        raise ValueError("the optimizer's parameters are not the model's, "
+                         "in its order")
+
+    def flat(tree: dict, what: str) -> torch.Tensor:
+        sd = state_dict_from_flax(tree)
+        names = {n for n, _ in named}
+        if set(sd) != names:
+            raise ValueError(f"{what} does not match the model's "
+                             f"parameters: {sorted(set(sd) ^ names)[:10]}")
+        return torch.cat([sd[n].reshape(-1) for n, _ in named]).to(
+            opt.flat.device)
+
+    opt.mu, opt.nu, opt.nu_max = (flat(t, w) for t, w in (
+        (mu, "mu"), (nu, "nu"), (nu_max, "nu_max")))
+    opt.count = torch.tensor(int(count), dtype=torch.int32,
+                             device=opt.flat.device)
+    return opt
 
 
 def _seq(x: torch.Tensor) -> torch.Tensor:

@@ -1,24 +1,106 @@
-"""Grid videos of named frame streams.
+"""Visualization: skeleton frames, GIF and grid videos, the evaluation
+report.
 
-Port of ``make_grid_video`` and ``write_video`` of the JAX package's
-``renderloom/utils/visualize.py`` (the reference's
-``Pose_Guided_Neural_Rendering/utils/visualize.py:38-85``): numpy frames
-in, an mp4 (or a GIF where imageio has no mp4 backend) out.  imageio is
-imported only when a video is written.
+Port of the JAX package's ``renderloom/utils/visualize.py`` (the
+reference's ``Human_Motion_Modelling/utils/visualize.py:12-189`` and
+``Pose_Guided_Neural_Rendering/utils/visualize.py:38-85``):
+
+* :func:`print_evaluation` — the console and ``history.txt`` report;
+* :func:`render_skeleton_frames` — a motion's colored-skeleton frames,
+  rasterized by K1 (``csrc/rasterize.cu``) in its cfhw layout on the
+  card, at most :data:`SKELETON_CHUNK` frames a launch, and by its plain
+  twin on the CPU; :func:`motion2gif` writes them as a GIF;
+* :func:`make_grid_video` / :func:`write_video` — grid videos of named
+  frame streams.
+
+imageio is imported only when a GIF or video is written.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
+import torch
+
+# frames per K1 launch in render_skeleton_frames: the cfhw layout also
+# writes 19 heatmap channels and two masks, 24 float32 planes a frame
+# (25.2 MB at 512×512), so 32 frames take 0.81 GB a launch
+SKELETON_CHUNK = 32
+SKELETON_BRUSH = 2.0        # skeleton_image(..., brush=2.0) in JAX
+
+
+def print_evaluation(results: Mapping[str, float], epoch: int = 0,
+                     history_path: Optional[str] = None) -> str:
+    """Console and history.txt evaluation report
+    (Human_Motion_Modelling/utils/visualize.py:12-27); returns the
+    text."""
+    lines = [f"--------- evaluation (epoch {epoch}) ---------"]
+    for key in sorted(results):
+        lines.append(f"  {key:<14s} {results[key]:.6f}")
+    text = "\n".join(lines)
+    print(text, flush=True)
+    if history_path:
+        os.makedirs(os.path.dirname(history_path) or ".", exist_ok=True)
+        with open(history_path, "a") as f:
+            f.write(text + "\n")
+    return text
+
+
+def render_skeleton_frames(motion: np.ndarray, height: int = 512,
+                           width: int = 512, device="cuda") -> np.ndarray:
+    """(19, 2, L) joint positions in pixel coordinates → (L, H, W, 3)
+    uint8 skeleton frames (the reference's ``joints2image``,
+    Human_Motion_Modelling/utils/visualize.py:67-189): every joint with
+    confidence one, limbs of brush 2 (``skeleton_image(..., brush=2.0)``
+    in JAX), clipped to [0, 1] and scaled by 255 with truncation.  On a
+    CUDA ``device`` each chunk of at most :data:`SKELETON_CHUNK` frames
+    is one K1 launch in the cfhw layout (its heatmaps and masks are
+    written and dropped); on the CPU the twin computes the same.  A CUDA
+    request without a card raises."""
+    from renderloom_torch.ops.rasterize_kernel import (build_tables,
+                                                       rasterize_tables)
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("render_skeleton_frames: no CUDA device; pass "
+                           "device='cpu' to run on the CPU")
+    coords = torch.as_tensor(np.ascontiguousarray(
+        np.asarray(motion).transpose(2, 0, 1)), dtype=torch.float32)
+    frames = []
+    for lo in range(0, coords.shape[0], SKELETON_CHUNK):
+        c = coords[lo:lo + SKELETON_CHUNK].to(device)
+        tables = build_tables(c, torch.ones(c.shape[:2], device=device),
+                              height, width)
+        skel = rasterize_tables(*(t.contiguous() for t in tables), height,
+                                width, emit_masks=True, layout="cfhw",
+                                brush=SKELETON_BRUSH)["skeleton"]
+        u8 = (torch.clamp(skel, 0.0, 1.0) * 255.0).to(torch.uint8)
+        frames.append(u8.permute(0, 2, 3, 1).cpu().numpy())
+    return np.concatenate(frames)
+
+
+def motion2gif(motion: np.ndarray, path: str, height: int = 512,
+               width: int = 512, fps: int = 25, scale: float = 128.0,
+               offset: float = 256.0, device="cuda") -> str:
+    """Write a skeleton GIF for a (19, 2, L) normalized motion
+    (``motion2gif``, utils/visualize.py:29-64; the render transform ×128
+    + 256 of models/evaluator.py:248-250); returns the path."""
+    import imageio.v2 as imageio
+
+    pixels = motion * scale + offset
+    frames = render_skeleton_frames(pixels, height, width, device)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    imageio.mimsave(path, list(frames), duration=1.0 / fps)
+    return path
 
 
 def make_grid_video(streams: Dict[str, List[np.ndarray]], path: str,
                     fps: int = 30, cols: int = 3) -> str:
     """2×3-style grid mp4 of named frame streams (Predict/Mask/Fuse/
-    DAIN/GT/Skeleton).  Streams are equal-length lists of (H, W, 3) or
+    DAIN/GT/Skeleton; Pose_Guided_Neural_Rendering/utils/visualize.py:
+    38-85).  Streams are equal-length lists of (H, W, 3) or
     (H, W) arrays in [0, 1] or [-1, 1]."""
     names = list(streams)
     n = len(names)

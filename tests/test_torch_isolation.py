@@ -18,7 +18,7 @@ import torch
 import renderloom_torch.core.config as TC
 from _torch_parity import motion_cfg, renderer_cfg
 from renderloom_torch import native
-from renderloom_torch.cli import infer_motion, infer_renderer
+from renderloom_torch.cli import build_dataset, infer_motion, infer_renderer
 from renderloom_torch.cli import pipeline as pipeline_cli
 from renderloom_torch.cli import train_motion, train_renderer
 from renderloom_torch.eval import pipeline
@@ -61,7 +61,12 @@ def test_port_imports_no_jax_and_no_jax_package():
             "renderloom_torch.parallel", "renderloom_torch.parallel.mesh",
             "renderloom_torch.eval.export",
             "renderloom_torch.utils.serving", "renderloom_torch.bench",
-            "renderloom_torch.cli.export_model"} <= set(mods)
+            "renderloom_torch.cli.export_model",
+            "renderloom_torch.cli.import_checkpoint",
+            "renderloom_torch.cli.build_dataset",
+            "renderloom_torch.data.torch_import",
+            "renderloom_torch.data.builders",
+            "renderloom_torch.core.registry"} <= set(mods)
     code = ("import importlib, json, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "print(json.dumps(sorted(sys.modules)))")
@@ -123,6 +128,7 @@ def test_h5_and_motion_training_default_to_the_card(monkeypatch, cli, argv):
     (pipeline_cli, ["--frames-dir", ".", "--pose-dir", ".",
                     "--motion-ckpt", "m.npz", "--renderer-ckpt", "r.pt",
                     "--out-dir", "."]),
+    (build_dataset, ["warp", "--frames", ".", "--out", "."]),
 ])
 def test_serving_clis_default_to_the_card_and_never_fall_back(
         monkeypatch, cli, argv):
