@@ -76,10 +76,14 @@ H. runs both serving configurations in bf16 at full width on phase 4's
    bf16;
 R. holds K2's r3centered mode against its twin at every shape the bf16
    standard run gave it (recorded by a call hook) to one bf16 ulp of n
-   (× |γ|), with at most 0.01% of elements not bit-equal; checks
-   determinism, the library composition, and a mean-256/std-1 input
-   against the contract in float64; times kernel, twin and the library
-   composition (``F.instance_norm`` in float32 → bf16 → affine);
+   (× |γ|), with at most 0.01% of elements not bit-equal; prints each
+   shape's path (cluster or grid) and cluster size, and checks that the
+   profile shows that path's kernel; checks determinism (at the largest
+   grid-path shape and at two cluster-path shapes, residuals included),
+   the library composition, and a mean-256/std-1 input against the
+   contract in float64; times kernel, twin and the library composition
+   (``F.instance_norm`` in float32 → bf16 → affine); prints the host
+   time per call at (1, 4, 4, 32) and (4, 40, 60, 256);
 N2. holds K2 parity against its twin at every parity shape the bf16
    fastpath run gave it (bf16, and float32 in the mask net), and times
    it as phase N does;
@@ -148,10 +152,13 @@ T. phase C's step in bf16 with ``do_checkpoint`` on and off: the same
 B2. holds K2b's r3centered mode (dx to one bf16 ulp with at most 0.05%
    of elements not bit-equal, dγ and dβ as phase B) and K2's r3centered
    mode with residuals against their twins at every shape phase T's
-   warm-up gave them; determinism, a mean-256 input against the
-   contract in float64, one launch per call; times kernel, twin and the
-   library composition (autograd through ``F.instance_norm`` in
-   float32 → bf16 → affine → leaky);
+   warm-up gave them, with each shape's path and cluster size as phase
+   R; determinism (at the largest shape and at two cluster-path shapes,
+   where dγ and dβ must also equal the slabs' sums added in batch
+   order), a mean-256 input against the contract in float64, one launch
+   per call; times kernel, twin and the library composition (autograd
+   through ``F.instance_norm`` in float32 → bf16 → affine → leaky);
+   prints the host time per call as phase R;
 D2. holds one card bf16 step against the CPU bf16 step at 64×96 by
    mean errors (metrics, and the first frame's gradients per parameter
    over their float32 largest), with the card against the CPU float32
@@ -621,7 +628,7 @@ def _plan_of(x, n_inputs, parity=False) -> dict:
 
     B, H, W, C = x.shape
     return NK._plan(B, H * W, C, x.element_size(), n_inputs,
-                    *NK._device(x.device.index), parity=parity)
+                    *NK._device(x.device.index)[:3], parity=parity)
 
 
 def phase_norm():
@@ -2076,8 +2083,10 @@ def _r3_times(x, s, b, slope, iters=10, residuals=False):
              if residuals else None)
     f = lambda: NK.instance_norm_cuda(x, s, b, slope, 1e-5, stats,
                                       r3centered=True)
+    p = r3_plan(tuple(x.shape), False, s is not None)
+    print(_path_line(p))
     ms, dev = cuda_ms(f, iters), device_ms(f, 2 * iters)
-    one_kernel(f"K2 r3centered {tuple(x.shape)}", f, "norm_fwd_kernel")
+    one_kernel(f"K2 r3centered {tuple(x.shape)}", f, _r3_kernel(p, False))
     plain = cuda_ms(lambda: NK._plain_r3_forward(x, s, b, slope, 1e-5),
                     max(2, iters // 4), 1)
     lib = cuda_ms(lambda: _r3_library(x, s, b, slope), iters)
@@ -2101,11 +2110,156 @@ def _r3_f64(x, s, b, slope):
     return y
 
 
+def r3_plan(shape, bwd: bool, affine: bool) -> dict:
+    """The plan of a K2 (``bwd`` False) or K2b r3centered call on the
+    card: the cluster path where a slab fits in one cluster, else the
+    grid path (``norm_kernel._plan``)."""
+    from renderloom_torch.ops import norm_kernel as NK
+
+    B, H, W, C = shape
+    n_sms, bps, smem, csmem = NK._device(0)
+    dyf = bwd and affine
+    return NK._plan(B, H * W, C, 2, 2 if bwd else 1, n_sms, bps, smem,
+                    dy_itemsize=4 if dyf else None, n_sums=4 if dyf else 2,
+                    cluster_smem=csmem, out_f32=affine and not bwd)
+
+
+def _path_line(p: dict) -> str:
+    if p["path"] == "cluster":
+        return (f"    path: cluster, {p['cluster']} blocks of "
+                f"{p['rows_per_block']} px x {p['group']} channels a slab "
+                f"({p['grid']} blocks of {p['threads']} threads, "
+                f"{p['smem']} B of shared memory each)")
+    return (f"    path: grid, {p['grid']} blocks ({p['slabs_per_chunk']} "
+            f"slabs x {p['parts']} parts a chunk, {p['n_chunks']} chunks)")
+
+
+def _hold_r3_calls(what: str, seen: Counter, want: dict):
+    """Raise unless the recorded calls ``seen`` (keys: shape, then affine
+    and the leaky's slope at ``seen``'s own places) are ``want``."""
+    got = Counter()
+    for key, n in seen.items():
+        shape, affine, slope = key
+        got[(shape, affine, slope is not None)] += n
+    if dict(got) != want:
+        raise AssertionError(f"{what}: the main path's r3centered calls "
+                             f"{dict(got)} are not {want}")
+
+
+def _r3_kernel(p: dict, bwd: bool) -> str:
+    """The kernel a plan launches (what the profile must show)."""
+    if p["path"] == "cluster":
+        return "cluster_bwd" if bwd else "cluster_fwd"
+    return "norm_bwd_kernel" if bwd else "norm_fwd_kernel"
+
+
+# The bf16 main paths' r3centered calls, (shape, affine, leaky): count,
+# per bf16 standard clip (phase H's run, 162 calls) and per bf16 training
+# step (phase T's, do_checkpoint on): 380 forwards with residuals and 276
+# backwards.  Phases R and B2 fail unless the main path made exactly
+# these calls; tests/test_torch_norm.py plans them and
+# scripts/norm_r3_h100.py times them.
+R3_CLIP_CALLS = {
+    ((7, 320, 480, 32), False, False): 6,
+    ((7, 320, 480, 32), True, True): 9,
+    ((7, 320, 480, 16), False, False): 12,
+    ((7, 160, 240, 64), False, False): 6,
+    ((7, 160, 240, 64), True, True): 9,
+    ((7, 160, 240, 32), False, False): 12,
+    ((7, 80, 120, 128), False, False): 6,
+    ((7, 80, 120, 128), True, True): 9,
+    ((7, 80, 120, 64), False, False): 12,
+    ((7, 40, 60, 256), False, False): 6,
+    ((7, 40, 60, 256), True, True): 18,
+    ((7, 40, 60, 256), True, False): 15,
+    ((7, 40, 60, 128), False, False): 12,
+    ((7, 20, 30, 512), False, False): 18,
+    ((7, 20, 30, 256), False, False): 12}
+R3_STEP_FWD_CALLS = {
+    ((4, 320, 480, 32), False, False): 6,
+    ((4, 320, 480, 32), True, True): 6,
+    ((4, 320, 480, 16), False, False): 14,
+    ((4, 160, 240, 64), False, False): 6,
+    ((4, 160, 240, 64), True, True): 6,
+    ((4, 160, 240, 32), False, False): 14,
+    ((4, 80, 120, 128), False, False): 6,
+    ((4, 80, 120, 128), True, True): 6,
+    ((4, 160, 240, 32), True, True): 16,
+    ((4, 80, 120, 64), False, False): 14,
+    ((4, 40, 60, 256), False, False): 6,
+    ((4, 40, 60, 256), True, True): 12,
+    ((4, 40, 60, 256), True, False): 10,
+    ((4, 80, 120, 64), True, True): 16,
+    ((4, 40, 60, 128), False, False): 14,
+    ((4, 20, 30, 512), False, False): 22,
+    ((4, 40, 60, 128), True, True): 16,
+    ((4, 80, 120, 32), True, True): 16,
+    ((4, 19, 29, 512), True, True): 16,
+    ((4, 20, 30, 256), False, False): 14,
+    ((4, 20, 30, 256), True, True): 16,
+    ((4, 40, 60, 64), True, True): 16,
+    ((4, 20, 30, 128), True, True): 16,
+    ((4, 9, 14, 512), True, True): 16,
+    ((4, 40, 40, 32), True, True): 8,
+    ((4, 10, 15, 256), True, True): 16,
+    ((4, 20, 20, 64), True, True): 8,
+    ((8, 20, 20, 32), True, True): 8,
+    ((4, 9, 9, 256), True, True): 8,
+    ((4, 10, 10, 128), True, True): 8,
+    ((8, 10, 10, 64), True, True): 8,
+    ((8, 4, 4, 256), True, True): 8,
+    ((8, 5, 5, 128), True, True): 8}
+R3_STEP_BWD_CALLS = {
+    ((4, 320, 480, 32), True, True): 6,
+    ((4, 320, 480, 32), False, False): 4,
+    ((4, 160, 240, 64), True, True): 6,
+    ((4, 320, 480, 16), False, False): 8,
+    ((4, 160, 240, 64), False, False): 4,
+    ((4, 160, 240, 32), True, True): 12,
+    ((4, 80, 120, 128), True, True): 6,
+    ((4, 160, 240, 32), False, False): 8,
+    ((4, 80, 120, 128), False, False): 4,
+    ((4, 80, 120, 64), True, True): 12,
+    ((4, 40, 60, 256), True, False): 10,
+    ((4, 40, 60, 256), True, True): 12,
+    ((4, 80, 120, 64), False, False): 8,
+    ((4, 40, 60, 256), False, False): 4,
+    ((4, 80, 120, 32), True, True): 12,
+    ((4, 40, 60, 128), True, True): 12,
+    ((4, 40, 60, 128), False, False): 8,
+    ((4, 20, 30, 512), False, False): 12,
+    ((4, 19, 29, 512), True, True): 12,
+    ((4, 40, 60, 64), True, True): 12,
+    ((4, 20, 30, 256), True, True): 12,
+    ((4, 20, 30, 256), False, False): 8,
+    ((4, 20, 30, 128), True, True): 12,
+    ((4, 9, 14, 512), True, True): 12,
+    ((4, 40, 40, 32), True, True): 6,
+    ((4, 10, 15, 256), True, True): 12,
+    ((8, 20, 20, 32), True, True): 6,
+    ((4, 20, 20, 64), True, True): 6,
+    ((4, 9, 9, 256), True, True): 6,
+    ((8, 10, 10, 64), True, True): 6,
+    ((4, 10, 10, 128), True, True): 6,
+    ((8, 4, 4, 256), True, True): 6,
+    ((8, 5, 5, 128), True, True): 6}
+
+
+# (shape, affine) where phases R and B2 compare two calls bit for bit on
+# the cluster path (beside the grid path's largest shapes) and read the
+# wrappers' host time per call
+R3_CLUSTER_SHAPES = [((4, 40, 60, 256), True), ((8, 5, 5, 128), True)]
+R3_HOST_SHAPES = [((1, 4, 4, 32), False), ((4, 40, 60, 256), True)]
+
+
 def phase_norm_r3(bf16):
     from renderloom_torch.ops import norm_kernel as NK
 
     shapes = sorted(((k[:4], n) for k, n in bf16["standard"]["seen"].items()),
                     key=lambda kv: -np.prod(kv[0][0]))
+    _hold_r3_calls("K2 r3centered per clip",
+                   Counter({(k[0], k[2], k[3]): n for k, n in shapes}),
+                   R3_CLIP_CALLS)
     print(f"R. K2 r3centered, kernel vs plain twin, at the bf16 standard "
           f"run's {len(shapes)} shapes:")
     entry = _sum_shapes(
@@ -2133,6 +2287,20 @@ def phase_norm_r3(bf16):
                                              r3centered=True)):
         raise AssertionError("K2 r3centered: two calls differ")
     print("  determinism: two calls at (7, 160, 240, 64) equal bit for bit ok")
+    for i, (shape, affine) in enumerate(R3_CLUSTER_SHAPES):
+        x, s, b = _norm_inputs(shape, torch.bfloat16, affine, 793 + i)
+        p = r3_plan(shape, False, affine)
+        st1, st2 = (torch.empty((shape[0], shape[-1], 3), device="cuda")
+                    for _ in range(2))
+        y1 = NK.instance_norm_cuda(x, s, b, LEAKY, 1e-5, st1, r3centered=True)
+        y2 = NK.instance_norm_cuda(x, s, b, LEAKY, 1e-5, st2, r3centered=True)
+        if p["path"] != "cluster" or not (torch.equal(y1, y2)
+                                          and torch.equal(st1, st2)):
+            raise AssertionError(f"K2 r3centered {shape}: two calls differ "
+                                 f"or not on the cluster path ({p})")
+        print(f"  determinism: two calls at {shape} (cluster path, "
+              f"{p['cluster']} blocks a cluster) equal bit for bit (output "
+              f"and residuals) ok")
     # mean 256, std 1: the edge of the unshifted contract
     x, s, b = _norm_inputs((7, 40, 60, 256), torch.bfloat16, True, 791,
                            loc=256.0)
@@ -2152,12 +2320,19 @@ def phase_norm_r3(bf16):
     if not e_k <= 1.5 * e_t + ulp:
         raise AssertionError(f"r3centered at mean 256: kernel {e_k}, twin "
                              f"{e_t}")
-    x, _, _ = _norm_inputs((1, 4, 4, 32), torch.bfloat16, False, 792)
-    print(f"  host time per call at (1, 4, 4, 32): "
-          f"{host_us(lambda: NK.instance_norm_cuda(x, r3centered=True)):.1f}"
-          f" us")
+    host = {}
+    for shape, affine in R3_HOST_SHAPES:
+        x, s, b = _norm_inputs(shape, torch.bfloat16, affine, 792)
+        slope = LEAKY if affine else None
+        host[str(shape)] = host_us(lambda: NK.instance_norm_cuda(
+            x, s, b, slope, r3centered=True))
+        print(f"  host time per call at {shape} (affine={affine}): "
+              f"{host[str(shape)]:.1f} us")
     n_calls = sum(n for _, n in shapes)
-    return dict(**entry,
+    paths = Counter(r3_plan(k[0], False, k[2])["path"] for k, n in shapes
+                    for _ in range(n))
+    print(f"  paths per clip: {dict(paths)}")
+    return dict(**entry, host_us=host, paths=dict(paths),
                 library="F.instance_norm (float32) -> bf16 -> float32 "
                         "affine -> leaky (a composition; no single call)",
                 shape=f"{n_calls} launches over {len(shapes)} shapes, B=7, "
@@ -3149,8 +3324,10 @@ def _bwd_r3_times(x, dy, s, b, slope, iters=5):
     NK.instance_norm_cuda(x, s, b, slope, 1e-5, stats, r3centered=True)
     f = lambda: NK.instance_norm_bwd_cuda(x, dy, stats, s, b, slope,
                                           r3centered=True)
+    p = r3_plan(tuple(x.shape), True, s is not None)
+    print(_path_line(p))
     ms, dev = cuda_ms(f, iters), device_ms(f, 2 * iters)
-    one_kernel(f"K2b r3centered {tuple(x.shape)}", f, "norm_bwd_kernel")
+    one_kernel(f"K2b r3centered {tuple(x.shape)}", f, _r3_kernel(p, True))
     plain = cuda_ms(lambda: NK.instance_norm_bwd_plain(
         x, dy, stats, s, b, slope, r3centered=True), 2, 1)
     fwd, fwd_bwd = _bwd_r3_library(x, dy, s, b, slope)
@@ -3187,6 +3364,12 @@ def phase_norm_bwd_r3(train16):
     bwd = train16[True]["bwd"]
     print(f"B2. K2b r3centered, kernel vs plain twin, at the {len(bwd)} "
           f"shapes of one full-width bf16 training step (phase T):")
+    for what, seen, want in (
+            ("K2b r3centered per step", bwd, R3_STEP_BWD_CALLS),
+            ("K2 r3centered per step", train16[True]["fwd"],
+             R3_STEP_FWD_CALLS)):
+        _hold_r3_calls(what, Counter({k[:3]: n for k, n in seen.items()}),
+                       want)
     by_size = lambda d: sorted(d.items(), key=lambda kv: -np.prod(kv[0][0]))
     bwd_entry = _sum_shapes(
         "K2b r3centered", "step", by_size(bwd),
@@ -3207,6 +3390,30 @@ def phase_norm_bwd_r3(train16):
         raise AssertionError("K2b r3centered: two calls differ")
     print("  determinism: two calls at (4, 320, 480, 32) equal bit for bit "
           "(dx, dgamma, dbeta) ok")
+    for i, (shape, affine) in enumerate(R3_CLUSTER_SHAPES):
+        x, dy, s, b = _bwd_r3_inputs(shape, affine, 853 + i)
+        p = r3_plan(shape, True, affine)
+        stats = torch.empty((shape[0], shape[-1], 3), device="cuda")
+        NK.instance_norm_cuda(x, s, b, LEAKY, 1e-5, stats, r3centered=True)
+        one, two = (NK.instance_norm_bwd_cuda(x, dy, stats, s, b, LEAKY,
+                                              r3centered=True)
+                    for _ in range(2))
+        if p["path"] != "cluster" or not all(
+                torch.equal(u, v) for u, v in zip(one, two)):
+            raise AssertionError(f"K2b r3centered {shape}: two calls differ "
+                                 f"or not on the cluster path ({p})")
+        # dgamma and dbeta: the slabs' sums, left in the workspace's
+        # table, added in batch order
+        B, C = shape[0], shape[-1]
+        table = NK._work[(0, NK._stream(0))][4:4 + B * 2 * C].view(B, 2, C)
+        dbeta, dgamma = NK.batch_order_sums(table)
+        if not (torch.equal(dbeta, two[2]) and torch.equal(dgamma, two[1])):
+            raise AssertionError(f"K2b r3centered {shape}: dgamma/dbeta are "
+                                 f"not the batch-order sums of the slabs")
+        print(f"  determinism: two calls at {shape} (cluster path, "
+              f"{p['cluster']} blocks a cluster) equal bit for bit (dx, "
+              f"dgamma, dbeta); dgamma and dbeta bit for bit the slabs' sums "
+              f"added in batch order ok")
     # mean 256, std 1: the edge of the unshifted contract (phase R)
     x, dy, s, b = _bwd_r3_inputs((4, 40, 60, 256), True, 851, loc=256.0)
     stats = torch.empty((4, 256, 3), device="cuda")
@@ -3226,12 +3433,21 @@ def phase_norm_bwd_r3(train16):
     if not e_k <= 1.5 * e_t + ulp:
         raise AssertionError(f"K2b r3centered at mean 256: kernel {e_k}, "
                              f"twin {e_t}")
-    x, dy, _, _ = _bwd_r3_inputs((1, 4, 4, 32), False, 852)
-    stats = torch.empty((1, 32, 3), device="cuda")
-    NK.instance_norm_cuda(x, stats=stats, r3centered=True)
-    us = host_us(lambda: NK.instance_norm_bwd_cuda(x, dy, stats,
-                                                   r3centered=True))
-    print(f"  host time per call at (1, 4, 4, 32): {us:.1f} us")
+    host = {}
+    for shape, affine in R3_HOST_SHAPES:
+        x, dy, s, b = _bwd_r3_inputs(shape, affine, 852)
+        slope = LEAKY if affine else None
+        stats = torch.empty((shape[0], shape[-1], 3), device="cuda")
+        NK.instance_norm_cuda(x, s, b, slope, 1e-5, stats, r3centered=True)
+        host[str(shape)] = host_us(lambda: NK.instance_norm_bwd_cuda(
+            x, dy, stats, s, b, slope, r3centered=True))
+        print(f"  host time per call at {shape} (affine={affine}): "
+              f"{host[str(shape)]:.1f} us")
+    bwd_entry["host_us"] = host
+    bwd_entry["paths"] = dict(Counter(
+        r3_plan(k[0], True, k[1])["path"] for k, n in bwd.items()
+        for _ in range(n)))
+    print(f"  K2b r3centered paths per step: {bwd_entry['paths']}")
 
     fwd = train16[True]["fwd"]
     print(f"  K2 r3centered with residuals at the step's {len(fwd)} forward "
@@ -3245,6 +3461,10 @@ def phase_norm_bwd_r3(train16):
         "library composition")
     fwd_entry["shape"] = (f"{sum(fwd.values())} calls over {len(fwd)} "
                           f"shapes, summed per bf16 step (do_checkpoint on)")
+    fwd_entry["paths"] = dict(Counter(
+        r3_plan(k[0], False, k[1])["path"] for k, n in fwd.items()
+        for _ in range(n)))
+    print(f"  K2 r3centered (training) paths per step: {fwd_entry['paths']}")
     return fwd_entry, bwd_entry
 
 
@@ -5404,7 +5624,7 @@ def phase_data_parallel(train):
              (mcfg, *_dp_motion_case(mcfg, DP_CHECK_AFTER + 4)), "seqs",
              mcfg.batch_size),
             ("gan", dp_gan_run, (still, _dp_gan_raws(still,
-                                                     DP_CHECK_AFTER + 2)),
+                                                     DP_CHECK_AFTER + 1)),
              "windows", rcfg.batch_size)):
         tic = time.perf_counter()
         one = run(*args, "cuda")
@@ -7494,6 +7714,8 @@ def main() -> int:
     phase_bf16_cpu_match()
     phase_rollouts(serve)
     t_x = time.perf_counter()
+    print(f"build, kernel and serving phases (1 through O): "
+          f"{t_x - tic:.1f} s")
     exported = phase_export(serve, launches, bf16)
     t_y = time.perf_counter()
     planner = phase_planner(serve, fast, bf16)
@@ -7513,6 +7735,7 @@ def main() -> int:
     learned = phase_serve_learned(serve, files, flow, pose, probe)
     print(f"learned flow and pose phases: L {t_k - t_l:.1f} s, K "
           f"{t_v2 - t_k:.1f} s, V2 {time.perf_counter() - t_v2:.1f} s")
+    t_p = time.perf_counter()
     layouts = phase_raster_layouts(serve, fast)
     phase_cpu_match()
     raster_train = phase_raster_train()
@@ -7520,6 +7743,8 @@ def main() -> int:
     norm_train, norm_bwd = phase_norm_bwd(train)
     phase_train_cpu_match()
     t_new = time.perf_counter()
+    print(f"layout and float32 training phases (P through D): "
+          f"{t_new - t_p:.1f} s")
     train16 = phase_train_bf16(train)
     t_t = time.perf_counter()
     r3_train, bwd_r3 = phase_norm_bwd_r3(train16)

@@ -18,9 +18,68 @@
 // (backward).  The arithmetic is a few operations per byte, far below the
 // card's ratio.
 //
-// Each call is ONE cooperative launch of a persistent grid (every SM,
-// one 512-thread block with 200 KB of shared memory on each), and each
-// input byte is read from device memory once:
+// Two paths, one launch per call either way; the host plan
+// (ops/norm_kernel.py:_plan) picks one from the shape and the card alone.
+//
+// THE CLUSTER PATH (cluster_fwd / cluster_bwd; the r3centered mode only,
+// wherever a slab fits in one thread-block cluster with at most 2048
+// pixels a block: every bf16 main-path call of 80x120 pixels or fewer).
+// What bounds a small call is a fixed device floor, not bytes: measured
+// on the grid path (scripts/norm_probe_h100.py, H100), a launch costs
+// ~1.9 us whatever its grid, each grid barrier 1.1-1.45 us, and the
+// shared-memory tree of column_sums (up to 7 block barriers per value, 8
+// values, twice in the affine backward) took 9.4 of the smallest
+// backward's 18.6 us.  This path takes each of them away:
+//  * An ordinary launch with a cluster dimension, one cluster per slab
+//    (batch element b, G channels, G*2 bytes >= 32 so that rows stay
+//    sector-sized), `cluster` blocks of `rows` pixels, 512 threads (the
+//    forward with a bf16 output) or 256 (the float32 output and the
+//    backward, where 512 measured slower), and dynamic shared memory
+//    sized to the slab, at most half an SM so that two blocks share one,
+//    not the grid path's 200 KB.  Clusters of 1-8 blocks (the portable
+//    sizes); a slab that fits in none takes the grid path.  The plan
+//    picks the split by a rule measured on the H100 (ops/norm_kernel.py:
+//    _plan); this file sizes the launch (threads, shared memory) itself.
+//  * The forward copies its rows of x into shared memory once with
+//    16-byte cp.async.  The backward knows xhat from the residuals from the
+//    start, so one pass reads its rows of x and dy from device memory (16
+//    bytes a row, several rows in flight a thread), sums, and keeps x and
+//    g (exact in bf16) in shared memory: 4 bytes an element on chip where
+//    x and a float32 dy would take 6, and the apply does not recompute g.
+//  * The block's partial sums: per thread over its rows, inside the warp
+//    by shuffles (the rows of a column lie Cv = G / 8 lanes apart), then
+//    the warps in order: one block barrier, no tree.
+//  * The exchange: each block writes its partial sums into its slot in
+//    every block of the cluster (distributed shared memory), one cluster
+//    barrier, and each block adds the slots in rank order, so every block
+//    of the slab has the same bits.  The barrier's first arrive, at the
+//    kernel's start, tells the other blocks that this one runs before
+//    any writes into it.  A cluster of one block has no cluster barrier.
+//    No grid barrier, no partial rows in L2.
+//  * The apply runs from shared memory; the block of rank 0 writes the
+//    residuals (0, m1, inv).
+//  * dgamma and dbeta (the backward at an affine call site): rank 0 of
+//    each slab writes the slab's two sums to a (B, 2, C) table in a
+//    per-device, per-stream workspace, and the last slab to finish (an
+//    integer count in the same workspace, raised with atomicAdd after a
+//    __threadfence and reset by that block) adds the table over b in
+//    batch order.  No float atomics: two calls give the same bits.
+//  * A refused launch (too many blocks in a cluster, too much shared
+//    memory) is returned as its error; the wrapper raises.
+// What bounds it now (PERF.md): at the smallest calls the launch itself
+// (~1.9 of 3.7 us forward, of 6.2 backward with the dgamma/dbeta tail);
+// at 40x60 to 80x120 the serial load, sums and apply of each block.
+//
+// THE GRID PATH (norm_fwd_kernel / norm_bwd_kernel): every other call
+// (the shifted and parity norms, their backward, and the r3centered
+// calls whose slab does not fit in a cluster: the 160x240 and 320x480
+// ones).  What bounds it at those sizes is the chain of phases within a
+// block, not the barriers: at (4, 320, 480, 32) the backward spends 63
+// us loading, 54 summing, 33 reducing the partial rows from L2 and 33
+// applying of its 199 (the same probe).  Each call is ONE cooperative
+// launch of a persistent grid (every SM, one 512-thread block with 200
+// KB of shared memory on each), and each input byte is read from device
+// memory once:
 //
 //  * Work unit and chunks.  The work unit is a slab: one batch element b
 //    and a group of G channels (all C where a batch element fits), so a
@@ -37,9 +96,10 @@
 //      3. grid barrier;
 //      4. reduces the partial rows of its slab in a fixed order (each
 //         thread a strided set of parts, then the sets in order), so every
-//         block of the slab gets the same bits, from L2; where that would
-//         make one thread add more than ~40 values (wide slabs cut into
-//         many parts: the parity norm's largest calls), one warp per
+//         block of the slab gets the same bits, from L2 (each thread
+//         issues its loads eight parts ahead); where that
+//         would make one thread add more than ~40 values (wide slabs cut
+//         into many parts: the parity norm's largest calls), one warp per
 //         (b, c) reduces the pair once for the grid instead, behind a
 //         second barrier (the plan's grid_reduce);
 //      5. turns the sums into (m1, inv) and normalizes its range from
@@ -115,9 +175,13 @@
 //    + beta, instance_norm_p4's order), leaky from the sign of the
 //    pre-leaky value.  Only the order of the sums differs from the twins.
 //
+// Each kernel marks its phases with numbered comments ("// 1. load: ..."),
+// the boundaries scripts/norm_probe_h100.py stamps in an instrumented copy.
+//
 // C interface for ctypes; each entry returns the CUDA error of its launch
-// (a refused cooperative launch included).  rl_norm_device sets the
-// kernels' shared-memory limit and reports the grid the plan sizes for.
+// (a refused cooperative or cluster launch included).  rl_norm_device
+// sets the kernels' shared-memory limits and reports the geometry the
+// plan sizes both paths for.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -130,12 +194,14 @@ namespace cg = cooperative_groups;
 // the packed tensor's W, G = C, no residuals); the plan's split; r3 the
 // r3centered mode (bf16 input, width 0), out_f32 its forward's float32
 // output and dy_f32 its backward's float32 dy at affine call sites, and
-// n_sums the partial sums per (b, c) (4 for that backward, else 2); the
-// leaky's slope and eps.
+// n_sums the partial sums per (b, c) (4 for that backward, else 2);
+// cluster > 0 selects the cluster path (blocks per cluster; rows_per_part
+// the pixels of a block, grid the blocks), 0 the grid path; the leaky's
+// slope and eps.
 struct Config {
   int width, B, n_px, C, G, is_bf16, vec, leaky, grid, parts, rows_per_part,
       rows_cap, slabs_per_chunk, n_chunks, grid_reduce, r3, out_f32, n_sums,
-      dy_f32;
+      dy_f32, cluster;
   float slope, eps;
 };
 
@@ -186,6 +252,7 @@ struct Args {
   float slope, eps;
   int parts, rows_per_part, rows_cap, slabs_per_chunk, n_chunks;
   int grid_reduce;       // 1: reduce_pairs and a second barrier
+  int cluster;           // the cluster path: blocks per cluster (slab)
 };
 
 // Block-wide geometry of the column mapping: thread t owns vector column
@@ -271,13 +338,14 @@ __device__ void column_sums(const Cols& g, bool active, int j0,
 // element on the scalar path.  copy_wait() ends every copy the block
 // started.
 template <typename T, bool kVec>
-__device__ void copy_in(T* dst, const T* src, int rows, int G, int C) {
+__device__ void copy_in(T* dst, const T* src, int rows, int G, int C,
+                        int n_threads = kThreads) {
   if (kVec) {
     const int per_row = G * (int)sizeof(T) / 16;
     const int n = rows * per_row;
     const char* s = reinterpret_cast<const char*>(src);
     char* d = reinterpret_cast<char*>(dst);
-    for (int i = threadIdx.x; i < n; i += kThreads) {
+    for (int i = threadIdx.x; i < n; i += n_threads) {
       const int r = i / per_row, q = i % per_row;
       const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(
           d + ((size_t)r * G * sizeof(T) + q * 16)));
@@ -287,7 +355,7 @@ __device__ void copy_in(T* dst, const T* src, int rows, int G, int C) {
     }
   } else {
     const int n = rows * G;
-    for (int i = threadIdx.x; i < n; i += kThreads)
+    for (int i = threadIdx.x; i < n; i += n_threads)
       dst[i] = src[(size_t)(i / G) * C + i % G];
   }
 }
@@ -355,25 +423,39 @@ __device__ void reduce_pairs(const Args& a, const float* partial,
 // (row stride NS C).  Every block of the slab computes them the same way,
 // so they agree bit for bit: each thread sums the parts of its group in
 // order, then the groups are summed in order.
+//
+// Each thread issues its loads eight parts at a time before adding them
+// in part order: the adds wait on L2 once per eight parts instead of once
+// per part (a load-add loop spent 32 of the 197 us of K2b r3centered's
+// largest call here, scripts/norm_probe_h100.py).
+__device__ __forceinline__ float sum_parts(const float* partial, int p0,
+                                           int parts, int step,
+                                           size_t stride) {
+  float acc = 0.f;
+  for (int p = p0; p < parts; p += 8 * step) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      v[u] = p + u * step < parts ? partial[(p + u * step) * stride] : 0.f;
+#pragma unroll
+    for (int u = 0; u < 8; ++u)
+      if (p + u * step < parts) acc += v[u];
+  }
+  return acc;
+}
+
 __device__ void block_sums(const float* partial, int parts, int C, int G,
                            int NS, float* red, float* S) {
   const int n = NS * G, t = threadIdx.x;
-  auto at = [&](int p, int q) {
-    return partial[((size_t)p * NS + q / G) * C + q % G];
-  };
+  const size_t stride = (size_t)NS * C;  // from one part's row to the next
+  auto col = [&](int q) { return partial + (size_t)(q / G) * C + q % G; };
   if (n >= kThreads) {
-    for (int q = t; q < n; q += kThreads) {
-      float acc = 0.f;
-      for (int p = 0; p < parts; ++p) acc += at(p, q);
-      S[q] = acc;
-    }
+    for (int q = t; q < n; q += kThreads)
+      S[q] = sum_parts(col(q), 0, parts, 1, stride);
   } else {
     const int groups = kThreads / n, q = t % n, grp = t / n;
-    if (grp < groups) {
-      float acc = 0.f;
-      for (int p = grp; p < parts; p += groups) acc += at(p, q);
-      red[grp * n + q] = acc;
-    }
+    if (grp < groups)
+      red[grp * n + q] = sum_parts(col(q), grp, parts, groups, stride);
     __syncthreads();
     if (t < n) {
       float acc = 0.f;
@@ -467,6 +549,7 @@ __global__ void __launch_bounds__(kThreads, 1) norm_fwd_kernel(Args a) {
   for (int chunk = 0; chunk < a.n_chunks; ++chunk) {
     const Work w(a, chunk);
     const T* xg = x + w.off;
+    // 1. load: the block's range of the chunk (cp.async) and its tables
     if (w.mine) {
       copy_in<T, kVec>(xs, xg, w.nr_s, G, C);
       for (int k = threadIdx.x; k < G; k += kThreads) {
@@ -478,6 +561,7 @@ __global__ void __launch_bounds__(kThreads, 1) norm_fwd_kernel(Args a) {
         t_b[k] = a.bias ? a.bias[c] : 0.f;
       }
       copy_wait();
+      // 2. sums: the range's moments into its row of the partial table
       float* dst = partial + ((size_t)w.b * a.parts + w.part(a)) * 2 * C +
                    w.c0;
       for (int j0 = 0; j0 < g.Cv; j0 += g.cols) {
@@ -503,6 +587,8 @@ __global__ void __launch_bounds__(kThreads, 1) norm_fwd_kernel(Args a) {
         column_sums<V>(g, active, j0, s1, s2, red1, red2, dst, dst + C);
       }
     }
+    // 3. barrier: the chunk's partial rows are written (and, with
+    // grid_reduce, reduced once for the grid)
     grid.sync();
     if (a.grid_reduce) {
       reduce_pairs(a, partial, sums, chunk);
@@ -510,7 +596,9 @@ __global__ void __launch_bounds__(kThreads, 1) norm_fwd_kernel(Args a) {
     }
     if (!w.mine) continue;
 
+    // 4. partials: the slab's sums from its partial rows in L2
     slab_sums(a, partial, sums, w, red1, t_S);
+    // 5. apply: (m1, inv), the residuals, and the normalized range
     for (int k = threadIdx.x; k < G; k += kThreads) {
       const int c = w.c0 + k;
       float m1, m2;
@@ -644,6 +732,7 @@ __global__ void __launch_bounds__(kThreads, 1) norm_bwd_kernel(Args a) {
     const Work w(a, chunk);
     const T* xg = x + w.off;
     const TD* dg = dy + w.off;
+    // 1. load: the block's range of x and dy (cp.async) and its tables
     if (w.mine) {
       copy_in<T, kVec>(xs, xg, w.nr_s, G, C);
       copy_in<TD, kVec>(ds, dg, w.nr_s, G, C);
@@ -657,6 +746,7 @@ __global__ void __launch_bounds__(kThreads, 1) norm_bwd_kernel(Args a) {
         t_b[k] = affine ? a.bias[c] : 0.f;
       }
       copy_wait();
+      // 2. sums: the range's partial sums into its row of the table
       float* dst = partial + ((size_t)w.b * a.parts + w.part(a)) * NS * C +
                    w.c0;
       for (int j0 = 0; j0 < g.Cv; j0 += g.cols) {
@@ -702,6 +792,8 @@ __global__ void __launch_bounds__(kThreads, 1) norm_bwd_kernel(Args a) {
                          dst + 3 * C);
       }
     }
+    // 3. barrier: the chunk's partial rows are written (and, with
+    // grid_reduce, reduced once for the grid)
     grid.sync();
     if (a.grid_reduce) {
       reduce_pairs(a, partial, sums, chunk);
@@ -709,7 +801,9 @@ __global__ void __launch_bounds__(kThreads, 1) norm_bwd_kernel(Args a) {
     }
     if (!w.mine) continue;
 
+    // 4. partials: the slab's sums from its partial rows in L2
     slab_sums(a, partial, sums, w, red1, t_S);
+    // 5. apply: E[g], E[g * xhat] and dx of the range
     for (int k = threadIdx.x; k < G; k += kThreads) {
       const float gm = r3a ? 1.f : t_g[k];  // r3a: gamma is inside g
       t_mg[k] = (gm * t_S[k]) / (float)n_px;        // E[g]
@@ -756,10 +850,10 @@ __global__ void __launch_bounds__(kThreads, 1) norm_bwd_kernel(Args a) {
     __syncthreads();  // shared memory is refilled by the next chunk
   }
 
+  // 6. tail: dbeta = sum over (b, pixels) of dz, dgamma = sum of dz *
+  // xhat (r3a: dz * n, sums 2 and 3): the per-(b, c) sums in batch order,
+  // one thread per channel, after a last barrier
   if (a.dscale) {
-    // dbeta = sum over (b, pixels) of dz, dgamma = sum of dz * xhat (r3a:
-    // dz * n, sums 2 and 3): the per-(b, c) sums in batch order, one
-    // thread per channel
     grid.sync();
     const int q = r3a ? 2 : 0;
     for (int c = blockIdx.x * kThreads + threadIdx.x; c < C;
@@ -774,6 +868,404 @@ __global__ void __launch_bounds__(kThreads, 1) norm_bwd_kernel(Args a) {
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// The cluster path: r3centered calls whose slab fits in one thread-block
+// cluster.  One cluster per slab (batch element b, channels [c0, c0 + G)),
+// an ordinary launch with a cluster dimension; block rank r holds pixels
+// [r * rows, (r + 1) * rows) in shared memory from its load to its
+// stores, and the blocks of a slab exchange their partial sums through
+// distributed shared memory.  The cluster barrier is the only barrier.
+// ---------------------------------------------------------------------------
+
+constexpr int kCV = 8;  // bf16 channels of a 16-byte column
+
+// Threads of a cluster-path block: 512 for the forward with a bf16 output,
+// 256 for the forward with a float32 output and for the backward (128
+// registers a thread; 512 measured slower there).
+__host__ __device__ constexpr int cluster_threads(int bwd, int mixed) {
+  return bwd || mixed ? 256 : 512;
+}
+
+__host__ __device__ constexpr long long align16(long long n) {
+  return (n + 15) / 16 * 16;
+}
+
+// Dynamic shared memory of a cluster-path block, what its launch asks for
+// (ops/norm_kernel.py:_cluster_smem repeats it to choose a split): x's
+// rows (bf16), the backward's g rows (bf16), then the fp32 tables m1, inv, gamma, beta (the backward: also E[g], E[g * xhat]),
+// the per-warp sums of the nt threads, the k blocks' partial sums
+// (written by each block into every block of its cluster), and one int.
+__host__ __device__ constexpr long long cluster_smem(int rows, int G, int bwd,
+                                                     int n_sums, int k,
+                                                     int nt) {
+  return align16((long long)rows * G * 2) * (bwd ? 2 : 1) +
+         4LL * G * ((bwd ? 6 : 4) + (nt / 32 + k) * n_sums) + 16;
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The block's geometry: its slab, its rows, and the column mapping of its
+// NT threads (thread t: 16-byte column t % Cv of rows t / Cv + j * (NT /
+// Cv); Cv = G / 8 is a power of two up to 16, so the rows of a column
+// inside a warp are lanes Cv apart).
+template <int NT>
+struct CBlock {
+  int rank, b, c0, nr, Cv, col, rowi, rows_par;
+  size_t off;  // element offset of (b, first row, c0)
+  __device__ CBlock(const Args& a, int rank_) {
+    rank = rank_;
+    const int ng = a.C / a.G, s = blockIdx.x / a.cluster;
+    b = s / ng;
+    c0 = (s % ng) * a.G;
+    const int p0 = rank * a.rows_per_part;
+    nr = max(0, min(a.n_px, p0 + a.rows_per_part) - p0);
+    off = ((size_t)b * a.n_px + p0) * a.C + c0;
+    Cv = a.G / kCV;
+    col = threadIdx.x % Cv;
+    rowi = threadIdx.x / Cv;
+    rows_par = NT / Cv;
+  }
+};
+
+// The block's partial sums and their exchange.  acc[q][j] of each thread
+// is summed over the rows of its column, by shuffles inside the warp and
+// then over the warps in order; thread c < G then writes channel c's
+// NS sums into slot `rank` of every block of the cluster (distributed
+// shared memory; its own block's directly), and after the cluster
+// barrier each block adds the k slots in rank order, so every block of
+// the slab gets the same bits, S[q] for channel c0 + t.  A cluster of
+// one block has no cluster barrier.  The barrier's first arrive, at the
+// kernel's start (`cluster_arrive_relaxed`), tells the other blocks that
+// this one runs, before any of them writes into its shared memory.
+template <int NS, int NT>
+__device__ void cluster_sums(cg::cluster_group& cl, const CBlock<NT>& w,
+                             int k, int G, float (&acc)[NS][kCV], float* red,
+                             float* slots, float (&S)[NS]) {
+  for (int off = w.Cv; off < 32; off <<= 1)
+#pragma unroll
+    for (int q = 0; q < NS; ++q)
+#pragma unroll
+      for (int j = 0; j < kCV; ++j)
+        acc[q][j] += __shfl_xor_sync(0xffffffffu, acc[q][j], off);
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (lane < w.Cv)
+#pragma unroll
+    for (int q = 0; q < NS; ++q)
+#pragma unroll
+      for (int j = 0; j < kCV; ++j)
+        red[(warp * NS + q) * G + w.col * kCV + j] = acc[q][j];
+  __syncthreads();
+  if (k > 1) cluster_wait();  // every block of the cluster has started
+  if (t < G) {
+    float v[NS];
+#pragma unroll
+    for (int q = 0; q < NS; ++q) {
+      v[q] = 0.f;
+#pragma unroll
+      for (int u = 0; u < NT / 32; ++u) v[q] += red[(u * NS + q) * G + t];
+    }
+    for (int r = 0; r < k; ++r) {
+      float* dst = r == w.rank ? slots : cl.map_shared_rank(slots, r);
+#pragma unroll
+      for (int q = 0; q < NS; ++q) dst[(w.rank * NS + q) * G + t] = v[q];
+    }
+  }
+  if (k > 1) {
+    cluster_arrive();
+    cluster_wait();
+  } else {
+    __syncthreads();
+  }
+#pragma unroll
+  for (int q = 0; q < NS; ++q) S[q] = 0.f;
+  if (t < G)
+    for (int r = 0; r < k; ++r)
+#pragma unroll
+      for (int q = 0; q < NS; ++q) S[q] += slots[(r * NS + q) * G + t];
+}
+
+// The forward (K2 r3centered).  TO: bf16, or float at an affine call site.
+template <typename TO>
+__global__ void __launch_bounds__(cluster_threads(0, sizeof(TO) == 4), 2)
+    cluster_fwd(Args a) {
+  constexpr int NT = cluster_threads(0, sizeof(TO) == 4);
+  using T = __nv_bfloat16;
+  using P = Pack<T, kCV>;
+  using PO = Pack<TO, kCV>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int G = a.G, t = threadIdx.x;
+  const CBlock<NT> w(a, (int)cl.block_rank());
+  T* xs = reinterpret_cast<T*>(smem);
+  float* t_m1 = reinterpret_cast<float*>(
+      smem + align16((long long)a.rows_per_part * G * 2));
+  float* t_inv = t_m1 + G;
+  float* t_g = t_inv + G;
+  float* t_b = t_g + G;
+  float* red = t_b + G;                  // (NT / 32) * 2G
+  float* slots = red + (NT / 32) * 2 * G;  // cluster * 2G
+  const bool affine = a.scale != nullptr;
+  if (a.cluster > 1) cluster_arrive_relaxed();
+
+  // 1. load: the block's rows of x (16-byte cp.async), gamma and beta
+  copy_in<T, true>(xs, static_cast<const T*>(a.x) + w.off, w.nr, G, a.C, NT);
+  if (t < G) {
+    t_g[t] = affine ? a.scale[w.c0 + t] : 1.f;
+    t_b[t] = affine ? a.bias[w.c0 + t] : 0.f;
+  }
+  copy_wait();
+  // 2. sums: unshifted fp32 moments of the block's rows
+  float acc[2][kCV];
+#pragma unroll
+  for (int k = 0; k < kCV; ++k) acc[0][k] = acc[1][k] = 0.f;
+  for (int r = w.rowi; r < w.nr; r += w.rows_par) {
+    const P p = reinterpret_cast<const P*>(xs)[(size_t)r * w.Cv + w.col];
+#pragma unroll
+    for (int k = 0; k < kCV; ++k) {
+      const float d = load_f(p.v[k]);
+      acc[0][k] += d;
+      acc[1][k] += d * d;
+    }
+  }
+  // 3. exchange: the slab's moments from every block's partial sums
+  float S[2];
+  cluster_sums<2, NT>(cl, w, a.cluster, G, acc, red, slots, S);
+  if (t < G) {
+    const float m1 = S[0] / (float)a.n_px;
+    const float m2 = S[1] / (float)a.n_px;
+    const float var = fmaxf(m2 - m1 * m1, 0.f);
+    const float inv = rsqrtf(var + a.eps);
+    t_m1[t] = m1;
+    t_inv[t] = inv;
+    if (a.stats && w.rank == 0) {  // residuals for the backward
+      float* st = a.stats + ((size_t)w.b * a.C + w.c0 + t) * 3;
+      st[0] = 0.f;
+      st[1] = m1;
+      st[2] = inv;
+    }
+  }
+  __syncthreads();
+  // 4. apply: n = bf16(x̂), then the fp32 affine and the leaky
+  {
+    float cm[kCV], ci[kCV], cgm[kCV], cb[kCV];
+#pragma unroll
+    for (int k = 0; k < kCV; ++k) {
+      const int c = w.col * kCV + k;
+      cm[k] = t_m1[c];
+      ci[k] = t_inv[c];
+      cgm[k] = t_g[c];
+      cb[k] = t_b[c];
+    }
+    PO* og = reinterpret_cast<PO*>(static_cast<TO*>(a.out) + w.off);
+    const int Cvg = a.C / kCV;
+    for (int r = w.rowi; r < w.nr; r += w.rows_par) {
+      const P p = reinterpret_cast<const P*>(xs)[(size_t)r * w.Cv + w.col];
+      PO o;
+#pragma unroll
+      for (int k = 0; k < kCV; ++k) {
+        float y = round_bf16((load_f(p.v[k]) - cm[k]) * ci[k]);
+        if (affine) {
+          y = y * cgm[k];
+          y = y + cb[k];
+        }
+        if (a.leaky) y = y >= 0.f ? y : y * a.slope;
+        store_f(o.v[k], y);
+      }
+      og[(size_t)r * Cvg + w.col] = o;
+    }
+  }
+  // 5. tail: none in the forward
+}
+
+// The backward (K2b r3centered).  TD: float at an affine call site (four
+// sums, g = bf16(dz * gamma), dgamma and dbeta), bf16 without (g = dz).
+// The residuals give x̂ from the start, so one pass over device memory
+// reads x and dy, sums, and keeps x and g (exact in bf16) in shared
+// memory; the apply reads them there and does not recompute g.
+template <typename TD>
+__global__ void __launch_bounds__(cluster_threads(1, 0), 2)
+    cluster_bwd(Args a) {
+  constexpr int NT = cluster_threads(1, 0);
+  constexpr bool kAff = sizeof(TD) == 4;
+  constexpr int NS = kAff ? 4 : 2;
+  constexpr int kAhead = kAff ? 2 : 4;  // rows in flight, as registers allow
+  using T = __nv_bfloat16;
+  using P = Pack<T, kCV>;
+  using PD = Pack<TD, kCV>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cl = cg::this_cluster();
+  const int G = a.G, t = threadIdx.x;
+  const CBlock<NT> w(a, (int)cl.block_rank());
+  const long long x_bytes = align16((long long)a.rows_per_part * G * 2);
+  T* xs = reinterpret_cast<T*>(smem);
+  T* gs = reinterpret_cast<T*>(smem + x_bytes);
+  float* t_m1 = reinterpret_cast<float*>(smem + 2 * x_bytes);
+  float* t_inv = t_m1 + G;
+  float* t_g = t_inv + G;
+  float* t_b = t_g + G;
+  float* t_mg = t_b + G;
+  float* t_mgx = t_mg + G;
+  float* red = t_mgx + G;                  // (NT / 32) * NS * G
+  float* slots = red + (NT / 32) * NS * G;  // cluster * NS * G
+  int* last = reinterpret_cast<int*>(slots + a.cluster * NS * G);
+  const bool leaky = a.leaky != 0;
+  if (a.cluster > 1) cluster_arrive_relaxed();
+
+  // 1. load: the residuals, gamma and beta; the rows of x and dy arrive
+  // in the sums pass
+  if (t < G) {
+    const float* st = a.stats + ((size_t)w.b * a.C + w.c0 + t) * 3;
+    t_m1[t] = st[1];
+    t_inv[t] = st[2];
+    t_g[t] = kAff ? a.scale[w.c0 + t] : 1.f;
+    t_b[t] = kAff ? a.bias[w.c0 + t] : 0.f;
+  }
+  __syncthreads();
+  float cm[kCV], ci[kCV];
+#pragma unroll
+  for (int k = 0; k < kCV; ++k) {
+    cm[k] = t_m1[w.col * kCV + k];
+    ci[k] = t_inv[w.col * kCV + k];
+  }
+  // 2. sums: g and g * x̂ (affine: also dz and dz * n) of the block's rows,
+  // each thread reading its rows of x and dy from device memory (kAhead
+  // rows in flight) and keeping x and g in shared memory
+  float acc[NS][kCV];
+#pragma unroll
+  for (int q = 0; q < NS; ++q)
+#pragma unroll
+    for (int k = 0; k < kCV; ++k) acc[q][k] = 0.f;
+  {
+    float cgm[kCV], cb[kCV];
+#pragma unroll
+    for (int k = 0; k < kCV; ++k) {
+      cgm[k] = t_g[w.col * kCV + k];
+      cb[k] = t_b[w.col * kCV + k];
+    }
+    const P* xg = reinterpret_cast<const P*>(static_cast<const T*>(a.x) +
+                                             w.off) + w.col;
+    const PD* dg = reinterpret_cast<const PD*>(static_cast<const TD*>(a.dy) +
+                                               w.off) + w.col;
+    const int Cvg = a.C / kCV;
+    for (int r0 = w.rowi; r0 < w.nr; r0 += kAhead * w.rows_par) {
+      P px[kAhead];
+      PD pd[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        const int r = r0 + u * w.rows_par;
+        if (r < w.nr) {
+          px[u] = xg[(size_t)r * Cvg];
+          pd[u] = dg[(size_t)r * Cvg];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        const int r = r0 + u * w.rows_par;
+        if (r >= w.nr) continue;
+        P pg;
+#pragma unroll
+        for (int k = 0; k < kCV; ++k) {
+          const float xhat = (load_f(px[u].v[k]) - cm[k]) * ci[k];
+          const float n = round_bf16(xhat);
+          const float d = leaky_grad(load_f(pd[u].v[k]), n, leaky, kAff,
+                                     true, cgm[k], cb[k], a.slope);
+          if constexpr (kAff) {
+            const float gq = round_bf16(d * cgm[k]);
+            acc[0][k] += gq;
+            acc[1][k] += gq * xhat;
+            acc[2][k] += d;
+            acc[3][k] += d * n;
+            store_f(pg.v[k], gq);
+          } else {
+            acc[0][k] += d;
+            acc[1][k] += d * xhat;
+            store_f(pg.v[k], d);
+          }
+        }
+        const size_t i = (size_t)r * w.Cv + w.col;
+        reinterpret_cast<P*>(xs)[i] = px[u];
+        reinterpret_cast<P*>(gs)[i] = pg;
+      }
+    }
+  }
+  // 3. exchange: the slab's sums from every block's partial sums
+  float S[NS];
+  cluster_sums<NS, NT>(cl, w, a.cluster, G, acc, red, slots, S);
+  float* table = a.scratch + 4;  // (B, 2, C): the slabs' dbeta, dgamma sums
+  if (t < G) {
+    t_mg[t] = S[0] / (float)a.n_px;    // E[g]
+    t_mgx[t] = S[1] / (float)a.n_px;   // E[g * x̂]
+    if constexpr (kAff) {
+      if (w.rank == 0) {
+        table[((size_t)w.b * 2) * a.C + w.c0 + t] = S[2];
+        table[((size_t)w.b * 2 + 1) * a.C + w.c0 + t] = S[3];
+      }
+    }
+  }
+  __syncthreads();
+  // 4. apply: dx = bf16(((g - E[g]) - x̂ E[g x̂]) inv), g from shared memory
+  {
+    float mg[kCV], mgx[kCV];
+#pragma unroll
+    for (int k = 0; k < kCV; ++k) {
+      mg[k] = t_mg[w.col * kCV + k];
+      mgx[k] = t_mgx[w.col * kCV + k];
+    }
+    P* og = reinterpret_cast<P*>(static_cast<T*>(a.out) + w.off);
+    const int Cvg = a.C / kCV;
+    for (int r = w.rowi; r < w.nr; r += w.rows_par) {
+      const size_t i = (size_t)r * w.Cv + w.col;
+      const P px = reinterpret_cast<const P*>(xs)[i];
+      const P pg = reinterpret_cast<const P*>(gs)[i];
+      P o;
+#pragma unroll
+      for (int k = 0; k < kCV; ++k) {
+        const float xhat = (load_f(px.v[k]) - cm[k]) * ci[k];
+        store_f(o.v[k], ((load_f(pg.v[k]) - mg[k]) - xhat * mgx[k]) * ci[k]);
+      }
+      og[(size_t)r * Cvg + w.col] = o;
+    }
+  }
+  // 5. tail: dgamma and dbeta, summed over b in batch order by the last
+  // slab to finish (an integer count in the workspace, reset by that
+  // block; no float atomics)
+  if (kAff && w.rank == 0) {
+    __threadfence();
+    __syncthreads();
+    if (t == 0) {
+      const int n_slabs = gridDim.x / a.cluster;
+      *last = atomicAdd(reinterpret_cast<int*>(a.scratch), 1) == n_slabs - 1;
+    }
+    __syncthreads();
+    if (*last) {
+      __threadfence();
+      for (int c = t; c < a.C; c += NT) {
+        float sdb = 0.f, sdg = 0.f;
+        for (int bb = 0; bb < a.B; ++bb) {
+          sdb += __ldcg(table + ((size_t)bb * 2) * a.C + c);
+          sdg += __ldcg(table + ((size_t)bb * 2 + 1) * a.C + c);
+        }
+        a.dbias[c] = sdb;
+        a.dscale[c] = sdg;
+      }
+      if (t == 0) *reinterpret_cast<int*>(a.scratch) = 0;
+    }
+  }
+}
+
+void* const kClusterKernels[4] = {
+    (void*)cluster_fwd<__nv_bfloat16>, (void*)cluster_fwd<float>,
+    (void*)cluster_bwd<__nv_bfloat16>, (void*)cluster_bwd<float>,
+};
 
 // [bwd * 4 + is_bf16 * 2 + scalar], then the r3centered mode's mixed
 // types at affine call sites (bf16 x, float output or dy):
@@ -820,15 +1312,58 @@ bool plan_ok(const Args& a, int bwd, int itemsize, int vec, int grid,
          (long long)a.slabs_per_chunk * a.n_chunks * a.G >= (long long)a.B * a.C;
 }
 
+// The cluster path's invariants: the r3centered mode on 16-byte columns,
+// G a power of two from 16 to 128 channels (Cv = G / 8 divides a warp),
+// one cluster of 1-8 blocks per slab covering its pixels, and the
+// workspace (a count and the (B, 2, C) table) where the backward sums
+// dgamma and dbeta.  A launch whose shared memory exceeds what
+// rl_norm_device allowed the kernel is refused by the runtime.
+bool cluster_ok(const Args& a, int bwd, int itemsize, int vec, int grid,
+                int mixed) {
+  const int k = a.cluster, G = a.G;
+  if (!a.r3 || itemsize != 2 || !vec || a.width != 0 ||
+      mixed != (a.scale != nullptr) || a.n_sums != (bwd && mixed ? 4 : 2))
+    return false;
+  if (G < 16 || G > 128 || (G & (G - 1)) || a.C % G) return false;
+  if (k < 1 || k > 8) return false;
+  return (long long)grid == (long long)a.B * (a.C / G) * k &&
+         (long long)a.rows_per_part * k >= a.n_px &&
+         (!(bwd && mixed) ||
+          (a.scratch != nullptr && a.dscale != nullptr && a.dbias != nullptr));
+}
+
 int launch(int bwd, int is_bf16, int vec, int grid, int mixed, Args& a,
            cudaStream_t stream) {
-  if (!plan_ok(a, bwd, is_bf16 ? 2 : 4, vec, grid, mixed))
-    return static_cast<int>(cudaErrorInvalidValue);
-  void* fn = mixed ? kKernels[8 + bwd * 2 + (vec ? 0 : 1)]
-                   : kKernels[bwd * 4 + is_bf16 * 2 + (vec ? 0 : 1)];
-  void* params[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      fn, dim3(grid), dim3(kThreads), params, kDynSmem, stream);
+  cudaError_t err;
+  if (a.cluster > 0) {
+    if (!cluster_ok(a, bwd, is_bf16 ? 2 : 4, vec, grid, mixed))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int nt = cluster_threads(bwd, mixed);
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(grid);
+    cfg.blockDim = dim3(nt);
+    cfg.dynamicSmemBytes = static_cast<size_t>(
+        cluster_smem(a.rows_per_part, a.G, bwd, a.n_sums, a.cluster, nt));
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = a.cluster;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    void* params[] = {&a};
+    err = cudaLaunchKernelExC(&cfg, kClusterKernels[bwd * 2 + mixed],
+                              params);
+  } else {
+    if (!plan_ok(a, bwd, is_bf16 ? 2 : 4, vec, grid, mixed))
+      return static_cast<int>(cudaErrorInvalidValue);
+    void* fn = mixed ? kKernels[8 + bwd * 2 + (vec ? 0 : 1)]
+                     : kKernels[bwd * 4 + is_bf16 * 2 + (vec ? 0 : 1)];
+    void* params[] = {&a};
+    err = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(kThreads), params,
+                                      kDynSmem, stream);
+  }
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear it: the wrapper raises
     return static_cast<int>(err);
@@ -854,20 +1389,30 @@ Args args(const Config& k) {
   a.slabs_per_chunk = k.slabs_per_chunk;
   a.n_chunks = k.n_chunks;
   a.grid_reduce = k.grid_reduce;
+  a.cluster = k.cluster;
   return a;
 }
 
 }  // namespace
 
-// Once per device: raise every kernel's dynamic shared memory to
-// kDynSmem, and report the SM count, the blocks per SM that fit (the
-// least over the kernels) and the shared memory per block.
+// Once per device: raise the grid path's dynamic shared memory to
+// kDynSmem and the cluster path's to half an SM's shared memory less the
+// runtime's reserve (two cluster-path blocks share an SM), and report the
+// SM count, the grid path's blocks per SM that fit (the least over its
+// kernels) and shared memory per block, and the cluster path's shared
+// memory per block.
 extern "C" int rl_norm_device(int* n_sms, int* blocks_per_sm,
-                              int* smem_bytes) {
-  int dev = 0;
+                              int* smem_bytes, int* cluster_smem_bytes) {
+  int dev = 0, sm_smem = 0, reserved = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(n_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   int least = 1 << 30;
   for (void* fn : kKernels) {
     if (err != cudaSuccess) break;
@@ -879,14 +1424,22 @@ extern "C" int rl_norm_device(int* n_sms, int* blocks_per_sm,
                                                           kDynSmem);
     least = n < least ? n : least;
   }
+  const int csmem = sm_smem / 2 - reserved;
+  for (void* fn : kClusterKernels) {
+    if (err != cudaSuccess) break;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               csmem);
+  }
   *blocks_per_sm = least;
   *smem_bytes = kDynSmem;
+  *cluster_smem_bytes = csmem;
   return static_cast<int>(err);
 }
 
-// scratch: B * parts * 2 * C + B * 2 * C floats, plus B * C / 4 for
-// parity.  out: x's type, or float for the r3centered mode with affine.
-// stats (or null): the residuals (B, C, 3), written.
+// scratch (grid path): B * parts * 2 * C + B * 2 * C floats, plus B * C /
+// 4 for parity; the cluster path takes none.  out: x's type, or float for
+// the r3centered mode with affine.  stats (or null): the residuals (B, C,
+// 3), written.
 extern "C" int rl_instance_norm(const void* x, void* out, const void* scale,
                                 const void* bias, void* stats, void* scratch,
                                 const Config* k, void* stream) {
@@ -901,8 +1454,11 @@ extern "C" int rl_instance_norm(const void* x, void* out, const void* scale,
                 static_cast<cudaStream_t>(stream));
 }
 
-// scratch: B * parts * n_sums * C + B * n_sums * C floats.  dy: x's type,
-// or float for the r3centered mode with affine; dx: x's type.
+// scratch (grid path): B * parts * n_sums * C + B * n_sums * C floats;
+// the cluster path with affine takes the workspace, 4 + B * 2 * C floats
+// whose first int is 0 at the launch (and again after it), and none
+// without.  dy: x's type, or float for the r3centered mode with affine;
+// dx: x's type.
 extern "C" int rl_instance_norm_bwd(const void* x, const void* dy,
                                     const void* stats, const void* scale,
                                     const void* bias, void* dx, void* dscale,

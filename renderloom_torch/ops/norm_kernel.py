@@ -7,12 +7,32 @@ instance_norm_fused`` (forward, ``parity=False`` and ``parity=True``).
 K2b is the backward the JAX package wrote as a custom VJP
 (``renderloom/models/layers.py:_in_bwd``), and in its r3centered mode
 the gradient JAX's autodiff takes of the bf16 dispatch.  On the H100
-both are bound by device-memory bytes.  Each call is one cooperative
-launch of a persistent grid that copies its chunk of the input into
-shared memory, reads it from device memory once, reduces the per-(B, C)
-sums in a fixed order (no float atomics, so two calls give the same
-bits) and writes the output from shared memory.  :func:`_plan`
-sizes the chunks; see the source for the design.
+their large calls are bound by device-memory bytes and their small ones
+by a fixed device floor.  Each call is one launch, on one of two paths
+that :func:`_plan` picks from the shape and the card (see the source
+for the design):
+
+* the **cluster path** (the r3centered mode, forward and backward,
+  wherever a slab fits in one thread-block cluster: every bf16
+  main-path call of 80×120 pixels or fewer): an ordinary launch with a
+  cluster dimension, one cluster per slab, shared memory sized to the
+  slab; the blocks of a slab exchange their partial sums through
+  distributed shared memory behind a cluster barrier, the only barrier.
+  It takes away what set the small calls' floor: the grid barriers, the
+  partial rows in L2 and the shared-memory reduction tree.  It needs no
+  scratch; its backward at an affine call site sums dγ/dβ over b in
+  batch order in the last slab to finish, through a small workspace
+  kept per device and stream (:func:`_workspace`);
+* the **grid path** (everything else): one cooperative launch of a
+  persistent grid that copies its chunk of the input into shared
+  memory, reads it from device memory once, reduces the per-(B, C) sums
+  from partial rows in L2 behind a grid barrier and writes the output
+  from shared memory; what bounds it at the main paths' largest calls is
+  the chain of load, sums and apply inside each block.
+
+Both sum in a fixed order with no float atomics, so two calls give the
+same bits.  A refused launch raises; neither path falls back to the
+other or to the twin.
 
 Numerics are the fp32 contract of the JAX package's
 ``models/layers.py:_in_moments``/``_in_apply``/``_in_bwd``: moments of
@@ -64,6 +84,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -76,6 +97,15 @@ _FWD_TABLES = 7         # per-channel fp32 tables in shared memory:
 _BWD_TABLES = 9         # csrc/instance_norm.cu norm_{fwd,bwd}_kernel,
                         # the backward's with two sums (7 + n_sums)
 _BLOCK_SUMS_DEPTH = 40  # partial values one thread may add in a block
+# The cluster path (csrc/instance_norm.cu cluster_fwd / cluster_bwd):
+_C_GROUPS = (128, 64, 32, 16)       # channels per slab: 16-byte columns,
+                                    # a power of two that divides a warp
+_C_CLUSTERS = (1, 2, 3, 4, 5, 6, 7, 8)   # blocks per cluster: the
+                                        # portable sizes
+_C_MAX_ROWS = 2048                  # pixels a block may hold
+_C_ROW_BYTES = 64                   # a slab's row of its widest input
+_C_BLOCKS = 96                      # blocks a call should spread over
+_C_MIN_ROWS = 200                   # pixels a block keeps at least
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -206,17 +236,91 @@ def instance_norm_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
     return dx, dscale, dbias
 
 
+def _cluster_threads(bwd: bool, out_f32: bool) -> int:
+    """Threads of a cluster-path block (csrc/instance_norm.cu
+    ``cluster_threads``): 512 for the forward with a bf16 output, else
+    256."""
+    return 256 if bwd or out_f32 else 512
+
+
+def _cluster_smem(rows: int, G: int, bwd: bool, n_sums: int, k: int,
+                  threads: int) -> int:
+    """Dynamic shared memory of a cluster-path block, as
+    csrc/instance_norm.cu ``cluster_smem`` sizes its launch (the plan
+    needs it on any device to choose a split): ``rows`` pixels of G bf16
+    channels of x, and of g in the backward, 16-byte aligned, then the
+    fp32 tables, the per-warp sums, the ``k`` blocks' partial sums, one
+    int."""
+    tables = (6 if bwd else 4) + (threads // 32 + k) * n_sums
+    return (-(-rows * G * 2 // 16) * 16 * (2 if bwd else 1)
+            + 4 * G * tables + 16)
+
+
+def _cluster_plan(B: int, n_px: int, C: int, dsz: int, n_sums: int,
+                  out_f32: bool, smem: int) -> Optional[dict]:
+    """The cluster path's split of an r3centered call whose dy has
+    ``dsz`` bytes (0: the forward), or None where no slab fits in one
+    cluster (see :func:`_plan`)."""
+    threads = _cluster_threads(dsz > 0, out_f32)
+    width = max(2, dsz)             # bytes of the widest input's element
+    splits = {}                     # G: [(blocks a cluster, pixels a block)]
+    for G in _C_GROUPS:
+        for k in _C_CLUSTERS:
+            rows = -(-n_px // k)
+            k = -(-n_px // rows)        # no block without pixels
+            if (C % G == 0 and rows <= _C_MAX_ROWS
+                    and _cluster_smem(rows, G, dsz > 0, n_sums, k,
+                                      threads) <= smem
+                    and (k, rows) not in splits.get(G, [])):
+                splits.setdefault(G, []).append((k, rows))
+    if not splits:
+        return None
+    G = min(splits, key=lambda G: (
+        abs(math.log2(G * width / _C_ROW_BYTES)), -G))
+    n_slabs = B * (C // G)
+    k_cap = max(1, n_px // _C_MIN_ROWS)
+    k, rows = next((s for s in splits[G]
+                    if n_slabs * s[0] >= _C_BLOCKS or s[0] >= k_cap),
+                   splits[G][-1])
+    return dict(path="cluster", grid=n_slabs * k, group=G, cluster=k,
+                rows_per_block=rows, threads=threads,
+                smem=_cluster_smem(rows, G, dsz > 0, n_sums, k, threads),
+                slabs=n_slabs, streaming=False)
+
+
 @functools.lru_cache(maxsize=None)
 def _plan(B: int, n_px: int, C: int, itemsize: int, n_inputs: int,
           n_sms: int, blocks_per_sm: int, smem_per_block: int,
           parity: bool = False, dy_itemsize: Optional[int] = None,
-          n_sums: int = 2) -> dict:
+          n_sums: int = 2, cluster_smem: int = 0,
+          out_f32: bool = False) -> dict:
     """The work split the kernel follows, for ``n_inputs`` (B, n_px, C)
     tensors of ``itemsize`` bytes (1: the forward, 2: the backward's x
     and dy, dy of ``dy_itemsize`` bytes where that differs, with
     ``n_sums`` partial sums per (b, c)) on a grid of ``n_sms ·
     blocks_per_sm`` blocks with ``smem_per_block`` bytes of dynamic
     shared memory each.
+
+    **The cluster path** (``path == "cluster"``), asked for by a
+    ``cluster_smem`` > 0 (an r3centered call on 16-byte columns; a
+    cluster-path block may have ``cluster_smem`` bytes of dynamic shared
+    memory on the card; ``out_f32``: a forward at an affine call site,
+    whose blocks have 256 threads, not 512): one cluster per slab of
+    ``group`` channels (16 to 128, a power of two), ``cluster`` blocks
+    of ``rows_per_block`` pixels each (at most 2048: beyond that, at the
+    main paths' 160×240 forwards, the grid path measured faster on the
+    H100), everything on chip at once.  The slab is, among those that
+    fit in a cluster of at most 8 blocks (the portable sizes), the one
+    whose rows of the widest input (x, or the backward's float32 dy)
+    come nearest 64 bytes, wider on a tie;
+    its cluster the smallest that spreads the call over 96 blocks or
+    that leaves a block 200 pixels, else the largest.  (These three
+    numbers are the H100's: the rule that came nearest the fastest
+    split at each of the main paths' shapes, of every split
+    ``scripts/norm_r3_h100.py --sweep`` timed.)  Where no slab fits in
+    one cluster it returns the grid path.
+
+    **The grid path** (``path == "grid"``):
 
     The work unit is a slab: one batch element and ``group`` channels (a
     divisor of C), slab s being b = s // (C / group) and channels from
@@ -238,10 +342,15 @@ def _plan(B: int, n_px: int, C: int, itemsize: int, n_inputs: int,
     pixel runs of at least 64 bytes (32 where only those avoid
     streaming).  The parity norm keeps group = C, so that the four
     parity groups of a channel sit in one slab."""
+    dsz = itemsize if dy_itemsize is None else dy_itemsize
+    if cluster_smem > 0:
+        p = _cluster_plan(B, n_px, C, 0 if n_inputs == 1 else dsz, n_sums,
+                          out_f32, cluster_smem)
+        if p is not None:
+            return p
     grid = n_sms * blocks_per_sm
     n_tables = (_FWD_TABLES if n_inputs == 1
                 else _BWD_TABLES + n_sums - 2)
-    dsz = itemsize if dy_itemsize is None else dy_itemsize
     row_bytes = itemsize if n_inputs == 1 else itemsize + dsz
     # the tables start 16-byte aligned after the rows; a dy of another
     # size starts at the next multiple of its size after x's rows
@@ -266,7 +375,7 @@ def _plan(B: int, n_px: int, C: int, itemsize: int, n_inputs: int,
         parts, rows = split(spc)
         n = n_sums * G                      # sums per slab
         depth = -(-parts // max(1, _THREADS // n)) * -(-n // _THREADS)
-        return dict(grid=grid, group=G, slabs_per_chunk=spc,
+        return dict(path="grid", grid=grid, group=G, slabs_per_chunk=spc,
                     n_chunks=n_chunks, parts=parts, rows_per_part=rows,
                     rows_cap=rows_cap, streaming=rows > rows_cap,
                     grid_reduce=depth > _BLOCK_SUMS_DEPTH)
@@ -303,13 +412,14 @@ class _Config(ctypes.Structure):
         "width", "B", "n_px", "C", "G", "is_bf16", "vec", "leaky", "grid",
         "parts", "rows_per_part", "rows_cap", "slabs_per_chunk",
         "n_chunks", "grid_reduce", "r3", "out_f32", "n_sums",
-        "dy_f32")] + [
+        "dy_f32", "cluster")] + [
             ("slope", ctypes.c_float), ("eps", ctypes.c_float)]
 
 
 _lib: Optional[ctypes.CDLL] = None
-_devices: Dict[int, Tuple[int, int, int]] = {}
-_configs: Dict[tuple, Tuple[_Config, int]] = {}
+_devices: Dict[int, Tuple[int, int, int, int]] = {}
+_configs: Dict[tuple, Tuple[_Config, int, int]] = {}
+_work: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def _library() -> ctypes.CDLL:
@@ -319,7 +429,7 @@ def _library() -> ctypes.CDLL:
         lib = _build.load("instance_norm")
         ptr, cfg = ctypes.c_void_p, ctypes.POINTER(_Config)
         lib.rl_norm_device.restype = ctypes.c_int
-        lib.rl_norm_device.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.rl_norm_device.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
         lib.rl_instance_norm.restype = ctypes.c_int
         lib.rl_instance_norm.argtypes = [ptr] * 6 + [cfg, ptr]
         lib.rl_instance_norm_bwd.restype = ctypes.c_int
@@ -328,13 +438,14 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _device(index: int) -> Tuple[int, int, int]:
-    """(SMs, blocks per SM, shared memory per block) of a card, queried
-    once: ``rl_norm_device`` also raises the kernels' shared-memory
-    limit, which every launch on that card needs."""
+def _device(index: int) -> Tuple[int, int, int, int]:
+    """(SMs, blocks per SM, shared memory per block; the cluster path's
+    shared memory per block) of a card, queried once:
+    ``rl_norm_device`` also raises the kernels' shared-memory limits,
+    which every launch on that card needs."""
     geo = _devices.get(index)
     if geo is None:
-        vals = [ctypes.c_int() for _ in range(3)]
+        vals = [ctypes.c_int() for _ in range(4)]
         with torch.cuda.device(index):
             err = _library().rl_norm_device(*vals)
         if err != 0 or vals[1].value < 1:
@@ -344,13 +455,42 @@ def _device(index: int) -> Tuple[int, int, int]:
     return geo
 
 
+def _pack(p: dict, B: int, n_px: int, C: int, is_bf16: bool, vec: bool,
+          width: int, slope, eps: float, r3: bool, out_f32: bool,
+          dy_f32: bool) -> _Config:
+    """The ``_Config`` of plan ``p``."""
+    n_sums = 4 if dy_f32 else 2
+    common = dict(width=width, B=B, n_px=n_px, C=C, G=p["group"],
+                  is_bf16=int(is_bf16), leaky=int(slope is not None),
+                  grid=p["grid"], r3=int(r3), out_f32=int(out_f32),
+                  n_sums=n_sums, dy_f32=int(dy_f32),
+                  slope=float(slope or 0.0), eps=float(eps))
+    if p["path"] == "cluster":
+        rows = p["rows_per_block"]
+        return _Config(vec=1, parts=p["cluster"], rows_per_part=rows,
+                       rows_cap=rows, slabs_per_chunk=p["slabs"],
+                       n_chunks=1, grid_reduce=0, cluster=p["cluster"],
+                       **common)
+    return _Config(vec=int(vec and p["group"] * (2 if is_bf16 else 4) % 16
+                           == 0),
+                   parts=p["parts"], rows_per_part=p["rows_per_part"],
+                   rows_cap=p["rows_cap"],
+                   slabs_per_chunk=p["slabs_per_chunk"],
+                   n_chunks=p["n_chunks"],
+                   grid_reduce=int(p["grid_reduce"]), cluster=0,
+                   **common)
+
+
 def _config(x: torch.Tensor, n_inputs: int, width: int, slope, eps: float,
             vec: bool, r3: bool = False, out_f32: bool = False,
-            dy_f32: bool = False) -> Tuple[_Config, int]:
-    """The packed scalars of a call on ``x`` and its scratch size in
-    floats, made once per (shape, dtype, device, options).  ``dy_f32``:
-    the r3centered backward at an affine call site (a float32 dy, four
-    sums per (b, c))."""
+            dy_f32: bool = False) -> Tuple[_Config, int, int]:
+    """The packed scalars of a call on ``x``, its scratch size in floats
+    (the grid path's partial sums, fresh each call) and its workspace
+    size in floats (the cluster path's backward at an affine call site:
+    the dgamma/dbeta table, kept per device and stream), made once per
+    (shape, dtype, device, options).  ``dy_f32``: the r3centered
+    backward at an affine call site (a float32 dy, four sums per (b,
+    c)); ``r3`` with ``vec`` may take the cluster path."""
     key = (x.shape, x.dtype, x.device.index, n_inputs, width, slope, eps,
            vec, r3, out_f32, dy_f32)
     hit = _configs.get(key)
@@ -358,20 +498,52 @@ def _config(x: torch.Tensor, n_inputs: int, width: int, slope, eps: float,
         B, H, W, C = x.shape
         isz = x.element_size()
         n_sums = 4 if dy_f32 else 2
-        p = _plan(B, H * W, C, isz, n_inputs, *_device(x.device.index),
+        n_sms, bps, smem, csmem = _device(x.device.index)
+        p = _plan(B, H * W, C, isz, n_inputs, n_sms, bps, smem,
                   parity=width > 0, dy_itemsize=4 if dy_f32 else None,
-                  n_sums=n_sums)
-        cfg = _Config(width, B, H * W, C, p["group"],
-                      int(x.dtype == torch.bfloat16),
-                      int(vec and p["group"] * isz % 16 == 0),
-                      int(slope is not None), p["grid"], p["parts"],
-                      p["rows_per_part"], p["rows_cap"],
-                      p["slabs_per_chunk"], p["n_chunks"],
-                      int(p["grid_reduce"]), int(r3), int(out_f32),
-                      n_sums, int(dy_f32), float(slope or 0.0), float(eps))
-        hit = _configs[key] = (cfg, _scratch_floats(B, C, p["parts"],
-                                                    width > 0, n_sums))
+                  n_sums=n_sums, cluster_smem=csmem if r3 and vec else 0,
+                  out_f32=out_f32)
+        cfg = _pack(p, B, H * W, C, x.dtype == torch.bfloat16, vec, width,
+                    slope, eps, r3, out_f32, dy_f32)
+        if p["path"] == "cluster":
+            hit = (cfg, 0, 4 + B * 2 * C if dy_f32 else 0)
+        else:
+            hit = (cfg, _scratch_floats(B, C, p["parts"], width > 0,
+                                        n_sums), 0)
+        _configs[key] = hit
     return hit
+
+
+def _workspace(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """The cluster path's workspace on ``stream``: an int count (0
+    between launches: the kernel that raises it to the slab count resets
+    it) and the dgamma/dbeta table.  One per device and stream, so two
+    streams never share a count; made once, larger when a call needs
+    more."""
+    key = (device.index, stream)
+    w = _work.get(key)
+    if w is None or w.numel() < n:
+        w = _work[key] = torch.zeros(max(n, 1 << 14), dtype=torch.float32,
+                                     device=device)
+    return w
+
+
+def batch_order_sums(table: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dβ, dγ) from the cluster path's (B, 2, C) table of per-slab sums
+    (dz, dz·n): the slabs added over b in batch order, as the last slab
+    of a call adds them (csrc/instance_norm.cu ``cluster_bwd``, its
+    tail), whichever slab finishes last."""
+    dbeta, dgamma = table[0, 0].clone(), table[0, 1].clone()
+    for b in range(1, table.shape[0]):
+        dbeta = dbeta + table[b, 0]
+        dgamma = dgamma + table[b, 1]
+    return dbeta, dgamma
+
+
+def _stream(index: int) -> int:
+    """The raw handle of the current stream on card ``index``."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _check_input(x: torch.Tensor, name: str):
@@ -435,15 +607,15 @@ def instance_norm_cuda(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                               or not stats.is_contiguous()):
         raise ValueError(f"stats must be contiguous float32 ({B}, {C}, 3)")
     out_f32 = r3centered and scale is not None
-    cfg, n_scratch = _config(x, 1, W if parity else 0, slope, eps,
-                             x.data_ptr() % 16 == 0, r3centered, out_f32)
+    cfg, n_scratch, _ = _config(x, 1, W if parity else 0, slope, eps,
+                                x.data_ptr() % 16 == 0, r3centered, out_f32)
     out = torch.empty(x.shape, device=x.device,
                       dtype=torch.float32 if out_f32 else x.dtype)
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+    scratch = (torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+               if n_scratch else None)     # the grid path's partial sums
     err = _library().rl_instance_norm(
         x.data_ptr(), out.data_ptr(), _ptr(scale), _ptr(bias), _ptr(stats),
-        scratch.data_ptr(), ctypes.byref(cfg),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _ptr(scratch), ctypes.byref(cfg), _stream(x.device.index))
     if err != 0:
         raise RuntimeError(f"rl_instance_norm launch failed: CUDA error {err}")
     if parity:
@@ -489,17 +661,21 @@ def instance_norm_bwd_cuda(x: torch.Tensor, dy: torch.Tensor,
             or stats.device != x.device or not stats.is_contiguous()):
         raise ValueError(f"stats must be contiguous float32 ({B}, {C}, 3)")
     aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
-    cfg, n_scratch = _config(x, 2, 0, slope, 0.0, aligned, r3centered,
-                             dy_f32=dy_f32)
+    cfg, n_scratch, n_work = _config(x, 2, 0, slope, 0.0, aligned,
+                                     r3centered, dy_f32=dy_f32)
     dx = torch.empty_like(x)
     dscale = torch.empty_like(scale) if scale is not None else None
     dbias = torch.empty_like(bias) if bias is not None else None
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+    stream = _stream(x.device.index)
+    if n_scratch:       # the grid path's partial sums
+        scratch = torch.empty(n_scratch, dtype=torch.float32,
+                              device=x.device)
+    else:               # the cluster path's dgamma/dbeta table, or none
+        scratch = _workspace(x.device, stream, n_work) if n_work else None
     err = _library().rl_instance_norm_bwd(
         x.data_ptr(), dy.data_ptr(), stats.data_ptr(), _ptr(scale),
-        _ptr(bias), dx.data_ptr(), _ptr(dscale), _ptr(dbias),
-        scratch.data_ptr(), ctypes.byref(cfg),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _ptr(bias), dx.data_ptr(), _ptr(dscale), _ptr(dbias), _ptr(scratch),
+        ctypes.byref(cfg), stream)
     if err != 0:
         raise RuntimeError(
             f"rl_instance_norm_bwd launch failed: CUDA error {err}")

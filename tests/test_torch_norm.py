@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as CS
 from _torch_parity import single_thread  # noqa: F401
 from renderloom.models.layers import LEAKY_SLOPE, instance_norm, leaky
 from renderloom.ops.norm_pallas import instance_norm_fused
@@ -183,3 +184,126 @@ def test_plan_covers_every_element_once(shape, kind, dtype):
                             kind == "parity", dy_itemsize, n_sums)
             if grid == H100:
                 assert p["streaming"] == (kind == "stream"), p
+
+
+# The shared memory a cluster-path block may take on the same two cards
+# (rl_norm_device): half of the H100's 228 KB of shared memory per SM
+# less the runtime's 1 KB per block, and half of 164 KB per SM.
+CLUSTER_SMEM = {H100: 233472 // 2 - 1024, GRIDS[1]: 167936 // 2 - 1024}
+
+# The r3centered calls of a shape: (x's inputs, dy's bytes, sums per
+# (b, c), float32 output) of K2 without and with affine, K2b without
+# affine (bf16 dy) and at an affine call site (float32 dy).
+R3_CALLS = ((1, None, 2, False), (1, None, 2, True), (2, None, 2, False),
+            (2, 4, 4, False))
+# The path of each on the H100 (the key of
+# test_cluster_plan_covers_every_element_once).  Every slab of 80x120
+# pixels or fewer takes the cluster path; the 160x240 and 320x480 ones
+# keep the grid path.
+R3_PATHS_H100 = {shape: ("grid",) * 4 for shape in (
+    (7, 320, 480, 32), (7, 320, 480, 16), (7, 160, 240, 64),
+    (7, 160, 240, 32), (4, 320, 480, 32), (4, 160, 240, 64),
+    (4, 320, 480, 16), (4, 160, 240, 32))}
+
+
+def _check_cluster_plan(shape, n_inputs, dy_itemsize, n_sums, out_f32,
+                        grid):
+    """The plan of an r3centered call with the cluster path allowed: on
+    the cluster path every (b, c, pixel) lies in exactly one block (the
+    kernel's struct CBlock), a cluster has 1-8 blocks, every block has
+    pixels, and the shared memory a block needs is what the plan
+    reserves, within the card's budget."""
+    B, H, W, C = shape
+    n_px = H * W
+    csmem = CLUSTER_SMEM[grid]
+    p = norm_kernel._plan(B, n_px, C, 2, n_inputs, *grid,
+                          dy_itemsize=dy_itemsize, n_sums=n_sums,
+                          cluster_smem=csmem, out_f32=out_f32)
+    if p["path"] == "grid":
+        return p
+    G, k, rows = p["group"], p["cluster"], p["rows_per_block"]
+    assert G in (16, 32, 64, 128) and C % G == 0
+    assert 1 <= k <= 8
+    assert rows * k >= n_px and rows <= norm_kernel._C_MAX_ROWS
+    threads = 256 if n_inputs == 2 or out_f32 else 512
+    assert p["threads"] == threads
+    assert p["smem"] == norm_kernel._cluster_smem(rows, G, n_inputs == 2,
+                                                  n_sums, k, threads)
+    assert p["smem"] <= csmem
+    ng = C // G
+    assert p["grid"] == B * ng * k and p["slabs"] == B * ng
+    cover = np.zeros((B, ng, n_px), np.int16)
+    for blk in range(p["grid"]):        # the kernel's struct CBlock
+        s, rank = divmod(blk, k)
+        p0 = rank * rows
+        nr = max(0, min(n_px, p0 + rows) - p0)
+        assert nr > 0
+        cover[s // ng, s % ng, p0:p0 + nr] += 1
+    np.testing.assert_array_equal(cover, 1)
+    return p
+
+
+@pytest.mark.parametrize("shape", SERVE_SHAPES + TRAIN_SHAPES)
+def test_cluster_plan_covers_every_element_once(shape):
+    """``_plan``'s cluster path at every bf16 main-path shape, forward
+    (bf16 and float32 output) and backward (bf16 dy; float32 dy with
+    four sums), on both cards; on the H100 the path of each call is the
+    one ``R3_PATHS_H100`` lists (the cluster path where it lists
+    nothing)."""
+    for grid in GRIDS:
+        paths = tuple(_check_cluster_plan(shape, *call, grid)["path"]
+                      for call in R3_CALLS)
+        if grid == H100:
+            assert paths == R3_PATHS_H100.get(shape, ("cluster",) * 4)
+
+
+def test_cluster_plan_main_path_counts():
+    """On the H100 the cluster path takes 108 of a bf16 standard clip's
+    162 r3centered forwards, 312 of a bf16 step's 380 and 228 of its 276
+    backwards (the calls per clip and step that chip_smoke.py phases R
+    and B2 hold the main path to, by shape)."""
+    serve = {}
+    for (shape, _, _), n in CS.R3_CLIP_CALLS.items():
+        serve[shape] = serve.get(shape, 0) + n
+    assert set(serve) == set(SERVE_SHAPES)
+    on_cluster = lambda shape, i: (
+        R3_PATHS_H100.get(shape, ("cluster",) * 4)[i] == "cluster")
+    assert sum(serve.values()) == 162
+    assert sum(n for s, n in serve.items() if on_cluster(s, 0)) == 108
+    for shape in serve:
+        for i in (0, 1):
+            assert _check_cluster_plan(shape, *R3_CALLS[i], H100)["path"] \
+                == ("cluster" if on_cluster(shape, i) else "grid")
+    # per training step: (forwards, backwards without and with affine)
+    step = {}
+    for calls, i in ((CS.R3_STEP_FWD_CALLS, 0), (CS.R3_STEP_BWD_CALLS, 1)):
+        for (shape, affine, _), n in calls.items():
+            f = step.setdefault(shape, [0, 0, 0])
+            f[i + (i and affine)] += n
+    assert set(step) == set(TRAIN_SHAPES)
+    assert sum(f for f, _, _ in step.values()) == 380
+    assert sum(b + a for _, b, a in step.values()) == 276
+    assert sum(f for s, (f, _, _) in step.items() if on_cluster(s, 0)) == 312
+    assert sum(b * on_cluster(s, 2) + a * on_cluster(s, 3)
+               for s, (_, b, a) in step.items()) == 228
+
+
+def test_dparams_summed_in_batch_order():
+    """The cluster path's dgamma/dbeta: the slabs' sums added over b in
+    batch order (``batch_order_sums``, the kernel's tail), whichever
+    slab finishes last: left to right in float32, bit for bit, on sums
+    where the order changes the result."""
+    rng = np.random.default_rng(14)
+    B, C = 8, 48
+    table = (rng.normal(size=(B, 2, C))
+             * 10.0 ** rng.integers(-4, 8, size=(B, 2, C))).astype(np.float32)
+    dbeta, dgamma = norm_kernel.batch_order_sums(torch.from_numpy(table))
+    want = np.zeros((2, C), np.float32)
+    for b in range(B):
+        want = want + table[b]
+    np.testing.assert_array_equal(dbeta.numpy(), want[0])
+    np.testing.assert_array_equal(dgamma.numpy(), want[1])
+    other = np.zeros((2, C), np.float32)
+    for b in reversed(range(B)):
+        other = other + table[b]
+    assert (other != want).any()    # the data tells the orders apart
