@@ -1,0 +1,8 @@
+"""Share of the bf16 serving loop's profiled stretch with no kernel, copy or
+memset running on the device."""
+
+from rlbench.metrics._layer import idle_pct
+
+
+def read(ctx, data):
+    return idle_pct(ctx)
