@@ -1073,10 +1073,13 @@ def _stage_times(fn_parts, motion, conf, keys, rate, K, **prep_kwargs):
     return times, batch
 
 
-def _profile(fn, args) -> str:
+def _profile(fn, args, stages=()) -> str:
     """One profiled run: device time by kernel, and the kernels' busy
     share of the run's wall time (CUPTI's own buffer activity left
-    out)."""
+    out).  With ``stages`` (span names the program marks, e.g.
+    ``rlbench.stages.TRAIN``) the run's Chrome trace reduced through
+    ``rlbench.stages.split`` follows those two lines: device busy and
+    idle ms, launches, syncs and spans per stage and outside them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1114,6 +1117,12 @@ def _profile(fn, args) -> str:
              f"device busy (union of kernel intervals) {union:.2f} ms of a "
              f"{span:.2f} ms span from first kernel to last: idle share "
              f"{100 * (1 - union / max(span, 1e-9)):.1f}%"]
+    if stages:
+        lines.append("stages: device ms busy, idle; launches, syncs, spans")
+        for name, v in _stage_split(prof, wall / 1e3, stages).items():
+            lines.append(f"  {name:>14} {v['busy_s'] * 1e3:9.2f} "
+                         f"{v['idle_s'] * 1e3:9.2f} {v['launches']:7d} "
+                         f"{v['syncs']:4d} {v['spans']:3d}")
     for e in rows[:25]:
         lines.append(f"  {dev(e):10.3f} ms  {e.count:6d}x  {e.key[:110]}")
     # which convolutions the device time goes to, by input shapes
@@ -1127,6 +1136,19 @@ def _profile(fn, args) -> str:
         lines.append(f"  {total(e):10.3f} ms  {e.count:4d}x  "
                      f"{e.input_shapes[:2]}")
     return "\n".join(lines)
+
+
+def _stage_split(prof, wall_s: float, stages) -> dict:
+    """``prof``'s Chrome trace through ``rlbench.stages.split``."""
+    import tempfile
+
+    from rlbench.stages import split
+    from rlbench.trace import reduce_trace
+
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    prof.export_chrome_trace(path)
+    return split(reduce_trace(path, wall_s), stages)
 
 
 def derived_fast_launches(cfg, packed_levels: int, bf16: bool = False
@@ -2799,20 +2821,10 @@ def phase_train(cfg=None, tag="C", profile_name="train_profile.txt"):
     n_d = sum(p.numel() for p in state.dis.parameters())
     print(f"  built G ({n_g:,} params), D ({n_d:,}), VGG19 in "
           f"{time.perf_counter() - tic:.1f} s")
-    stages = Counter()
-    clock = [0.0]
-
-    def on_stage(name):
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        stages[name] += (now - clock[0]) * 1e3
-        clock[0] = now
-
     step = make_gan_train_step(cfg, vgg, data_cfg=d)
-    timed_step = make_gan_train_step(cfg, vgg, data_cfg=d, on_stage=on_stage)
     rng = np.random.default_rng(0)
     batches = [{k: torch.from_numpy(v).cuda() for k, v in raw.items()}
-               for raw in synthetic_batches(rng, 6, B, L, d.load_height,
+               for raw in synthetic_batches(rng, 5, B, L, d.load_height,
                                             d.load_width)]
     before = _snapshot(state)
 
@@ -2867,18 +2879,14 @@ def phase_train(cfg=None, tag="C", profile_name="train_profile.txt"):
           f"{peak / 2 ** 30:.2f} GiB; SM clock, power, temperature right "
           f"after: {card_state()})")
 
-    torch.cuda.synchronize()
-    clock[0] = time.perf_counter()
-    timed_step(state, batches[4])
-    n_fr = L - 2
-    print("  stages of one step (ms, synchronised): " + ", ".join(
-        f"{k} {v:.2f}" for k, v in stages.items())
-        + f" ({n_fr} frames; g_forward, d_step, g_step summed over them)")
-    prof = _profile(step, (state, batches[5]))
+    from rlbench.stages import TRAIN
+
+    # the step's stages (g_forward, d_step, g_step over its L − 2 frames)
+    prof = _profile(step, (state, batches[4]), TRAIN)
     _write(profile_name, prof)
     print("  " + "\n  ".join(prof.splitlines()[:14]))
     return dict(launches=launches, fwd=fwd, bwd=bwd, wps=wps,
-                stages=dict(stages), peak_gib=peak / 2 ** 30,
+                peak_gib=peak / 2 ** 30,
                 step_ms=[r * 1e3 for r in runs], idle=_idle_share(prof),
                 per_step=want)
 

@@ -25,6 +25,7 @@ from renderloom_torch.ops.image import separable_resize
 from renderloom_torch.train.gan import (make_inference_pair,
                                         make_segment_rollout,
                                         set_float32_precision)
+from renderloom_torch.utils.profiling import annotate
 
 
 def assemble_keyframe_stream(keys: torch.Tensor, rate: int) -> torch.Tensor:
@@ -62,6 +63,9 @@ def make_pipeline_fn(interp: MotionInterpolator, rollout: Callable,
     ``packed_label`` / ``label_bf16``: the label stream parity-packed
     (B, L, H/2, W/2, 88) / stored in bf16, for a rollout over the
     parity-layout generator (:func:`build_pipeline` ``fastpath``).
+    Under a profiler the stages are the spans ``pipeline.motion``,
+    ``pipeline.background``, ``pipeline.label`` and ``pipeline.rollout``
+    (:func:`renderloom_torch.utils.profiling.annotate`).
     """
     H, W = data_cfg.model_height, data_cfg.model_width
     L = (keyframes - 1) * rate + 1
@@ -69,24 +73,30 @@ def make_pipeline_fn(interp: MotionInterpolator, rollout: Callable,
     interp_pad = bucket_length(L, rate)
 
     def body(motion: torch.Tensor, conf: torch.Tensor, keys: torch.Tensor):
-        if src_size is not None:
-            keys = separable_resize(keys, H, W)
-        pred, _, dconf = interp._run(motion, conf, rate, times, interp_pad)
-        # one clip at a time, as the JAX pipeline's lax.map: the flow
-        # temporaries of one clip are live at once, not all clips'
-        backs = torch.stack([upsample_background(k, rate, **FLOW)
-                             for k in keys])
-        poses = torch.cat([pred[..., :L] * 256 + 256, dconf], dim=2)
-        poses = poses.permute(0, 3, 1, 2).float()
-        images = assemble_keyframe_stream(keys * 255.0, rate)
-        prep = prepare_batch({"images": images, "dain": backs * 255.0,
-                              "poses": poses}, data_cfg,
-                             label_dtype=torch.bfloat16 if label_bf16
-                             else None, packed_label=packed_label,
-                             want_masks=False)
-        fused, _ = rollout({"label": prep["label"], "back": prep["back"],
-                            "key_img": prep["image"]})
-        return fused, fused.sum() * 1e-20
+        with annotate("pipeline.motion"):
+            if src_size is not None:
+                keys = separable_resize(keys, H, W)
+            pred, _, dconf = interp._run(motion, conf, rate, times,
+                                         interp_pad)
+        with annotate("pipeline.background"):
+            # one clip at a time, as the JAX pipeline's lax.map: the flow
+            # temporaries of one clip are live at once, not all clips'
+            backs = torch.stack([upsample_background(k, rate, **FLOW)
+                                 for k in keys])
+        with annotate("pipeline.label"):
+            poses = torch.cat([pred[..., :L] * 256 + 256, dconf], dim=2)
+            poses = poses.permute(0, 3, 1, 2).float()
+            images = assemble_keyframe_stream(keys * 255.0, rate)
+            prep = prepare_batch({"images": images, "dain": backs * 255.0,
+                                  "poses": poses}, data_cfg,
+                                 label_dtype=torch.bfloat16 if label_bf16
+                                 else None, packed_label=packed_label,
+                                 want_masks=False)
+        with annotate("pipeline.rollout"):
+            fused, _ = rollout({"label": prep["label"],
+                                "back": prep["back"],
+                                "key_img": prep["image"]})
+            return fused, fused.sum() * 1e-20
 
     pipeline = torch.inference_mode()(body)
     pipeline.body = body        # what PipelineModule traces

@@ -50,6 +50,7 @@ from renderloom_torch.train.gan_losses import (feature_matching_loss,
                                                mask_regulation_loss,
                                                masked_l1_image)
 from renderloom_torch.train.schedules import step_schedule
+from renderloom_torch.utils.profiling import annotate
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -352,9 +353,7 @@ def g_gan_losses(d_out: Dict, mode: str, weights: Dict[str, float],
 
 
 def make_gan_train_step(cfg: RendererConfig, perceptual: PerceptualLoss,
-                        data_cfg=None,
-                        on_stage: Optional[Callable[[str], None]] = None
-                        ) -> Callable:
+                        data_cfg=None) -> Callable:
     """The multi-frame train step ``train_step(state, batch) ->
     metrics``.
 
@@ -375,10 +374,13 @@ def make_gan_train_step(cfg: RendererConfig, perceptual: PerceptualLoss,
     block, the optimizers average the gradients over the ranks, and the
     metrics are global-batch means.
 
-    ``on_stage(name)``, when given, is called as each stage ends:
-    ``"prep"`` once, then per frame ``"g_forward"``, ``"d_step"`` and
-    ``"g_step"`` (a profiler synchronises and reads its clock there)."""
-    stage = on_stage or (lambda name: None)
+    Under a profiler the stages are spans
+    (:func:`renderloom_torch.utils.profiling.annotate`): ``gan.prep``
+    once (the draws, the preparation and the casts to the compute
+    dtype), then per trained frame ``gan.g_forward`` (G and the
+    composite), ``gan.d_step`` (D, its losses, gradients and update) and
+    ``gan.g_step`` (G's losses through D and VGG, gradients and update).
+    """
     cdtype = torch_dtype(cfg.compute_dtype)
     mode = cfg.gan_mode
     weights = _weights_dict(cfg)
@@ -418,29 +420,29 @@ def make_gan_train_step(cfg: RendererConfig, perceptual: PerceptualLoss,
                    prev_fuse: torch.Tensor):
         gen, dis = state.gen, state.dis
         label, back, real, fg = xs["label"], xs["back"], xs["real"], xs["fg"]
-        # one G forward with update_stats, kept for the G backward
-        img, mask = gen(label, xs["label_prev"], back, prev_fuse.detach(),
+        with annotate("gan.g_forward"):
+            # one G forward with update_stats, kept for the G backward
+            img, mask = gen(label, xs["label_prev"], back,
+                            prev_fuse.detach(), update_stats=True)
+            fuse = composite(img, mask, back)
+
+        with annotate("gan.d_step"):
+            # D update (old D, detached G outputs)
+            d_out = dis(label, real, fuse.detach(), img.detach(), fg,
                         update_stats=True)
-        fuse = composite(img, mask, back)
-        stage("g_forward")
+            # the frame's counts over the global batch (data parallel),
+            # which the G update's discriminator pass shares
+            counts = count_shares(d_out, fg, img)
+            d_total, d_per_key = d_losses(d_out, mode, weights, counts)
+            state.opt_d.step(torch.autograd.grad(
+                d_total, state.opt_d.params, materialize_grads=True))
 
-        # D update (old D, detached G outputs)
-        d_out = dis(label, real, fuse.detach(), img.detach(), fg,
-                    update_stats=True)
-        # the frame's counts over the global batch (data parallel), which
-        # the G update's discriminator pass shares
-        counts = count_shares(d_out, fg, img)
-        d_total, d_per_key = d_losses(d_out, mode, weights, counts)
-        state.opt_d.step(torch.autograd.grad(d_total, state.opt_d.params,
-                                             materialize_grads=True))
-        stage("d_step")
-
-        # G update through the updated D, into G only
-        g_total, fused, metrics = g_loss(dis, label, real, fg, back, img,
-                                         mask, counts)
-        state.opt_g.step(torch.autograd.grad(g_total, state.opt_g.params,
-                                             materialize_grads=True))
-        stage("g_step")
+        with annotate("gan.g_step"):
+            # G update through the updated D, into G only
+            g_total, fused, metrics = g_loss(dis, label, real, fg, back,
+                                             img, mask, counts)
+            state.opt_g.step(torch.autograd.grad(
+                g_total, state.opt_g.params, materialize_grads=True))
         metrics["d/total"] = d_total
         for k, v in d_per_key.items():
             metrics[f"d/{k}"] = v
@@ -448,20 +450,21 @@ def make_gan_train_step(cfg: RendererConfig, perceptual: PerceptualLoss,
 
     def train_step(state: GanTrainState, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
-        if data_cfg is not None:
-            b, F = batch["images"].shape[:2]
-            dev = batch["images"].device
-            # the global batch's draws; this rank's block of them
-            B = b * world()[1]
-            draws = shard_batch(draw_train_randomness(state.rng, B, F,
-                                                      data_cfg), B)
-            batch = prepare_batch(batch, data_cfg,
-                                  {k: v.to(dev) for k, v in draws.items()})
-            stage("prep")
-        # (L, B, ...), cast to the compute dtype once
-        tm = lambda x: x.transpose(0, 1).to(cdtype)
-        label, image = tm(batch["label"]), tm(batch["image"])
-        back, fg = tm(batch["back"]), tm(batch["fg_mask"])
+        with annotate("gan.prep"):
+            if data_cfg is not None:
+                b, F = batch["images"].shape[:2]
+                dev = batch["images"].device
+                # the global batch's draws; this rank's block of them
+                B = b * world()[1]
+                draws = shard_batch(draw_train_randomness(
+                    state.rng, B, F, data_cfg), B)
+                batch = prepare_batch(
+                    batch, data_cfg,
+                    {k: v.to(dev) for k, v in draws.items()})
+            # (L, B, ...), cast to the compute dtype once
+            tm = lambda x: x.transpose(0, 1).to(cdtype)
+            label, image = tm(batch["label"]), tm(batch["image"])
+            back, fg = tm(batch["back"]), tm(batch["fg_mask"])
         L = label.shape[0]
         prev_fuse = image[0]
         per_frame: List[Dict[str, torch.Tensor]] = []

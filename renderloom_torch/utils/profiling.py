@@ -1,4 +1,4 @@
-"""Tracing and step timing.
+"""Tracing.
 
 Port of the JAX package's ``renderloom/utils/profiling.py``:
 
@@ -6,20 +6,31 @@ Port of the JAX package's ``renderloom/utils/profiling.py``:
   CUDA device) over a block of steps, written to ``log_dir`` as a Chrome
   trace (``trace_<n>.json``, open it in Perfetto or ``chrome://tracing``)
   with the kernel-time table beside it (``key_averages_<n>.txt``);
-* :func:`annotate` — a named span in that trace
-  (``torch.profiler.record_function``), so host stages show up beside
-  device work;
-* :class:`StepTimer` — an exponential-moving-average step timer.
+* :func:`annotate` — a named span in that trace, so host stages show up
+  beside device work.
+
+The port's hot paths carry these spans, so a trace of them (the training
+CLIs' ``--profile-dir``, or any ``torch.profiler`` session) shows:
+
+* a serving request (``eval/pipeline.py:make_pipeline_fn``):
+  ``pipeline.motion`` (the motion transformer), ``pipeline.background``
+  (Lucas-Kanade backgrounds), ``pipeline.label`` (poses, keyframe stream
+  and the rasterized label) and ``pipeline.rollout`` (the generator's
+  rollout and compositing), once each, in that order;
+* a renderer train step (``train/gan.py:make_gan_train_step``):
+  ``gan.prep`` once (on raw windows), then per trained frame
+  ``gan.g_forward``, ``gan.d_step`` and ``gan.g_step``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Iterator, Optional
+from typing import ContextManager, Iterator
 
 import torch
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -42,30 +53,17 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
         f.write(prof.key_averages().table(sort_by=sort, row_limit=40))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Named span inside an active trace."""
-    with torch.profiler.record_function(name):
-        yield
+def annotate(name: str) -> ContextManager:
+    """``with annotate(name):`` a named span over the block while a
+    profiler records, on the host timeline of the trace its kernels are
+    in; it neither synchronises nor adds a device op.  While none
+    records it is one shared ``nullcontext`` after a single flag check,
+    so ``torch.export`` (which traces with no profiler on) sees nothing.
 
-
-class StepTimer:
-    """Exponential-moving-average step timer."""
-
-    def __init__(self, alpha: float = 0.1):
-        self.alpha = alpha
-        self.ema: Optional[float] = None
-        self._last: Optional[float] = None
-
-    def tick(self) -> Optional[float]:
-        """Call once per step; returns the EMA step seconds."""
-        now = time.perf_counter()
-        if self._last is not None:
-            dt = now - self._last
-            self.ema = dt if self.ema is None else \
-                (1 - self.alpha) * self.ema + self.alpha * dt
-        self._last = now
-        return self.ema
-
-    def rate(self, items: int = 1) -> Optional[float]:
-        return None if not self.ema else items / self.ema
+    The span is a function-scope record (``RecordFunctionFast``): the
+    trace lists it as a host operation (category ``cpu_op``) named
+    ``name``, which costs a fraction of ``record_function``'s
+    user-annotation (that one dispatches two profiler operators)."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)

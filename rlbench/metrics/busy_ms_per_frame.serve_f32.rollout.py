@@ -1,0 +1,9 @@
+"""Device busy time (the union of its kernels, copies and memsets) of the
+serving pipeline's ``pipeline.rollout`` stage in float32 serving's
+profiled stretch, in ms per frame (:mod:`rlbench.stages`)."""
+
+from rlbench.stages import SERVE, per_unit
+
+
+def read(ctx, data):
+    return per_unit(ctx, "pipeline.rollout", SERVE, "busy_s", 1e3)

@@ -1,0 +1,9 @@
+"""Device busy time (the union of its kernels, copies and memsets) of the
+renderer train step's ``gan.g_forward`` stage in the training loop's
+profiled stretch, in ms per window (:mod:`rlbench.stages`)."""
+
+from rlbench.stages import TRAIN, per_unit
+
+
+def read(ctx, data):
+    return per_unit(ctx, "gan.g_forward", TRAIN, "busy_s", 1e3)
