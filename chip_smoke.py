@@ -74,6 +74,20 @@ H. runs both serving configurations in bf16 at full width on phase 4's
    transformer, or only the renderer, in bf16), and the cuDNN kernels
    of the (7, 256, 80, 120) → 128 3×3 convolution in float32 and in
    bf16;
+UC. holds the fused nearest ×2 upsample and 3×3 float32 convolution
+   (``csrc/upconv.cu``) against its twin (1e-5 + 1e-5·|ref|) and
+   against float64 upsample-then-conv (its error no larger than cuDNN's
+   float32 path's) at the mask net's up2, up1 and up0 shapes and a
+   ragged one, two calls bit for bit, one launch a call; times kernel,
+   cuDNN's upsample-then-conv and twin in turns beside the bound in 4
+   and in 9 taps, and fails where the kernel is slower than cuDNN at
+   up2, up1 or up0, or at up2 takes over 0.8 ms or under 33% of its
+   4-tap bound; lists every ``F.conv2d`` call of one float32 standard
+   clip with cuDNN's kernels and ms (``upconv_convs.txt``).  Every
+   phase that counts K1 and K2 launches counts the kernel's too and
+   holds them against the module structure: 3 a float32 standard
+   generator step in inference (9 a clip at rate 4), none in bf16, on
+   the fastpath or in a training step;
 R. holds K2's r3centered mode against its twin at every shape the bf16
    standard run gave it (recorded by a call hook) to one bf16 ulp of n
    (× |γ|), with at most 0.01% of elements not bit-equal; prints each
@@ -994,6 +1008,15 @@ def _count_norms(module) -> int:
                for m in module.modules())
 
 
+def _count_upconvs(module) -> int:
+    """``csrc/upconv.cu`` launches per float32 inference call of
+    ``module``: one per up block of each standard mask net."""
+    from renderloom_torch.models.renderer import MaskGenerator
+
+    return sum(m.num_downsamples for m in module.modules()
+               if isinstance(m, MaskGenerator))
+
+
 def _norm_kind_recorder(seen: Counter):
     """Swap ``norm_kernel.instance_norm`` (which both generators' modules
     call) for a recorder of each call's (shape, dtype, affine, slope,
@@ -1191,15 +1214,18 @@ def derived_fast_launches(cfg, packed_levels: int, bf16: bool = False
 
 
 def _serve_launches() -> dict:
-    """Launch counts of a serving run, K1 by layout and K2 by kind."""
+    """Launch counts of a serving run, K1 by layout, K2 by kind and the
+    fused up convolution."""
     from renderloom_torch.ops import norm_kernel as NK
     from renderloom_torch.ops import rasterize_kernel as RK
+    from renderloom_torch.ops import upconv_kernel as UK
 
     by = RK.rasterize_tables_cuda.layout_launches
     return {"rasterize": by["nhwc"], "rasterize_packed": by["packed"],
             "instance_norm": NK.instance_norm_cuda.launches,
             "instance_norm_parity": NK.instance_norm_cuda.parity_launches,
-            "instance_norm_r3": NK.instance_norm_cuda.r3_launches}
+            "instance_norm_r3": NK.instance_norm_cuda.r3_launches,
+            "upconv": UK.upconv_cuda.launches}
 
 
 def _sum_shapes(kernel, per, shapes, inputs, check, times,
@@ -1271,11 +1297,13 @@ def phase_pipeline():
     torch.cuda.synchronize()
     launches = _serve_launches()
     want_norms = _count_norms(gen) * (rate - 1)
+    want_up = _count_upconvs(gen) * (rate - 1)
     print(f"  launches in one run: {launches} (K2 expected {want_norms} = "
-          f"{_count_norms(gen)} per generator step x {rate - 1} steps)")
+          f"{_count_norms(gen)} per generator step x {rate - 1} steps, "
+          f"upconv {want_up} = {_count_upconvs(gen)} x {rate - 1})")
     if launches != {"rasterize": 1, "rasterize_packed": 0,
                     "instance_norm": want_norms, "instance_norm_parity": 0,
-                    "instance_norm_r3": 0}:
+                    "instance_norm_r3": 0, "upconv": want_up}:
         raise AssertionError(f"kernel launches {launches}")
     if sum(seen.values()) != want_norms:
         raise AssertionError(f"recorded {sum(seen.values())} norms")
@@ -1342,10 +1370,13 @@ def _dev_ms(e) -> float:
 
 
 def _conv_kernels(x_nhwc_shape, weight: torch.Tensor,
-                  benchmark: bool = False):
+                  benchmark: bool = False, stride: int = 1, padding=None,
+                  groups: int = 1, nhwc: bool = True):
     """(kernel names with device ms of one profiled call, CUDA-event ms of
     one call) of the NHWC conv the port runs: ``F.conv2d`` on the NCHW
-    view of an NHWC tensor in the weight's dtype, symmetric padding.  ``benchmark``: with
+    view of an NHWC tensor in the weight's dtype, symmetric padding
+    (``padding``, default ``(k − 1) // 2``; ``nhwc=False``: a contiguous
+    NCHW tensor of the same sizes).  ``benchmark``: with
     ``torch.backends.cudnn.benchmark`` on for this call only (the port
     leaves it off)."""
     from torch.autograd import DeviceType
@@ -1354,8 +1385,10 @@ def _conv_kernels(x_nhwc_shape, weight: torch.Tensor,
     weight = weight.detach()
     x = torch.randn(x_nhwc_shape, device="cuda",
                     dtype=weight.dtype).permute(0, 3, 1, 2)
-    pad = (weight.shape[-1] - 1) // 2
-    f = lambda: F.conv2d(x, weight, None, 1, pad)
+    if not nhwc:
+        x = x.contiguous()
+    pad = (weight.shape[-1] - 1) // 2 if padding is None else padding
+    f = lambda: F.conv2d(x, weight, None, stride, pad, 1, groups)
     before = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = benchmark
     try:
@@ -1498,7 +1531,7 @@ def phase_fastpath(serve):
     torch.cuda.synchronize()
     launches = _serve_launches()
     per = derived_fast_launches(rcfg.gen, gen.packed_levels)
-    want = {"rasterize": 0, "rasterize_packed": 1,
+    want = {"rasterize": 0, "rasterize_packed": 1, "upconv": 0,
             **{k: v * (rate - 1) for k, v in per.items()}}
     print(f"  launches in one run: {launches}; derived {want} ({per} per "
           f"generator step x {rate - 1} steps)")
@@ -1958,7 +1991,7 @@ def phase_bf16(serve, fast, conv_lines):
             per = {"instance_norm": 0, "instance_norm_parity": 0,
                    "instance_norm_r3": _count_norms(gen)}
         want = {"rasterize": 0 if fastpath else 1,
-                "rasterize_packed": 1 if fastpath else 0,
+                "rasterize_packed": 1 if fastpath else 0, "upconv": 0,
                 **{k: v * (rate - 1) for k, v in per.items()}}
         print(f"  {name}: launches in one run {launches}; derived {want} "
               f"({per} per generator step x {rate - 1} steps)")
@@ -2024,6 +2057,176 @@ def phase_bf16(serve, fast, conv_lines):
         raise AssertionError("the mask net's up2 is not the FFT shape")
     print("  " + "\n  ".join(conv_lines))
     return out
+
+
+# ---------------------------------------------------------------------------
+# UC. the fused nearest x2 upsample and 3x3 float32 convolution
+# ---------------------------------------------------------------------------
+
+# (name, (B, h, w, Cin), Cout): the standard mask net's up2, up1 and up0 at
+# the rollout's B = 7 (the input before its upsample), and a ragged shape
+# (odd sides, Cin not a multiple of 4: the kernel's 4-byte copies; Cout
+# no tile's width).  Tolerance against the twin: 1e-5 + 1e-5·|ref|, the
+# two summing the same 4·Cin products (outputs of order 1) in other
+# orders.
+UPCONV_CASES = [("up2", (7, 40, 60, 256), 128),
+                ("up1", (7, 80, 120, 128), 64),
+                ("up0", (7, 160, 240, 64), 32),
+                ("ragged", (3, 13, 21, 30), 45)]
+
+
+def _upconv_inputs(shape, cout: int, seed: int):
+    """x, a 3x3 weight at the random init's scale (1/√fan-in) and a bias,
+    on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, device="cuda", generator=g)
+    w = torch.randn((cout, shape[-1], 3, 3), device="cuda",
+                    generator=g) / float(np.sqrt(9 * shape[-1]))
+    b = torch.randn(cout, device="cuda", generator=g) / 10
+    return x, w, b
+
+
+def _upsample_conv(x, w, b):
+    """The unfused path: ``upsample2x``, then ``F.conv2d`` on the NCHW view
+    (cuDNN; TF32 off), NHWC out."""
+    from renderloom_torch.models.layers import upsample2x
+
+    return F.conv2d(upsample2x(x).permute(0, 3, 1, 2), w, b, 1,
+                    1).permute(0, 2, 3, 1)
+
+
+def upconv_ops(shape, cout: int):
+    """fp32 operations of one call, 2 a multiply-add: the kernel's 4 taps
+    an output at (B, 2h, 2w), and the unfused convolution's 9 (what
+    ``mfu_pct`` counts)."""
+    B, h, w, cin = shape
+    return (2 * B * h * w * 4 * 4 * cin * cout,
+            2 * B * 4 * h * w * 9 * cin * cout)
+
+
+def _upconv_case(name, shape, cout, seed) -> dict:
+    """Hold the kernel at one shape (twin, float64, bits, one launch) and
+    time kernel, cuDNN's upsample-then-conv and twin, in turns."""
+    from renderloom_torch.ops import upconv_kernel as UK
+
+    x, w, b = _upconv_inputs(shape, cout, seed)
+    wf = UK.fold_weights(w)
+    kern = lambda: UK.upconv_cuda(x, wf, b, cout)
+    lib = lambda: _upsample_conv(x, w, b)
+    twin = lambda: UK.upconv_plain(x, wf, b, cout)
+    got = kern()
+    torch.cuda.synchronize()
+    err = compare(f"{name} {shape} -> {cout} kernel vs twin", got, twin(),
+                  1e-5, 1e-5)
+    same_bits(f"{name} second call", kern(), got)
+    one_kernel(f"upconv {name}", kern, "upconv_kernel")
+    # against float64 upsample-then-conv, on the first clip: the
+    # kernel's error no larger than cuDNN's float32 path's
+    ref = _upsample_conv(x[:1].double(), w.double(), b.double())
+    gap = lambda y: (y[:1].double() - ref).abs()
+    k64, l64 = gap(got), gap(lib())
+    print(f"  {name} against float64 upsample-then-conv: kernel max "
+          f"{k64.max().item():.3e} mean {k64.mean().item():.3e}, cuDNN "
+          f"float32 max {l64.max().item():.3e} mean "
+          f"{l64.mean().item():.3e}")
+    if k64.max().item() > l64.max().item():
+        raise AssertionError(f"{name}: the kernel's float32 error exceeds "
+                             "cuDNN's")
+    del ref, k64, l64, got
+    slow = 3 if name == "up2" else 10       # cuDNN's FFT: ~0.1 s a call
+    ms = [cuda_ms(kern), cuda_ms(lib, iters=slow, warmup=1),
+          cuda_ms(lib, iters=slow, warmup=1), cuda_ms(kern)]
+    dev = device_ms(kern)
+    ops4, ops9 = upconv_ops(shape, cout)
+    B, h, w_, cin = shape
+    n_bytes = 4 * (B * h * w_ * cin + 4 * B * h * w_ * cout + wf.numel())
+    bnd4, by4 = bound_ms(n_bytes, ops4)
+    bnd9, _ = bound_ms(n_bytes, ops9)
+    row = dict(shape=f"({B},{h},{w_},{cin}) -> {cout}", max_abs_err=err,
+               ms=min(ms[0], ms[3]), device_ms=dev, bound_ms=bnd4,
+               bound_by=by4, bound_ms_9tap=bnd9, plain_ms=cuda_ms(twin, 3),
+               library_ms=min(ms[1], ms[2]))
+    print(f"  {name}: call {ms[0]:.4f} / {ms[3]:.4f} ms, device {dev:.4f} "
+          f"ms ({100 * bnd4 / dev:.1f}% of the 4-tap bound {bnd4:.4f} ms, "
+          f"{by4}; 9-tap {bnd9:.4f}); cuDNN upsample-then-conv "
+          f"{ms[1]:.4f} / {ms[2]:.4f} ms; twin {row['plain_ms']:.4f} ms")
+    return row
+
+
+def _record_convs(fn, args) -> dict:
+    """Every ``F.conv2d`` call of ``fn(*args)``: {(x NHWC sizes, NHWC or
+    not, weight sizes, dtype, stride, padding, groups): [calls, weight]}."""
+    seen = {}
+    conv2d = F.conv2d
+
+    def rec(x, weight, bias=None, stride=1, padding=0, dilation=1,
+            groups=1):
+        key = (tuple(x.permute(0, 2, 3, 1).shape),
+               not x.is_contiguous(), tuple(weight.shape), weight.dtype,
+               stride, padding, groups)
+        seen.setdefault(key, [0, weight.detach()])[0] += 1
+        return conv2d(x, weight, bias, stride, padding, dilation, groups)
+    F.conv2d = rec
+    try:
+        fn(*args)
+        torch.cuda.synchronize()
+    finally:
+        F.conv2d = conv2d
+    return seen
+
+
+def phase_upconv(serve) -> dict:
+    """UC: the kernel against its twin and float64 at the mask net's up
+    shapes and a ragged one, its bits, its times against cuDNN's
+    upsample-then-conv, and every float32 convolution of one standard
+    clip with cuDNN's kernels.  Its launches are counted and held
+    against the module structure on every path, with K1's and K2's
+    (``_serve_launches``, ``_train_launches``, ``_kernel_launches``)."""
+    from renderloom_torch.train.gan import set_float32_precision
+
+    set_float32_precision()
+    print("UC. csrc/upconv.cu: nearest x2 upsample and 3x3 float32 "
+          "convolution in one kernel, against its twin, float64 and "
+          "cuDNN's upsample-then-conv (NVIDIA H100, CUDA events)")
+    rows = {name: _upconv_case(name, shape, cout, 300 + i)
+            for i, (name, shape, cout) in enumerate(UPCONV_CASES)}
+    # the kernel no slower than cuDNN's upsample-then-conv at each up
+    # shape; at up2 at most 0.8 ms a call, at least 33% of its bound
+    for name in ("up2", "up1", "up0"):
+        r = rows[name]
+        print(f"  {name}: kernel {r['ms']:.4f} ms against cuDNN "
+              f"{r['library_ms']:.4f}")
+        if r["ms"] > r["library_ms"]:
+            raise AssertionError(f"{name}: the kernel ({r['ms']:.4f} ms) "
+                                 f"is slower than cuDNN "
+                                 f"({r['library_ms']:.4f} ms)")
+    r = rows["up2"]
+    share = 100 * r["bound_ms"] / r["device_ms"]
+    print(f"  up2: {r['ms']:.4f} ms a call (at most 0.8), {share:.1f}% of "
+          f"the 4-tap bound (at least 33)")
+    if r["ms"] > 0.8 or share < 33:
+        raise AssertionError(f"up2: {r['ms']:.4f} ms, {share:.1f}% of the "
+                             "bound")
+
+    # every float32 convolution of one standard clip: cuDNN's kernels
+    seen = _record_convs(serve["fn"], serve["inputs"])
+    lines = [f"the {sum(v[0] for v in seen.values())} F.conv2d calls of one "
+             f"float32 standard clip ({len(seen)} kinds; the mask net's up "
+             f"convolutions run csrc/upconv.cu), ms a call and cuDNN's "
+             f"kernels:"]
+    total = 0.0
+    for (shape, nhwc, wshape, dtype, stride, pad, groups), (n, w) in sorted(
+            seen.items(), key=lambda kv: -np.prod(kv[0][0])):
+        names, ms = _conv_kernels(shape, w, stride=stride, padding=pad,
+                                  groups=groups, nhwc=nhwc)
+        total += n * ms
+        lines.append(f"  {n} x {shape} {'nhwc' if nhwc else 'nchw'} "
+                     f"{wshape} s{stride} p{pad} g{groups} "
+                     f"{str(dtype)[6:]}: {ms:.3f} ms; " + "; ".join(names))
+    lines.append(f"  sum {total:.3f} ms a clip (calls x ms)")
+    _write("upconv_convs.txt", "\n".join(lines))
+    print("  " + "\n  ".join(lines))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2746,25 +2949,29 @@ def derived_train_launches(cfg, gen, dis, frames: int) -> dict:
             "instance_norm": 0 if r3 else fwd,
             "instance_norm_r3": fwd if r3 else 0,
             "instance_norm_bwd": 0 if r3 else bwd,
-            "instance_norm_bwd_r3": bwd if r3 else 0}
+            "instance_norm_bwd_r3": bwd if r3 else 0,
+            "upconv": 0}
 
 
 def _train_launches() -> dict:
     from renderloom_torch.ops import norm_kernel as NK
     from renderloom_torch.ops import rasterize_kernel as RK
+    from renderloom_torch.ops import upconv_kernel as UK
 
     raster = RK.rasterize_tables_cuda.layout_launches
     return {"rasterize": sum(raster.values()),
             "instance_norm": NK.instance_norm_cuda.launches,
             "instance_norm_r3": NK.instance_norm_cuda.r3_launches,
             "instance_norm_bwd": NK.instance_norm_bwd_cuda.launches,
-            "instance_norm_bwd_r3": NK.instance_norm_bwd_cuda.r3_launches}
+            "instance_norm_bwd_r3": NK.instance_norm_bwd_cuda.r3_launches,
+            "upconv": UK.upconv_cuda.launches}
 
 
 def _reset_launches():
     """Every kernel wrapper's launch counts to 0."""
     from renderloom_torch.ops import norm_kernel as NK
     from renderloom_torch.ops import rasterize_kernel as RK
+    from renderloom_torch.ops import upconv_kernel as UK
 
     RK.rasterize_tables_cuda.layout_launches = dict.fromkeys(RK.LAYOUTS, 0)
     NK.instance_norm_cuda.launches = 0
@@ -2772,6 +2979,7 @@ def _reset_launches():
     NK.instance_norm_cuda.r3_launches = 0
     NK.instance_norm_bwd_cuda.launches = 0
     NK.instance_norm_bwd_cuda.r3_launches = 0
+    UK.upconv_cuda.launches = 0
 
 
 def _snapshot(state):
@@ -3751,6 +3959,9 @@ def phase_train_h5(probe):
             want["rasterize"] += 1
             want["instance_norm_r3" if dtype == "bfloat16"
                  else "instance_norm"] += per_eval
+            if dtype != "bfloat16":         # float32 inference: fused
+                want["upconv"] += _count_upconvs(
+                    make_inference_generator(cfg))
             want = {k: want[k] for k in launches}
             frames = [c[0][0].shape[0] for c in calls]
             masks = {c[0][6] for c in calls}
@@ -4370,7 +4581,9 @@ def phase_serve_files(serve, bf16, probe):
         want = {"rasterize": chunks, "rasterize_packed": 0,
                 "instance_norm": 0 if in_bf16 else norm,
                 "instance_norm_parity": 0,
-                "instance_norm_r3": norm if in_bf16 else 0}
+                "instance_norm_r3": norm if in_bf16 else 0,
+                "upconv": 0 if in_bf16 else chunks * (rate - 1)
+                * _count_upconvs(serve["gen"])}
         print(f"  {tag}: launches {launches}; derived {want} ({chunks} "
               f"render chunk, {per_step} norms per generator step x "
               f"{rate - 1} steps); K1 masks "
@@ -4643,6 +4856,7 @@ def phase_eval(serve, probe):
     g_trees = flax_trees(serve["gen"])
     vgg = make_perceptual(rcfg, DEVICE, seed=0)     # float32 in both runs
     per_step = _count_norms(make_inference_generator(rcfg))
+    up_step = _count_upconvs(make_inference_generator(rcfg))
     S = lengths["eval_seg"] // 2
     steps = -(-S // 32) + lengths["eval_seq"] // 2
     out = {}
@@ -4665,7 +4879,8 @@ def phase_eval(serve, probe):
         want = {"rasterize": len(lengths), "rasterize_packed": 0,
                 "instance_norm": 0 if in_bf16 else norm,
                 "instance_norm_parity": 0,
-                "instance_norm_r3": norm if in_bf16 else 0}
+                "instance_norm_r3": norm if in_bf16 else 0,
+                "upconv": 0 if in_bf16 else steps * up_step}
         print(f"  {tag}: launches {launches}; derived {want} (K1 once a "
               f"clip with masks; {per_step} norms per generator step x "
               f"{steps} steps: {-(-S // 32)} segment chunks of up to 32 "
@@ -4779,6 +4994,7 @@ import torch
 sys.path.insert(0, sys.argv[1])
 from renderloom_torch.eval.export import load_exported
 from renderloom_torch.ops import norm_kernel as NK, rasterize_kernel as RK
+from renderloom_torch.ops import upconv_kernel as UK
 tic = time.perf_counter()
 serve, meta = load_exported(sys.argv[2])
 load_s = time.perf_counter() - tic
@@ -4787,14 +5003,15 @@ serve(motion, conf, keys)
 torch.cuda.synchronize()
 RK.rasterize_tables_cuda.layout_launches = dict.fromkeys(RK.LAYOUTS, 0)
 NK.instance_norm_cuda.launches = NK.instance_norm_cuda.parity_launches = 0
-NK.instance_norm_cuda.r3_launches = 0
+NK.instance_norm_cuda.r3_launches = UK.upconv_cuda.launches = 0
 fused, sync = serve(motion, conf, keys)
 torch.cuda.synchronize()
 by = RK.rasterize_tables_cuda.layout_launches
 launches = {"rasterize": by["nhwc"], "rasterize_packed": by["packed"],
             "instance_norm": NK.instance_norm_cuda.launches,
             "instance_norm_parity": NK.instance_norm_cuda.parity_launches,
-            "instance_norm_r3": NK.instance_norm_cuda.r3_launches}
+            "instance_norm_r3": NK.instance_norm_cuda.r3_launches,
+            "upconv": UK.upconv_cuda.launches}
 runs = []
 for _ in range(3):
     torch.cuda.synchronize()
@@ -5242,12 +5459,14 @@ def _near_zero(rec) -> np.ndarray:
 def _kernel_launches() -> dict:
     from renderloom_torch.ops import norm_kernel as NK
     from renderloom_torch.ops import rasterize_kernel as RK
+    from renderloom_torch.ops import upconv_kernel as UK
 
     return {"rasterize": RK.rasterize_tables_cuda.layout_launches["nhwc"],
             "instance_norm": NK.instance_norm_cuda.launches,
             "instance_norm_r3": NK.instance_norm_cuda.r3_launches,
             "instance_norm_bwd": NK.instance_norm_bwd_cuda.launches,
-            "instance_norm_bwd_r3": NK.instance_norm_bwd_cuda.r3_launches}
+            "instance_norm_bwd_r3": NK.instance_norm_bwd_cuda.r3_launches,
+            "upconv": UK.upconv_cuda.launches}
 
 
 def dp_gan_run(cfg, raws, device, seed=5):
@@ -5645,7 +5864,8 @@ def phase_data_parallel(train):
         if name == "gan" and (
                 any(r["launches"] != one["launches"] for r in two)
                 or not all(one["launches"][k] for k in (
-                    "rasterize", "instance_norm", "instance_norm_bwd"))):
+                    "rasterize", "instance_norm", "instance_norm_bwd"))
+                or one["launches"]["upconv"]):
             raise AssertionError(f"gan launches: world 1 {one['launches']}, "
                                  f"world 2 {[r['launches'] for r in two]}")
         rate = lambda r: n * len(r["seconds"][1:]) / sum(r["seconds"][1:])
@@ -6114,7 +6334,8 @@ def phase_serve_learned(serve, files, flow, pose, probe) -> dict:
     chunks = -(-S // max(min(16, S), 64 // rate))
     want = {"rasterize": chunks, "rasterize_packed": 0,
             "instance_norm": chunks * (rate - 1) * per_step,
-            "instance_norm_parity": 0, "instance_norm_r3": 0}
+            "instance_norm_parity": 0, "instance_norm_r3": 0,
+            "upconv": chunks * (rate - 1) * _count_upconvs(gen)}
     lk = files["serve_files"]
     print(f"  launches {launches}; derived {want}, phase V's LK run "
           f"{lk['launches']}")
@@ -6762,7 +6983,7 @@ def phase_dp_serve(serve) -> dict:
     t_two = time.perf_counter() - tic
     g = lambda r: r["launches"]
     want = {"rasterize": 1, "instance_norm": _count_norms(serve["gen"])
-            * (rate - 1)}
+            * (rate - 1), "upconv": _count_upconvs(serve["gen"]) * (rate - 1)}
     for who, r in [("world 1", one)] + [(f"rank {i}", r)
                                         for i, r in enumerate(two)]:
         if {k: g(r)[k] for k in want} != want or g(r)["instance_norm_bwd"]:
@@ -7304,7 +7525,8 @@ def phase_import(serve, probe) -> dict:
     chunks = -(-S // max(min(16, S), 64 // rate))
     want = {"rasterize": chunks, "rasterize_packed": 0,
             "instance_norm": chunks * (rate - 1) * per_step,
-            "instance_norm_parity": 0, "instance_norm_r3": 0}
+            "instance_norm_parity": 0, "instance_norm_r3": 0,
+            "upconv": chunks * (rate - 1) * _count_upconvs(serve["gen"])}
     runs = {}
     for tag, ckpts in (("imported", (out["motion"], out["renderer"])),
                        ("mapped", npz)):
@@ -7666,10 +7888,11 @@ def phase_tp(serve) -> dict:
     two = run_ranks(tp_run, 2, DEVICE, backend="gloo",
                     args=(rcfg, None, TP_BATCH, 13, DEVICE, TP_MIN_ELEMS))
     t_two = time.perf_counter() - tic
-    n_norm = _count_norms(serve["gen"])
+    n_norm, n_up = _count_norms(serve["gen"]), _count_upconvs(serve["gen"])
     for who, r in [("world 1", one)] + [(f"rank {i}", r)
                                         for i, r in enumerate(two)]:
-        if r["launches"]["instance_norm"] != n_norm:
+        if (r["launches"]["instance_norm"], r["launches"]["upconv"]) != (
+                n_norm, n_up):
             raise AssertionError(f"TP {who}: launches {r['launches']}")
     if one["split"] or not two[0]["split"] or two[0]["split"] != \
             two[1]["split"]:
@@ -7717,6 +7940,7 @@ def main() -> int:
     parity = phase_norm_parity(fast)
     phase_fast_vs_standard(serve, fast)
     bf16 = phase_bf16(serve, fast, conv_lines)
+    upconv = phase_upconv(serve)
     r3 = phase_norm_r3(bf16)
     parity["serve_clip_fastpath_bf16"] = phase_norm_parity_bf16(bf16)
     phase_bf16_cpu_match()
@@ -7812,6 +8036,38 @@ def main() -> int:
     w32, w16 = (h5train[k]["launches"] for k in ("train_h5",
                                                  "train_h5_bf16"))
     kernels = [
+        dict(name="upconv", route="cuda",
+             source="renderloom_torch/csrc/upconv.cu",
+             replaces="none: upsample2x + the 3x3 convolution of the mask "
+                      "net's up blocks, which the JAX package leaves to XLA",
+             launches=launches["upconv"],
+             launches_by_path={"serve_clip": launches["upconv"],
+                               "serve_clip_fastpath": fast["launches"]
+                               ["upconv"],
+                               "serve_clip_bf16": bf16["standard"]
+                               ["launches"]["upconv"],
+                               "serve_clip_fastpath_bf16": bf16["fastpath"]
+                               ["launches"]["upconv"],
+                               "train_3_steps": train["launches"]["upconv"],
+                               "train_step_bf16_3_steps": t16[True]
+                               ["upconv"],
+                               **{k: v["launches"]["upconv"]
+                                  for k, v in {**files, **evals}.items()},
+                               "train_h5": w32["upconv"],
+                               "train_h5_bf16": w16["upconv"],
+                               "serve_exported": xs["launches"]["upconv"],
+                               "serve_exported_fastpath_bf16": xf["launches"]
+                               ["upconv"],
+                               "serve_planner_fastpath_bf16": n8["upconv"],
+                               "train_dp2": dp2["upconv"],
+                               **({"serve_files_learned": learned["launches"]
+                                   ["upconv"]} if learned else {}),
+                               **bb("upconv"), **dps("upconv"),
+                               "serve_files_imported": ci_s["upconv"],
+                               "train_imported_resumed_2_steps":
+                                   ci_t["upconv"],
+                               **tps("upconv")},
+             **upconv),
         dict(name="rasterize", route="cuda",
              source="renderloom_torch/csrc/rasterize.cu",
              replaces="renderloom/ops/rasterize_pallas.py:408",

@@ -5,11 +5,13 @@ Port of the JAX package's ``renderloom/eval/export.py``.  The frozen
 program holds the motion transformer's and the generator's weights and
 every constant the pipeline builds at trace time (resize matrices, the
 motion statistics), and calls the port's kernels through their
-registered operators ``renderloom::rasterize`` (K1) and
-``renderloom::instance_norm`` (K2 in every mode), so a loaded artifact
-launches the same hand-written kernels as the live pipeline.  Loading it
-touches no model code, config or checkpoint of the port: only the
-modules that register those two operators.
+registered operators ``renderloom::rasterize`` (K1),
+``renderloom::instance_norm`` (K2 in every mode) and
+``renderloom::upconv`` (the float32 mask net's fused upsample and
+convolution), so a loaded artifact launches the same hand-written
+kernels as the live pipeline.  Loading it touches no model code, config
+or checkpoint of the port: only the modules that register those
+operators.
 
 Artifact: the ``torch.export.save`` archive with the meta JSON as its
 extra file ``meta.json``.  The program runs on the device it was
@@ -94,7 +96,7 @@ def load_exported(path: str) -> Tuple[Callable, Dict[str, Any]]:
 
     ``serve(motion, conf, keys) -> (fused, sync)`` runs the frozen
     program on the device it was exported for (inputs are moved there);
-    without that device it raises.  It registers the port's two
+    without that device it raises.  It registers the port's
     operators and touches no model code, config or checkpoint.  Like
     ``build_pipeline``, it turns TF32 off for the process."""
     meta = _read_meta(path)
@@ -107,7 +109,8 @@ def load_exported(path: str) -> Tuple[Callable, Dict[str, Any]]:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"{path}: unsupported device {device}")
     # the operators the program calls
-    from renderloom_torch.ops import norm_kernel, rasterize_kernel  # noqa: F401
+    from renderloom_torch.ops import (norm_kernel,  # noqa: F401
+                                      rasterize_kernel, upconv_kernel)
 
     program = torch.export.load(path).module()
     # float32 means float32, as the live pipeline sets it

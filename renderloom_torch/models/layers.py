@@ -60,8 +60,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from renderloom_torch.ops import _build
 from renderloom_torch.ops.image import resize_bilinear
 from renderloom_torch.ops.norm_kernel import instance_norm
+from renderloom_torch.ops.upconv_kernel import fold_weights, upconv
 
 LEAKY_SLOPE = 0.2
 
@@ -88,17 +90,43 @@ class Conv(nn.Module):
             else None
 
     def forward(self, x: torch.Tensor,
-                weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                weight: Optional[torch.Tensor] = None,
+                upsample: bool = False) -> torch.Tensor:
         """``weight`` (default: the parameter) is the OIHW kernel to
         convolve with, e.g. a spectral-normalized one.  Input, kernel
         and bias are cast to ``compute_dtype`` (a no-op where they have
-        it already)."""
+        it already).  ``upsample``: convolve :func:`upsample2x` of x; a
+        float32 3×3 stride-1 call that wants no gradient runs both as
+        one kernel (:mod:`renderloom_torch.ops.upconv_kernel`), every
+        other call as ``upsample2x`` then ``F.conv2d``."""
         dt = self.compute_dtype
         w = self.weight if weight is None else weight
         b = None if self.bias is None else self.bias.to(dt)
+        if upsample:
+            wants_grad = torch.is_grad_enabled() and (
+                x.requires_grad or w.requires_grad
+                or (b is not None and b.requires_grad))
+            if (dt == torch.float32 and w.shape[-2:] == (3, 3)
+                    and self.stride == 1 and not wants_grad):
+                return upconv(x.to(dt).contiguous(), self._folded(w, x), b,
+                              w.shape[0])
+            x = upsample2x(x)
         y = F.conv2d(x.permute(0, 3, 1, 2).to(dt), w.to(dt), b,
                      self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
+
+    def _folded(self, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """:func:`~renderloom_torch.ops.upconv_kernel.fold_weights` of
+        ``w``, kept until ``w`` is another tensor or changes (its
+        version or storage); folded afresh while ``torch.export``
+        traces, and for an inference tensor, which keeps no version."""
+        if _build.traced(x) or w.is_inference():
+            return fold_weights(w.float())
+        key = (w._version, w.data_ptr(), w.device)
+        hit = self.__dict__.get("_fold")
+        if hit is None or hit[0] is not w or hit[1] != key:
+            hit = self._fold = (w, key, fold_weights(w.float()))
+        return hit[2]
 
 
 def same_pads(sizes, kernels, stride: int) -> list:
@@ -216,13 +244,14 @@ class SNConv(nn.Module):
         return w / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
 
     def forward(self, x: torch.Tensor, update_stats: bool = False,
-                weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                weight: Optional[torch.Tensor] = None,
+                upsample: bool = False) -> torch.Tensor:
         """``weight``: a kernel :meth:`sn_weight` gave earlier (the
         checkpointed branch of :class:`SpadeResBlock` normalizes outside
-        the region it recomputes)."""
+        the region it recomputes).  ``upsample``: as :meth:`Conv.forward`."""
         if weight is None:
             weight = self.sn_weight(update_stats)
-        return self.conv(x, weight)
+        return self.conv(x, weight, upsample=upsample)
 
 
 def enable_spectral_norm(module: nn.Module) -> nn.Module:
@@ -269,9 +298,10 @@ class ConvBlock(nn.Module):
         self.conv = SNConv(in_ch, features, kernel, stride, spectral)
         self.norm = InstanceNorm(features) if norm == "instance" else None
 
-    def forward(self, x: torch.Tensor,
-                update_stats: bool = False) -> torch.Tensor:
-        x = self.conv(x, update_stats)
+    def forward(self, x: torch.Tensor, update_stats: bool = False,
+                upsample: bool = False) -> torch.Tensor:
+        """``upsample``: upsample x first (:meth:`Conv.forward`)."""
+        x = self.conv(x, update_stats, upsample=upsample)
         slope = LEAKY_SLOPE if self.activation == "leaky" else None
         if self.norm is not None:
             x = self.norm(x, slope)         # the leaky rides in the store

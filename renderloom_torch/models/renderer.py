@@ -69,7 +69,10 @@ class LabelEmbedder(nn.Module):
 
 class MaskGenerator(nn.Module):
     """Soft blend mask from ``label`` (B,H,W,22) and ``imgs`` =
-    concat(img_prev, img_warped, img_gen) (B,H,W,9)."""
+    concat(img_prev, img_warped, img_gen) (B,H,W,9).  Each up block
+    convolves the nearest ×2 upsample of its input (``upsample=True``:
+    one fused kernel in float32 inference, :class:`~renderloom_torch.
+    models.layers.Conv`)."""
 
     def __init__(self, cfg: GeneratorConfig, label_ch: int, img_ch: int):
         super().__init__()
@@ -110,7 +113,7 @@ class MaskGenerator(nn.Module):
         for i in range(self.num_res_blocks):
             h = getattr(self, f"res{i}")(h, update_stats)
         for i in reversed(range(self.num_downsamples)):
-            h = getattr(self, f"up{i}")(upsample2x(h), update_stats)
+            h = getattr(self, f"up{i}")(h, update_stats, upsample=True)
         return self.conv_mask(h)
 
 

@@ -11,8 +11,9 @@ the port's models, configs or checkpoints.
   transformer, LK flow, the raster and the generator, summed in other
   orders than XLA's);
 * the meta has the JAX meta's keys, ``device`` in place of ``platforms``;
-* the program calls K1 and K2 through the registered operators, as
-  often as the live pipeline launches them;
+* the program calls K1, K2 and the fused upsample-and-convolution of
+  the mask net's up blocks through the registered operators, as often
+  as the live pipeline launches them;
 * an artifact for the CUDA device refuses to load without one;
 * both operators pass ``torch.library.opcheck`` (schema, fake tensor,
   autograd registration, AOT dispatch) at their layouts and modes.
@@ -88,6 +89,7 @@ def case(tmp_path_factory):
                                       RATE, K, device="cpu", **weights)
     norm_calls = sum(isinstance(m, (InstanceNorm, Spade))
                      for m in gen.modules()) * (RATE - 1)
+    upconv_calls = gen.mask_net.num_downsamples * (RATE - 1)
     live, _ = fn(*(t(inputs[k]) for k in ("motion", "conf", "keys")))
     ep, meta = export_pipeline(fn, m_model, gen, 1, K, H, W, RATE, "cpu")
     tmp = tmp_path_factory.mktemp("export")
@@ -95,7 +97,7 @@ def case(tmp_path_factory):
     nbytes = save_exported(path, ep, meta)
     return dict(weights=weights, inputs=inputs, live=live.numpy(), ep=ep,
                 meta=meta, path=path, nbytes=nbytes, tmp=tmp,
-                norm_calls=norm_calls)
+                norm_calls=norm_calls, upconv_calls=upconv_calls)
 
 
 @pytest.fixture(scope="module")
@@ -153,7 +155,8 @@ def test_program_calls_the_kernels_as_the_live_pipeline_launches(case):
                     for node in mod.graph.nodes
                     if str(node.target).startswith("renderloom"))
     assert calls == {"renderloom.rasterize.default": 1,
-                     "renderloom.instance_norm.default": case["norm_calls"]}
+                     "renderloom.instance_norm.default": case["norm_calls"],
+                     "renderloom.upconv.default": case["upconv_calls"]}
 
 
 def test_load_refuses_another_device_and_junk(case, monkeypatch):
