@@ -1,5 +1,6 @@
-"""The plain reference, built from the same configuration file and the
-same weight trees as the program, in float32 (TF32 off), and the
+"""The plain reference, built by the configuration's build
+(:mod:`rlbench.builds`) from the same configuration file and the same
+weight trees as the program, in float32 (TF32 off), and the
 controls: the reference computed one precision below the
 configuration's (:func:`precision`).
 
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch.overrides import TorchFunctionMode
 
+from rlbench import builds
 from rlbench.reference.core import config as ref_config
 
 FP8_MAX = 448.0         # largest finite float8_e4m3fn
@@ -109,64 +111,22 @@ def control_mode(config: dict) -> str:
 
 def serving(config: dict, traffic: dict, trees: Dict, stats, device
             ) -> Callable:
-    """``fn(motion, conf, keys) -> fused`` over N clips: the reference
-    pipeline (standard layout, float32 label), run clip by clip."""
-    from rlbench.reference.eval.motion_infer import make_interpolator
-    from rlbench.reference.eval.pipeline import make_pipeline_fn
-    from rlbench.reference.train.gan import (make_inference_pair,
-                                             make_segment_rollout)
-    mcfg, rcfg = configs(config)
-    rate, K = traffic["rate"], traffic["keyframes"]
-    interp = make_interpolator(mcfg, trees["motion"][0], *stats, device)
-    gen = make_inference_pair(rcfg, trees["gen"][0], trees["gen"][1],
-                              device)
-    pipe = make_pipeline_fn(interp, make_segment_rollout(gen, rate),
-                            rcfg.data, rate, K)
-
-    def fn(motion, conf, keys):
-        return torch.cat([pipe(motion[i:i + 1], conf[i:i + 1],
-                               keys[i:i + 1])[0]
-                          for i in range(motion.shape[0])])
-    return fn
+    """The build's reference ``fn(motion, conf, keys) -> fused`` over N
+    clips."""
+    return builds.load(config).reference_serving(config, traffic, trees,
+                                                 stats, device)
 
 
 def training(config: dict, trees: Dict, seed: int, device):
-    """``(state, step)``: the reference's train state from the trees and
-    its multi-frame train step on raw windows."""
-    from rlbench.reference.models.perceptual import PerceptualLoss
-    from rlbench.reference.train.gan import (create_gan_state,
-                                             make_gan_train_step)
-    _, rcfg = configs(config)
-    state = create_gan_state(rcfg, device, seed=seed, trees={
-        "params_g": trees["gen"][0], "stats_g": trees["gen"][1],
-        "params_d": trees["dis"][0], "stats_d": trees["dis"][1]})
-    vgg = PerceptualLoss(rcfg.perceptual.layers, rcfg.perceptual.weights,
-                         trees["vgg"][0]).to(device).eval()
-    for p in vgg.parameters():
-        p.requires_grad_(False)
-    return state, make_gan_train_step(rcfg, vgg, data_cfg=rcfg.data)
+    """The build's reference ``(state, step)`` on raw windows."""
+    return builds.load(config).reference_training(config, trees, seed,
+                                                  device)
 
 
 def specs(config: dict, kind: str) -> Dict:
-    """The weight trees' layouts a cell of ``kind`` needs, from the
-    reference's modules on the ``meta`` device."""
-    from rlbench.reference.models.discriminator import DiscriminatorSet
-    from rlbench.reference.models.layers import enable_spectral_norm
-    from rlbench.reference.models.motion_transformer import \
-        build_motion_model
-    from rlbench.reference.models.perceptual import VGG19Features
-    from rlbench.reference.models.renderer import Generator
-    from rlbench.weights import tree_spec
-    mcfg, rcfg = configs(config)
-    with torch.device("meta"):
-        out = {"gen": tree_spec(enable_spectral_norm(Generator(rcfg.gen)))}
-        if kind == "serve":
-            out["motion"] = tree_spec(build_motion_model(mcfg))
-        else:
-            out["dis"] = tree_spec(enable_spectral_norm(
-                DiscriminatorSet(rcfg.dis)))
-            out["vgg"] = tree_spec(VGG19Features(rcfg.perceptual.layers))
-    return out
+    """The weight trees' layouts a cell of ``kind`` needs, in the order
+    ``rlbench.weights.make_trees`` draws them."""
+    return builds.load(config).specs(config, kind)
 
 
 def serving_control(mode: str) -> Callable:

@@ -6,11 +6,12 @@ line of standard output.
 
 from the root of a checkout that holds ``BENCHMARK.json``,
 ``rlbench/`` and the program (``renderloom_torch/``).  The cell's
-traffic mix names the loop (``serve`` or ``train``).  Without a CUDA
-device, with fewer devices than the cell asks for, without the program
-beside the benchmark, or when the run has loaded JAX or the JAX package,
-it exits with a code other than 0 and prints no result.  The program's
-kernel builds and caches go to fixed directories inside the checkout.
+traffic mix names the loop (``serve`` or ``train``).  With a cell or a
+build that is not there, without a CUDA device, with fewer devices than
+the cell asks for, without the program beside the benchmark, or when
+the run has loaded JAX or the JAX package, it exits with a code other
+than 0 and prints no result.  The program's kernel builds and caches go
+to fixed directories inside the checkout.
 """
 
 from __future__ import annotations
@@ -63,8 +64,12 @@ def main(argv=None):
     if args.seed < 0:
         fail(f"--seed {args.seed}: a whole number from 0")
 
-    from rlbench import spec
-    cell = spec.cell(args.workload)
+    from rlbench import builds, spec
+    try:
+        cell = spec.cell(args.workload)
+        builds.name_of(cell["config"])
+    except LookupError as e:
+        fail(e.args[0])
     if not os.path.isdir(os.path.join(spec.ROOT, "renderloom_torch")):
         fail(f"no renderloom_torch beside rlbench in {spec.ROOT}")
     cache_env(spec.ROOT)

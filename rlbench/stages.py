@@ -2,16 +2,19 @@
 
 The program marks its stages with spans (``renderloom_torch.utils.
 profiling.annotate``), which the trace holds as host operations named
-after the stage (``cpu_op``), outermost on the thread that ran them.
-:func:`split` reads them from a :class:`rlbench.trace.TraceSummary`
-(its outermost host operations per thread, its runtime calls and its
-device intervals) and places each device interval in a stage:
+after the stage (``cpu_op``), outermost on the thread that ran them or
+nested in another span.  :func:`split` reads them from a
+:class:`rlbench.trace.TraceSummary` (its host operations per thread,
+its runtime calls and its device intervals) and places each device
+interval in a stage:
 
 * the interval's correlation id gives the runtime call that launched
-  it; the stage is the span whose ``[start, end]`` holds that call's
-  timestamp, on any thread (backward kernels are launched from
-  autograd's device thread while the main thread waits inside the
-  stage's span); where spans overlap, the one that started last wins;
+  it; the stage is the span of those asked for whose ``[start, end]``
+  holds that call's timestamp, on any thread (backward kernels are
+  launched from autograd's device thread while the main thread waits
+  inside the stage's span); where spans overlap, the one that started
+  last wins, so a launch inside a nested stage is the innermost's, and
+  the outer stage keeps what its nested stages do not hold;
 * **busy**: the length of the stage's device intervals, each counted
   where no earlier interval already covered it, so that busy time
   spread over overlapping streams is counted once;
@@ -51,7 +54,8 @@ class _Spans:
     """Which named span holds a host timestamp, on any thread."""
 
     def __init__(self, spans):
-        self.spans = sorted(spans)
+        # by start, the enclosing span first where two start together
+        self.spans = sorted(spans, key=lambda x: (x[0], -x[1], x[2]))
         self.starts = [s for s, _, _ in self.spans]
         self.reach = []                     # the latest end so far
         for _, e, _ in self.spans:
@@ -73,10 +77,12 @@ def split(summary: TraceSummary, stages: Iterable[str]
           ) -> Dict[str, Dict[str, float]]:
     """``{stage: {busy_s, idle_s, launches, syncs, spans}}`` for each of
     ``stages`` that has a span in the trace, and :data:`OUTSIDE` (whose
-    ``spans`` is 0)."""
+    ``spans`` is 0).  A stage may be nested in another: each launch is
+    the innermost asked-for stage's, so the two stages' numbers add up
+    to what the outer one reads alone."""
     stages = tuple(stages)
-    found = [(s, e, n) for top in summary._top.values()
-             for s, e, n in top if n in stages]
+    found = [(s, e, n) for spans in summary._spans.values()
+             for s, e, n in spans if n in stages]
     spans = _Spans(found)
     out: Dict[str, Dict[str, float]] = defaultdict(
         lambda: dict.fromkeys(FIELDS + ("spans",), 0))

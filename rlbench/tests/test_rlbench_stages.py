@@ -49,6 +49,142 @@ def _trace():
     return ev
 
 
+def _serve_trace():
+    """One request of a 2 ms stretch: the four pipeline stages on the
+    main thread, each around aten ops; ``pipeline.background`` holds
+    two spans of its own, ``background.flow`` (a launch, a synchronous
+    copy) and ``background.synth`` (a launch), and launches two kernels
+    outside them; ``pipeline.label`` synchronises; a sync after the
+    request."""
+    return [_op("pipeline.motion", 0, 200),
+            _op("aten::linear", 10, 50),
+            _op("pipeline.background", 250, 550),
+            _op("background.flow", 300, 200),
+            _op("aten::conv2d", 310, 40),
+            _op("background.synth", 550, 150),
+            _op("pipeline.label", 820, 80),
+            _op("pipeline.rollout", 950, 750),
+            _op("aten::conv2d", 1000, 100),
+            _rt("cudaLaunchKernel", 20, 1),           # motion
+            _rt("cudaLaunchKernel", 260, 2),          # background
+            _rt("cudaLaunchKernel", 320, 3),          # flow
+            _rt("cudaMemcpy", 450, 4),                # flow, blocking
+            _rt("cudaLaunchKernel", 560, 5),          # synth
+            _rt("cudaLaunchKernel", 750, 6),          # background
+            _rt("cudaLaunchKernel", 830, 8),          # label
+            _rt("cudaStreamSynchronize", 880, 7),     # label
+            _rt("cudaLaunchKernel", 1010, 9),         # rollout
+            _rt("cudaLaunchKernel", 1200, 10),        # rollout
+            _rt("cudaDeviceSynchronize", 1800, 11),   # outside
+            _dev("void motion_k(Args)", 100, 50, 1),
+            _dev("void bg_k(Args)", 280, 60, 2),
+            _dev("void flow_k(Args)", 330, 100, 3),   # overlaps bg_k
+            _dev("Memcpy DtoH", 455, 5, 4, cat="gpu_memcpy"),
+            _dev("void synth_k(Args)", 600, 80, 5),
+            _dev("void bg_tail(Args)", 760, 30, 6),
+            _dev("void label_k(Args)", 850, 20, 8),
+            _dev("void roll_a(Args)", 1050, 300, 9),
+            _dev("void roll_b(Args)", 1300, 200, 10)]
+
+
+def _train_trace():
+    """:func:`_trace` with ``gan.prep`` over [10, 90] µs (a launch) and
+    ``gan.g_forward`` over [420, 490] (a launch inside an aten op, a
+    sync) before the two stages it has."""
+    return _trace() + [
+        _op("gan.prep", 10, 80),
+        _op("gan.g_forward", 420, 70),
+        _op("aten::conv2d", 425, 20),
+        _rt("cudaLaunchKernel", 20, 21),
+        _rt("cudaLaunchKernel", 430, 22),
+        _rt("cudaStreamSynchronize", 480, 23),
+        _dev("void prep_k(Args)", 30, 30, 21),
+        _dev("void g_fwd_k(Args)", 440, 30, 22)]
+
+
+NESTED = ("background.flow", "background.synth")
+CELLS = ("hsm_fastpath_bf16.batch8", "hsm_fastpath_bf16.single",
+         "hsm_standard_f32.single", "hsm_standard_f32.train")
+STAGED = ("busy_ms", "idle_ms", "syncs_per")
+# the 27 stage metrics on the two synthetic traces (2 units a stretch),
+# as they read while only the outermost spans were read
+BEFORE = {
+    **{f"{q}.{d}{stage}": v for d in ("serve", "serve_f32")
+       for q, stage, v in (
+           ("busy_ms_per_frame", ".motion", 0.025),
+           ("busy_ms_per_frame", ".background", 0.1325),
+           ("busy_ms_per_frame", ".label", 0.01),
+           ("busy_ms_per_frame", ".rollout", 0.225),
+           ("idle_ms_per_frame", ".motion", 0.0),
+           ("idle_ms_per_frame", ".background", 0.1875),
+           ("idle_ms_per_frame", ".label", 0.03),
+           ("idle_ms_per_frame", ".rollout", 0.09),
+           ("syncs_per_frame", "", 1.0))},
+    "busy_ms_per_window.train.prep": 0.015,
+    "busy_ms_per_window.train.g_forward": 0.015,
+    "busy_ms_per_window.train.d_step": 0.075,
+    "busy_ms_per_window.train.g_step": 0.05,
+    "idle_ms_per_window.train.prep": 0.0,
+    "idle_ms_per_window.train.g_forward": 0.045,
+    "idle_ms_per_window.train.d_step": 0.07,
+    "idle_ms_per_window.train.g_step": 0.115,
+    "syncs_per_window.train": 1.0,
+}
+
+
+def _stage_metrics(name):
+    cell = spec.cell(name)
+    events = _train_trace() if cell["traffic"]["kind"] == "train" \
+        else _serve_trace()
+    ctx = drive.layer_context(TraceSummary(events, WALL_S), "float32",
+                              2, 0, 1.0, None, None)
+    return {k: v["value"] for k, v in drive.per_layer(cell, ctx).items()
+            if k.split(".")[0].startswith(STAGED)}
+
+
+def test_the_stage_metrics_read_as_before_nested_spans():
+    got = {}
+    for name in CELLS:
+        got.update(_stage_metrics(name))
+    assert len(got) == 27
+    assert got == pytest.approx(BEFORE, rel=1e-12, abs=0)
+
+
+def test_a_nested_stage_is_split_from_the_stage_around_it():
+    tr = TraceSummary(_serve_trace(), WALL_S)
+    alone = split(tr, SERVE)
+    nested = split(tr, SERVE + NESTED)
+    flow, synth = nested["background.flow"], nested["background.synth"]
+    # flow_k covers [340, 430) past bg_k, the copy [455, 460) after a
+    # gap of 25 µs; synth_k [600, 680) after a gap of 140 µs
+    assert flow["busy_s"] == pytest.approx(95e-6)
+    assert flow["idle_s"] == pytest.approx(25e-6)
+    assert (flow["launches"], flow["syncs"], flow["spans"]) == (1, 1, 1)
+    assert synth["busy_s"] == pytest.approx(80e-6)
+    assert synth["idle_s"] == pytest.approx(140e-6)
+    assert (synth["launches"], synth["syncs"], synth["spans"]) == (1, 0, 1)
+    outer = nested["pipeline.background"]
+    assert outer["launches"] == 2 and outer["spans"] == 1
+    for field in ("busy_s", "idle_s", "launches", "syncs"):
+        assert outer[field] + flow[field] + synth[field] == pytest.approx(
+            alone["pipeline.background"][field])
+    for stage in SERVE[:1] + SERVE[2:] + (OUTSIDE,):
+        assert nested[stage] == alone[stage]
+    # idle gaps are still named by the outermost host operation
+    gaps = dict(tr.idle_gaps())
+    assert gaps["pipeline.background -> synth_k"] == pytest.approx(140e-6)
+
+
+def test_a_nested_stage_that_starts_with_its_parent_is_the_innermost():
+    ev = [_op("pipeline.background", 0, 100),
+          _op("background.flow", 0, 50),
+          _rt("cudaLaunchKernel", 10, 1), _rt("cudaLaunchKernel", 60, 2),
+          _dev("k1", 20, 10, 1), _dev("k2", 70, 10, 2)]
+    got = split(TraceSummary(ev, 1e-3), SERVE + NESTED)
+    assert got["background.flow"]["launches"] == 1
+    assert got["pipeline.background"]["launches"] == 1
+
+
 def test_spans_place_device_time_launches_and_syncs():
     got = split(TraceSummary(_trace(), WALL_S), TRAIN)
     assert set(got) == {"gan.d_step", "gan.g_step", OUTSIDE}

@@ -108,7 +108,10 @@ class TraceSummary:
                             for e in runtime)
         self._runtime = {e.get("args", {}).get("correlation"): e
                          for e in runtime}
-        # the outermost host operations, per thread, by start
+        # every host operation per thread (``_spans``) and the outermost
+        # ones (``_top``), by start, the enclosing one first
+        self._spans: Dict[object, List[Tuple[float, float, str]]] = \
+            defaultdict(list)
         self._top: Dict[object, List[Tuple[float, float, str]]] = \
             defaultdict(list)
         for s, e, n, tid in sorted(
@@ -116,6 +119,7 @@ class TraceSummary:
                   e["name"], e.get("tid")) for e in events
                  if e.get("cat") == "cpu_op"),
                 key=lambda x: (x[0], -x[1])):
+            self._spans[tid].append((s, e, n))
             top = self._top[tid]
             if not top or s >= top[-1][1]:
                 top.append((s, e, n))
