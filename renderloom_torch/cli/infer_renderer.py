@@ -35,14 +35,18 @@ from renderloom_torch.convert import load_flax_params
 from renderloom_torch.core.checkpoint import (ORBAX_HELP, read_params,
                                               read_renderer)
 from renderloom_torch.core.config import (FlowConfig, RendererConfig,
-                                          load_flow_config,
+                                          SloMoConfig, load_flow_config,
                                           load_renderer_config)
 from renderloom_torch.eval.render_eval import render_folder
 from renderloom_torch.models.flownet import make_learned_interp
+from renderloom_torch.models.superslomo import SuperSloMo
 from renderloom_torch.ops.flow import upsample_background
 from renderloom_torch.train.flow import build_flow_model
 from renderloom_torch.train.gan import set_float32_precision
 
+SLOMO_CKPT_HELP = ("Super SloMo weights at the published widths: a torch.save "
+                   "of the model's state_dict, or an .npz of the flax tree "
+                   "(keys params/flow_net/..., params/time_net/...)")
 FLOW_CKPT_HELP = ("a renderloom_torch.cli.train_flow checkpoint, or an .npz "
                   "of the flax tree (keys params/...); " + ORBAX_HELP)
 CKPT_HELP = ("renderer weights: a renderloom_torch.cli.train_renderer "
@@ -62,14 +66,23 @@ def load_flow_interp(flow_ckpt: str, flow_config: Optional[str] = None,
                                max_disp=cfg.max_disp)
 
 
+def load_slomo(slomo_ckpt: str, device="cuda") -> SuperSloMo:
+    """Super SloMo at its published widths with the weights at
+    ``slomo_ckpt`` (:data:`SLOMO_CKPT_HELP`), on ``device``."""
+    model = load_flax_params(SuperSloMo(SloMoConfig()),
+                             read_params(slomo_ckpt))
+    return model.to(device).eval()
+
+
 @torch.inference_mode()
 def synthesize_backgrounds(input_dir: str, dain_dir: str, rate: int,
                            device="cuda",
-                           interp_fn: Optional[Callable] = None) -> int:
+                           interp_fn: Optional[Callable] = None,
+                           slomo: Optional[SuperSloMo] = None) -> int:
     """Fill a DAIN/-equivalent folder with flow-interpolated frames
-    (``upsample_background`` at its defaults on ``device``: LK, or the
-    learned ``interp_fn``) as ``%05d.png``; returns the number of frames
-    written."""
+    (``upsample_background`` at its defaults on ``device``: LK, the
+    learned ``interp_fn``, or Super SloMo) as ``%05d.png``; returns the
+    number of frames written."""
     from PIL import Image
 
     keys = sorted(f for f in os.listdir(input_dir)
@@ -78,7 +91,7 @@ def synthesize_backgrounds(input_dir: str, dain_dir: str, rate: int,
         np.asarray(Image.open(os.path.join(input_dir, f)).convert("RGB"))
         for f in keys]).astype(np.float32) / 255.0
     dense = upsample_background(torch.from_numpy(frames).to(device), rate,
-                                interp_fn=interp_fn)
+                                interp_fn=interp_fn, slomo=slomo)
     arr = (dense.clamp(0, 1) * 255).to(torch.uint8).cpu().numpy()
     os.makedirs(dain_dir, exist_ok=True)
     for i in range(arr.shape[0]):

@@ -10,8 +10,9 @@ stages:
      (``MotionInterpolator.interpolate_openpose``), ``Predict_motion/``
      and ``Linear_motion/``;
   2. background synthesis: flow-interpolated keyframes
-     (``infer_renderer.synthesize_backgrounds``; LK, or the learned UNet
-     of ``--flow-ckpt``), ``DAIN/``;
+     (``infer_renderer.synthesize_backgrounds``; LK, the learned UNet
+     of ``--flow-ckpt``, or with ``--background superslomo`` Super
+     SloMo with the weights of ``--slomo-ckpt``), ``DAIN/``;
   3. rendering: the pose-conditioned SPADE rollout with soft
      compositing (``render_eval.render_folder``), ``Generated_frames/``;
   4. optional mp4/gif export (imageio).
@@ -84,20 +85,35 @@ def main(argv=None) -> dict:
                    help="learned flow checkpoint for stage 2 (default: "
                         "pyramidal LK): " + infer_renderer.FLOW_CKPT_HELP)
     p.add_argument("--flow-config", type=str, default=None)
+    p.add_argument("--background", choices=("lk", "superslomo"),
+                   default="lk",
+                   help="stage 2's interpolator: Lucas-Kanade (or the "
+                        "learned UNet of --flow-ckpt), or Super SloMo "
+                        "(needs --slomo-ckpt)")
+    p.add_argument("--slomo-ckpt", type=str, default=None,
+                   help="with --background superslomo: " +
+                        infer_renderer.SLOMO_CKPT_HELP)
     p.add_argument("--device", type=str, default="cuda")
     args = p.parse_args(argv)
 
     if args.pose_dir is None and not args.pose_ckpt:
         raise SystemExit("either --pose-dir (external openpose JSONs) or "
                          "--pose-ckpt (the pose head) is required")
+    if args.background == "superslomo" and not args.slomo_ckpt:
+        raise SystemExit("--background superslomo needs --slomo-ckpt")
+    if args.background == "superslomo" and args.flow_ckpt:
+        raise SystemExit("--flow-ckpt is the LK backend's learned UNet; "
+                         "--background superslomo takes --slomo-ckpt")
     device = cli_device("pipeline", args.device)
     set_float32_precision()
     os.makedirs(args.out_dir, exist_ok=True)
     seconds = {}
 
-    # the learned flow's weights, read before any stage runs
+    # the learned backgrounds' weights, read before any stage runs
     interp_fn = infer_renderer.load_flow_interp(
         args.flow_ckpt, args.flow_config, device) if args.flow_ckpt else None
+    slomo = infer_renderer.load_slomo(args.slomo_ckpt, device) \
+        if args.background == "superslomo" else None
 
     # ---- stage 0 (optional): pose extraction ------------------------
     pose_dir = args.pose_dir
@@ -131,11 +147,12 @@ def main(argv=None) -> dict:
     tic = time.perf_counter()
     dain_dir = os.path.join(args.out_dir, "DAIN")
     n_back = infer_renderer.synthesize_backgrounds(
-        args.frames_dir, dain_dir, args.rate, device, interp_fn)
+        args.frames_dir, dain_dir, args.rate, device, interp_fn, slomo)
     seconds["background"] = time.perf_counter() - tic
+    backend = "Super SloMo" if slomo is not None else \
+        "learned" if interp_fn else "LK"
     print(f"background: wrote {n_back} flow-interpolated frames "
-          f"({'learned' if interp_fn else 'LK'} backend, "
-          f"{seconds['background']:.2f} s)")
+          f"({backend} backend, {seconds['background']:.2f} s)")
 
     # ---- stage 3: neural rendering ----------------------------------
     tic = time.perf_counter()

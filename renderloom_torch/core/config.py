@@ -9,8 +9,9 @@ settings, discriminators, optimizer, loss weights and
 (:class:`MotionDatasetConfig`: the AMASS synthesis, projection,
 statistics-file and openpose settings), its optimizer
 (:class:`MotionOptimConfig`), loss weights and training schedule, and
-the learned flow interpolator (:class:`FlowConfig`) and pose head
-(:class:`PoseNetConfig`).  Defaults equal the
+the learned flow interpolator (:class:`FlowConfig`), pose head
+(:class:`PoseNetConfig`) and Super SloMo background interpolator
+(:class:`SloMoConfig`, which the JAX package lacks).  Defaults equal the
 reference's shipped configs
 (``Human_Motion_Modelling/configs/config.yaml``,
 ``Pose_Guided_Neural_Rendering/configs/HSM.yaml``); yaml files in
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Sequence
+from typing import Any, Mapping, Sequence, Tuple
 
 import torch
 import yaml
@@ -364,6 +365,22 @@ class FlowConfig:
 
 
 @dataclass(frozen=True)
+class SloMoConfig:
+    """Super SloMo, the serving pipeline's learned background backend
+    (:mod:`renderloom_torch.models.superslomo`), at its published widths
+    (arXiv:1712.00080 §3, Fig. 3): per level of both U-Nets the
+    channels and the kernel size, the leaky ReLU's slope, and the
+    per-channel mean taken off the keyframes going in (the public
+    implementation's)."""
+
+    widths: Tuple[int, ...] = (32, 64, 128, 256, 512, 512)
+    kernels: Tuple[int, ...] = (7, 5, 3, 3, 3, 3)
+    leaky_slope: float = 0.1
+    mean: Tuple[float, ...] = (0.429, 0.431, 0.397)
+    compute_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
 class PoseNetConfig:
     """The 2-D pose head (:mod:`renderloom_torch.models.posenet`)."""
 
@@ -454,3 +471,13 @@ def load_flow_config(path: str) -> FlowConfig:
 
 def load_pose_config(path: str) -> PoseNetConfig:
     return _update_dataclass(PoseNetConfig(), load_yaml(path))
+
+
+def slomo_config_from_dict(raw: Mapping[str, Any]) -> SloMoConfig:
+    """A :class:`SloMoConfig` from a mapping (a configuration file's
+    ``slomo`` section); six widths and six kernels, or a ValueError."""
+    cfg = _update_dataclass(SloMoConfig(), raw)
+    if len(cfg.widths) != 6 or len(cfg.kernels) != 6 or len(cfg.mean) != 3:
+        raise ValueError("slomo: six widths, six kernels and a mean of "
+                         f"three channels, not {cfg}")
+    return cfg

@@ -1,5 +1,8 @@
 """Serving pipeline: motion upsample → flow backgrounds → label
-rasterization → segment rollout + compositing, over N clips.
+rasterization → segment rollout + compositing, over N clips.  The
+backgrounds are Lucas-Kanade's, or Super SloMo's
+(:mod:`renderloom_torch.models.superslomo`; ``build_pipeline``'s
+``slomo_cfg``), which the JAX pipeline lacks.
 
 Port of the JAX package's ``renderloom/eval/pipeline.py``
 (``assemble_keyframe_stream``, ``make_pipeline_fn``, ``build_pipeline``).
@@ -16,10 +19,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from renderloom_torch.convert import load_flax_params, random_init_
 from renderloom_torch.data.hsm import prepare_batch
 from renderloom_torch.eval.motion_infer import (MotionInterpolator,
                                                 bucket_length,
                                                 make_interpolator)
+from renderloom_torch.models.superslomo import SuperSloMo
 from renderloom_torch.ops.flow import upsample_background
 from renderloom_torch.ops.image import separable_resize
 from renderloom_torch.train.gan import (make_inference_pair,
@@ -47,8 +52,8 @@ FLOW = dict(levels=3, iters=1, flow_scale=4)
 def make_pipeline_fn(interp: MotionInterpolator, rollout: Callable,
                      data_cfg, rate: int, keyframes: int, *,
                      packed_label: bool = False, label_bf16: bool = False,
-                     src_size: Optional[Tuple[int, int]] = None
-                     ) -> Callable:
+                     src_size: Optional[Tuple[int, int]] = None,
+                     background: Optional[Callable] = None) -> Callable:
     """The clip-interpolation pipeline as one callable.
 
     Returns ``fn(motion, conf, keys) -> (fused, sync)`` over clips::
@@ -63,7 +68,11 @@ def make_pipeline_fn(interp: MotionInterpolator, rollout: Callable,
     ``packed_label`` / ``label_bf16``: the label stream parity-packed
     (B, L, H/2, W/2, 88) / stored in bf16, for a rollout over the
     parity-layout generator (:func:`build_pipeline` ``fastpath``).
-    Under a profiler the stages are the spans ``pipeline.motion``,
+    ``background``: ``background(keys, rate) -> (N, L, H, W, 3)``
+    backgrounds of all N clips in one call (a :class:`~renderloom_torch.
+    models.superslomo.SuperSloMo`), in place of Lucas-Kanade clip by
+    clip; the callable keeps it as its ``background``.  Under a
+    profiler the stages are the spans ``pipeline.motion``,
     ``pipeline.background``, ``pipeline.label`` and ``pipeline.rollout``
     (:func:`renderloom_torch.utils.profiling.annotate`).
     """
@@ -79,10 +88,14 @@ def make_pipeline_fn(interp: MotionInterpolator, rollout: Callable,
             pred, _, dconf = interp._run(motion, conf, rate, times,
                                          interp_pad)
         with annotate("pipeline.background"):
-            # one clip at a time, as the JAX pipeline's lax.map: the flow
-            # temporaries of one clip are live at once, not all clips'
-            backs = torch.stack([upsample_background(k, rate, **FLOW)
-                                 for k in keys])
+            if background is not None:
+                backs = background(keys, rate)
+            else:
+                # one clip at a time, as the JAX pipeline's lax.map: the
+                # flow temporaries of one clip are live at once, not all
+                # clips'
+                backs = torch.stack([upsample_background(k, rate, **FLOW)
+                                     for k in keys])
         with annotate("pipeline.label"):
             poses = torch.cat([pred[..., :L] * 256 + 256, dconf], dim=2)
             poses = poses.permute(0, 3, 1, 2).float()
@@ -100,6 +113,7 @@ def make_pipeline_fn(interp: MotionInterpolator, rollout: Callable,
 
     pipeline = torch.inference_mode()(body)
     pipeline.body = body        # what PipelineModule traces
+    pipeline.background = background
     return pipeline
 
 
@@ -129,7 +143,8 @@ def build_pipeline(mcfg, rcfg, rate: int, keyframes: int, *,
                    mean: Optional[np.ndarray] = None,
                    std: Optional[np.ndarray] = None,
                    src_size: Optional[Tuple[int, int]] = None,
-                   device="cuda", fastpath: bool = False):
+                   device="cuda", fastpath: bool = False,
+                   slomo_cfg=None, slomo_params=None):
     """Models and the pipeline callable from the two configs, on
     ``device`` (the card unless the caller asks for the CPU; without a
     CUDA device a CUDA request raises).
@@ -146,8 +161,13 @@ def build_pipeline(mcfg, rcfg, rate: int, keyframes: int, *,
 
     ``m_params`` / ``g_params`` + ``g_stats``: numpy flax trees of trained
     weights (spectral norm is folded here); seeded random weights when
-    omitted (motion seed 0, generator seed 1).  Returns ``(fn, motion
-    model, generator)``; ``fn`` is :func:`make_pipeline_fn`'s callable.
+    omitted (motion seed 0, generator seed 1).
+
+    ``slomo_cfg`` (:class:`~renderloom_torch.core.config.SloMoConfig`):
+    the backgrounds are Super SloMo's at that config, with the numpy
+    flax tree ``slomo_params`` (seeded random weights when omitted,
+    seed 2), in place of Lucas-Kanade.  Returns ``(fn, motion model,
+    generator)``; ``fn`` is :func:`make_pipeline_fn`'s callable.
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -157,7 +177,16 @@ def build_pipeline(mcfg, rcfg, rate: int, keyframes: int, *,
 
     interp = make_interpolator(mcfg, m_params, mean, std, device)
     gen = make_inference_pair(rcfg, g_params, g_stats, device, fastpath)
+    background = None
+    if slomo_cfg is not None:
+        background = SuperSloMo(slomo_cfg)
+        if slomo_params is None:
+            random_init_(background, seed=2)
+        else:
+            load_flax_params(background, slomo_params)
+        background = background.to(device).eval()
     fn = make_pipeline_fn(interp, make_segment_rollout(gen, rate),
                           rcfg.data, rate, keyframes, packed_label=fastpath,
-                          label_bf16=fastpath, src_size=src_size)
+                          label_bf16=fastpath, src_size=src_size,
+                          background=background)
     return fn, interp.model, gen

@@ -13,7 +13,9 @@ CLIs' backgrounds).  The reference's two usage patterns:
 A midpoint-only ``interp_fn(img0, img1, t)`` (the learned UNet,
 ``models.flownet.make_learned_interp``) takes the place of LK in
 ``frame_double_pairs``, ``train_background`` and, by recursive
-doubling, ``upsample_background``.  Images are batched NHWC
+doubling, ``upsample_background``; an arbitrary-time model (Super
+SloMo, ``models.superslomo.SuperSloMo``) takes it in
+``upsample_background`` at any rate, every time in one batch.  Images are batched NHWC
 (B, H, W, C); every function takes the batch the JAX code
 ``vmap``\\ s over, and an ``interp_fn`` gets all pairs as one batch.
 """
@@ -203,7 +205,8 @@ def upsample_background(frames: torch.Tensor, rate: int, levels: int = 4,
                         iters: int = 3,
                         interp_fn: Optional[Callable] = None,
                         flow_scale: int = 1,
-                        max_disp: int = 16) -> torch.Tensor:
+                        max_disp: int = 16,
+                        slomo: Optional[Callable] = None) -> torch.Tensor:
     """(K, H, W, C) keyframes → ((K-1)·rate+1, H, W, C) backgrounds.
 
     Flow is estimated once per keyframe pair in both directions; every
@@ -217,7 +220,12 @@ def upsample_background(frames: torch.Tensor, rate: int, levels: int = 4,
 
     A midpoint-only ``interp_fn`` (the learned UNet) takes recursive
     doubling instead, :func:`frame_double_pairs` log2(rate) times; the
-    rate must then be a power of two."""
+    rate must then be a power of two.  An arbitrary-time ``slomo``
+    (``slomo(keys, rate)`` over (N, K, H, W, C) clips: Super SloMo)
+    estimates the flows once per pair and makes every in-between time
+    in one batch, at any rate ≥ 2."""
+    if slomo is not None:
+        return slomo(frames[None], rate)[0]
     if interp_fn is not None:
         times = int(rate).bit_length() - 1
         if 2 ** times != rate:

@@ -14,9 +14,13 @@ CLIs' ``--profile-dir``, or any ``torch.profiler`` session) shows:
 
 * a serving request (``eval/pipeline.py:make_pipeline_fn``):
   ``pipeline.motion`` (the motion transformer), ``pipeline.background``
-  (Lucas-Kanade backgrounds), ``pipeline.label`` (poses, keyframe stream
-  and the rasterized label) and ``pipeline.rollout`` (the generator's
-  rollout and compositing), once each, in that order;
+  (Lucas-Kanade or Super SloMo backgrounds), ``pipeline.label`` (poses,
+  keyframe stream and the rasterized label) and ``pipeline.rollout``
+  (the generator's rollout and compositing), once each, in that order;
+  with Super SloMo's backgrounds (``models/superslomo.py``),
+  ``pipeline.background`` holds ``background.flow_net``,
+  ``background.warp``, ``background.time_net`` and
+  ``background.warp`` again, in that order;
 * a renderer train step (``train/gan.py:make_gan_train_step``):
   ``gan.prep`` once (on raw windows), then per trained frame
   ``gan.g_forward``, ``gan.d_step`` and ``gan.g_step``.

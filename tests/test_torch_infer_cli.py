@@ -11,7 +11,9 @@ float32 differences of the transformer's output; the reading is
 4.6e-5 px); the generated PNGs within 1 level of JAX's ``render_folder``
 run on the port's own ``DAIN/`` and ``Predict_motion/`` (so the
 background quantization is not counted twice), and the LK backgrounds
-within 1 level of JAX's ``synthesize_backgrounds``.
+within 1 level of JAX's ``synthesize_backgrounds``.  Super SloMo's
+backgrounds (``--background superslomo``), which the JAX package lacks,
+are held against the port's own model on the same files, exactly.
 """
 
 import json
@@ -34,13 +36,15 @@ from renderloom.eval import render_eval as JE
 from renderloom.eval.motion_infer import MotionInterpolator as JInterp
 from renderloom.models.motion_transformer import build_motion_model
 from renderloom_torch.cli import infer_motion, infer_renderer, pipeline
-from renderloom_torch.convert import load_flax_params
+from renderloom_torch.convert import (flax_trees, load_flax_params,
+                                      random_init_)
 from renderloom_torch.core import checkpoint
 from renderloom_torch.data.amass import stats_paths
 from renderloom_torch.data.openpose import write_openpose_dir
 from renderloom_torch.models import motion_transformer as TM
 from renderloom_torch.models.layers import enable_spectral_norm
 from renderloom_torch.models.renderer import Generator
+from renderloom_torch.models.superslomo import SuperSloMo
 
 H, W, RATE, K = 64, 96, 2, 3
 JOINT_TOL = 1e-3        # px
@@ -221,6 +225,42 @@ def test_synthesize_backgrounds_matches_jax(files, tmp_path):
     print(f"backgrounds: max |port - JAX| {diff.max()} levels, "
           f"{100 * (diff > 0).mean():.4f}% of values not equal")
     assert diff.max() <= 1
+
+
+@pytest.mark.parametrize("fmt", ["npz", "pt"])
+def test_pipeline_cli_takes_superslomo_backgrounds(files, tmp_path, fmt):
+    """``--background superslomo``: stage 2 writes Super SloMo's
+    backgrounds (published widths, seeded weights) read from a checkpoint
+    the test writes, the port's ``torch.save`` of the state dict or an
+    ``.npz`` of its flax tree, exactly as the model makes them from the
+    keyframe files; the frames are rendered over them."""
+    model = random_init_(SuperSloMo(), seed=5).eval()
+    ckpt = str(tmp_path / f"slomo.{fmt}")
+    if fmt == "pt":
+        torch.save(model.state_dict(), ckpt)
+    else:
+        checkpoint.write_npz(ckpt, flax_trees(model)[0])
+    out = tmp_path / "out"
+    seconds = pipeline.main([
+        "--frames-dir", files["frames"], "--pose-dir", files["poses"],
+        "--motion-ckpt", files["motion.npz"], "--renderer-ckpt",
+        files["renderer.npz"], "--motion-config", files["motion_cfg"],
+        "--renderer-config", files["renderer_cfg"], "--out-dir", str(out),
+        "--rate", str(RATE), "--device", "cpu", "--background",
+        "superslomo", "--slomo-ckpt", ckpt])
+    assert sorted(seconds) == ["background", "motion", "render"]
+    keys = torch.from_numpy(_pngs(files["frames"]).astype(np.float32)
+                            / 255.0)
+    with torch.inference_mode():
+        want = model(keys[None], RATE)[0]
+    want = (want.clamp(0, 1) * 255).to(torch.uint8).numpy()
+    np.testing.assert_array_equal(_pngs(out / "DAIN"), want)
+    assert _pngs(out / "Generated_frames").shape == ((K - 1) * RATE + 1, H,
+                                                     W, 3)
+    with pytest.raises(SystemExit, match="needs --slomo-ckpt"):
+        pipeline.main(["--frames-dir", ".", "--pose-dir", ".",
+                       "--motion-ckpt", "m", "--renderer-ckpt", "r",
+                       "--out-dir", str(out), "--background", "superslomo"])
 
 
 @pytest.mark.parametrize("cli,argv", [
