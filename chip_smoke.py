@@ -88,6 +88,20 @@ UC. holds the fused nearest ×2 upsample and 3×3 float32 convolution
    holds them against the module structure: 3 a float32 standard
    generator step in inference (9 a clip at rate 4), none in bf16, on
    the fastpath or in a training step;
+SW. holds the shift warp as a gather and fused with the LK time blend
+   (``csrc/shiftwarp.cu``) against its twins and the card's shift loop
+   with ``torch.equal``: the whole ``upsample_background(**FLOW)`` of
+   phase 4's keyframes and of three seeded drifting clips (flows past
+   the bound), every warp they make ((14, 80, 120, 3) at R 4, (21, 320,
+   480, 3) at R 16), the fused stream, and rates 2, 3 and 5 at 96x64;
+   one launch a call, two calls bit for bit; times kernel, twin and loop
+   beside the bytes bound, and the whole background a clip with the
+   kernels and by the loop.  Every phase that counts serving launches
+   holds the two kernels' too: one of each an LK clip at ``FLOW`` (the
+   in-memory pipeline in every configuration, the artifact, the
+   planner's N clips), four per doubling of the learned backgrounds
+   (L, V2), none where the CLIs' full-resolution flow, the h5 or the
+   prepared clips give the backgrounds or in training;
 R. holds K2's r3centered mode against its twin at every shape the bf16
    standard run gave it (recorded by a call hook) to one bf16 ulp of n
    (× |γ|), with at most 0.01% of elements not bit-equal; prints each
@@ -1213,9 +1227,31 @@ def derived_fast_launches(cfg, packed_levels: int, bf16: bool = False
             "instance_norm_parity": parity, "instance_norm_r3": 0}
 
 
+def _lk_warps(clips: int) -> dict:
+    """``csrc/shiftwarp.cu`` launches of ``clips`` LK clips at the serving
+    pipeline's ``FLOW`` (float32 keyframes on the card): the quarter-
+    resolution consistency warp and the fused warps and blend, once each
+    a clip."""
+    return {"shift_warp": clips, "shift_warp_blend": clips}
+
+
+def _time_warps(rate: int) -> dict:
+    """``csrc/shiftwarp.cu`` launches of the learned backgrounds of one
+    clip at ``rate``: ``time_warp``'s four warps (w0, w1, c1, c0) in each
+    of the log2(rate) doublings."""
+    return {"shift_warp": 4 * int(np.log2(rate)), "shift_warp_blend": 0}
+
+
+def _warp_launches() -> dict:
+    from renderloom_torch.ops import shiftwarp_kernel as SK
+
+    return {"shift_warp": SK.shift_warp_cuda.launches,
+            "shift_warp_blend": SK.shift_warp_blend_cuda.launches}
+
+
 def _serve_launches() -> dict:
-    """Launch counts of a serving run, K1 by layout, K2 by kind and the
-    fused up convolution."""
+    """Launch counts of a serving run, K1 by layout, K2 by kind, the
+    fused up convolution and the shift warps."""
     from renderloom_torch.ops import norm_kernel as NK
     from renderloom_torch.ops import rasterize_kernel as RK
     from renderloom_torch.ops import upconv_kernel as UK
@@ -1225,7 +1261,7 @@ def _serve_launches() -> dict:
             "instance_norm": NK.instance_norm_cuda.launches,
             "instance_norm_parity": NK.instance_norm_cuda.parity_launches,
             "instance_norm_r3": NK.instance_norm_cuda.r3_launches,
-            "upconv": UK.upconv_cuda.launches}
+            "upconv": UK.upconv_cuda.launches, **_warp_launches()}
 
 
 def _sum_shapes(kernel, per, shapes, inputs, check, times,
@@ -1300,10 +1336,12 @@ def phase_pipeline():
     want_up = _count_upconvs(gen) * (rate - 1)
     print(f"  launches in one run: {launches} (K2 expected {want_norms} = "
           f"{_count_norms(gen)} per generator step x {rate - 1} steps, "
-          f"upconv {want_up} = {_count_upconvs(gen)} x {rate - 1})")
+          f"upconv {want_up} = {_count_upconvs(gen)} x {rate - 1}, "
+          f"shift warps {_lk_warps(1)})")
     if launches != {"rasterize": 1, "rasterize_packed": 0,
                     "instance_norm": want_norms, "instance_norm_parity": 0,
-                    "instance_norm_r3": 0, "upconv": want_up}:
+                    "instance_norm_r3": 0, "upconv": want_up,
+                    **_lk_warps(1)}:
         raise AssertionError(f"kernel launches {launches}")
     if sum(seen.values()) != want_norms:
         raise AssertionError(f"recorded {sum(seen.values())} norms")
@@ -1532,7 +1570,7 @@ def phase_fastpath(serve):
     launches = _serve_launches()
     per = derived_fast_launches(rcfg.gen, gen.packed_levels)
     want = {"rasterize": 0, "rasterize_packed": 1, "upconv": 0,
-            **{k: v * (rate - 1) for k, v in per.items()}}
+            **_lk_warps(1), **{k: v * (rate - 1) for k, v in per.items()}}
     print(f"  launches in one run: {launches}; derived {want} ({per} per "
           f"generator step x {rate - 1} steps)")
     if launches != want:
@@ -1992,6 +2030,7 @@ def phase_bf16(serve, fast, conv_lines):
                    "instance_norm_r3": _count_norms(gen)}
         want = {"rasterize": 0 if fastpath else 1,
                 "rasterize_packed": 1 if fastpath else 0, "upconv": 0,
+                **_lk_warps(1),
                 **{k: v * (rate - 1) for k, v in per.items()}}
         print(f"  {name}: launches in one run {launches}; derived {want} "
               f"({per} per generator step x {rate - 1} steps)")
@@ -2227,6 +2266,185 @@ def phase_upconv(serve) -> dict:
     _write("upconv_convs.txt", "\n".join(lines))
     print("  " + "\n  ".join(lines))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# SW. the shift warp as a gather, alone and fused with the LK blend
+# ---------------------------------------------------------------------------
+
+SW_RATES = (2, 3, 5)     # beside the serving rate, at 96x64, 3 keyframes
+
+
+def _sw_keys(K: int, H: int, W: int, seed: int) -> torch.Tensor:
+    """K keyframes (K, H, W, 3) in [0, 1] on the card: a smooth texture
+    drifting a seeded 3-20 px a keyframe along each axis, and a little
+    noise, so that the flows reach past the warp's bound."""
+    g = torch.Generator().manual_seed(seed)
+    v = (3 + 17 * torch.rand(2, generator=g)) * torch.sign(
+        torch.rand(2, generator=g) - 0.5)
+    ys = torch.arange(H, dtype=torch.float32)[:, None]
+    xs = torch.arange(W, dtype=torch.float32)[None, :]
+    frames = torch.stack([torch.stack([
+        0.5 + 0.3 * torch.sin((xs - v[0] * k) / 9 + c)
+        * torch.cos((ys - v[1] * k) / 13 - c) for c in range(3)], -1)
+        for k in range(K)])
+    noise = 0.03 * torch.rand(frames.shape, generator=g)
+    return (frames + noise).clamp(0, 1).to("cuda")
+
+
+def _lk_by_loop(keys, rate: int, flow_kw: dict):
+    """``upsample_background(keys, rate, **flow_kw)`` on the card by the
+    shift loop (the kernels' route switched off), with (img, flow, R,
+    out) of every warp it made and the full-resolution flows and errors
+    it blended."""
+    from renderloom_torch.ops import flow as FO
+
+    warps, full = [], {}
+    saved = FO._on_card, FO.backward_warp_shift, FO.blend_stream
+
+    def rec_warp(img, flow, max_disp=16):
+        out = saved[1](img, flow, max_disp)
+        warps.append((img, flow, max_disp, out))
+        return out
+
+    def rec_blend(frames, flows, errs, rate, warp):
+        full.update(flows=flows, errs=errs)
+        return saved[2](frames, flows, errs, rate, warp)
+    FO._on_card, FO.backward_warp_shift, FO.blend_stream = (
+        lambda x: False), rec_warp, rec_blend
+    try:
+        stream = FO.upsample_background(keys, rate, **flow_kw)
+        torch.cuda.synchronize()
+    finally:
+        FO._on_card, FO.backward_warp_shift, FO.blend_stream = saved
+    return stream, warps, full
+
+
+def _sw_equal(name: str, got: torch.Tensor, want: torch.Tensor):
+    """Raise unless ``torch.equal(got, want)`` (signed zeros aside, bit
+    for bit)."""
+    ok = tuple(got.shape) == tuple(want.shape) and torch.equal(got, want)
+    print(f"  {name}: torch.equal {'ok' if ok else 'FAIL'}")
+    if not ok:
+        diff = ((got - want).abs() if got.shape == want.shape
+                else torch.tensor(float("nan")))
+        raise AssertionError(f"{name}: not equal, max |err| "
+                             f"{diff.max().item()} at "
+                             f"{int((diff != 0).sum())} values")
+
+
+def _sw_times(name: str, kern, twin, loop, n_bytes: float) -> dict:
+    """Call and device ms of ``kern`` beside the bytes bound, its twin
+    and the shift loop (in turns with the kernel)."""
+    ms = [cuda_ms(kern), cuda_ms(loop, iters=5, warmup=1), cuda_ms(kern)]
+    dev = device_ms(kern)
+    bnd, by = bound_ms(n_bytes, 0)
+    row = dict(ms=min(ms[0], ms[2]), device_ms=dev, bound_ms=bnd,
+               bound_by=by, plain_ms=cuda_ms(twin, 5, 1), library_ms=ms[1])
+    print(f"  {name}: call {ms[0]:.4f} / {ms[2]:.4f} ms, device {dev:.4f} "
+          f"ms ({100 * bnd / dev:.1f}% of the bytes bound {bnd:.4f} ms); "
+          f"twin {row['plain_ms']:.4f} ms; the shift loop {ms[1]:.4f} ms")
+    return row
+
+
+@torch.inference_mode()
+def phase_shiftwarp(serve) -> dict:
+    """SW: both kernels of ``csrc/shiftwarp.cu`` against their twins and
+    the card's shift loop with ``torch.equal``: the whole LK backgrounds
+    (``eval.pipeline.FLOW``) of phase 4's keyframes and three seeded
+    drifting clips at the serving shapes, every warp they make, other
+    rates; one launch a call, two calls bit for bit; times beside the
+    bytes bound, the twin and the loop."""
+    from renderloom_torch.eval.pipeline import FLOW
+    from renderloom_torch.ops import flow as FO
+    from renderloom_torch.ops import shiftwarp_kernel as SK
+
+    rate, K = serve["rate"], serve["K"]
+    H, W = serve["rcfg"].data.model_height, serve["rcfg"].data.model_width
+    L = (K - 1) * rate + 1
+    print(f"SW. csrc/shiftwarp.cu: the clipped shift warp as a gather "
+          f"(rl_shift_warp) and fused with the LK time blend "
+          f"(rl_shift_warp_blend), against the twins and the card's shift "
+          f"loop: upsample_background(**{FLOW}), {K} keyframes at {W}x{H}, "
+          f"rate {rate}")
+    clips = [("phase 4's keyframes", serve["inputs"][2][0])] + [
+        (f"drifting clip {s}", _sw_keys(K, H, W, s)) for s in (1, 2, 3)]
+    first = None
+    for name, keys in clips:
+        want, warps, full = _lk_by_loop(keys, rate, FLOW)
+        _reset_launches()
+        got = FO.upsample_background(keys, rate, **FLOW)
+        torch.cuda.synchronize()
+        if _warp_launches() != _lk_warps(1):
+            raise AssertionError(f"SW {name}: launches {_warp_launches()}")
+        flows, errs = full["flows"].contiguous(), full["errs"].contiguous()
+        print(f"  {name}: |flow| up to {flows.abs().max().item():.1f} px, "
+              f"{(flows.abs() > 16).float().mean().item():.2%} of "
+              f"components past 16; one launch of each kernel")
+        _sw_equal("upsample_background, kernels vs the loop", got, want)
+        for img, flow, R, out in warps:
+            img, flow = img.contiguous(), flow.contiguous()
+            tag = f"{tuple(img.shape)} R {R}"
+            _sw_equal(f"rl_shift_warp {tag} vs the loop",
+                      SK.shift_warp_cuda(img, flow, R), out)
+            _sw_equal(f"twin {tag} vs the loop",
+                      SK.shift_warp_plain(img, flow, R), out)
+        _sw_equal("rl_shift_warp_blend vs the loop's stream",
+                  SK.shift_warp_blend_cuda(keys, flows, errs, rate, 16), want)
+        _sw_equal("its twin vs the loop's stream", SK.shift_warp_blend_plain(
+            keys, flows, errs, rate, 16), want)
+        first = first or (keys, warps, flows, errs)
+        del want, got
+    small = _sw_keys(3, 64, 96, 7)
+    for r in SW_RATES:
+        want, _, _ = _lk_by_loop(small, r, FLOW)
+        _sw_equal(f"rate {r}, 3 keyframes at 96x64: kernels vs the loop",
+                  FO.upsample_background(small, r, **FLOW), want)
+
+    keys, warps, flows, errs = first
+    blend = lambda: SK.shift_warp_blend_cuda(keys, flows, errs, rate, 16)
+    one_kernel("rl_shift_warp_blend", blend, "blend_kernel")
+    same_bits("rl_shift_warp_blend second call", blend(), blend())
+    rows = {}
+    for tag, (img, flow, R, _) in (("warp_consistency", warps[0]),
+                                   ("warp_full", warps[1])):
+        img, flow = img.contiguous(), flow.contiguous()
+        kern = lambda: SK.shift_warp_cuda(img, flow, R)
+        one_kernel(f"rl_shift_warp {tuple(img.shape)}", kern, "warp_kernel")
+        same_bits(f"rl_shift_warp {tuple(img.shape)} second call", kern(),
+                  kern())
+        rows[tag] = dict(shape=f"{tuple(img.shape)} f32, R {R}", **_sw_times(
+            f"rl_shift_warp {tuple(img.shape)} R {R}", kern,
+            lambda: SK.shift_warp_plain(img, flow, R),
+            lambda: FO._shift_resample1d(FO._shift_resample1d(
+                img, flow[..., 0], 2, R), flow[..., 1], 1, R),
+            4 * (2 * img.numel() + flow.numel())))
+    rows["blend"] = dict(
+        shape=f"{K} keyframes {tuple(keys.shape[1:])} -> ({L}, {H}, {W}, 3) "
+              f"f32, rate {rate}, R 16",
+        **_sw_times("rl_shift_warp_blend", blend,
+                    lambda: SK.shift_warp_blend_plain(keys, flows, errs, rate,
+                                                      16),
+                    lambda: FO.blend_stream(
+                        keys, flows, errs, rate,
+                        lambda x, f: FO._shift_resample1d(FO._shift_resample1d(
+                            x, f[..., 0], 2, 16), f[..., 1], 1, 16)),
+                    4 * (keys.numel() + flows.numel() + errs.numel()
+                         + L * H * W * 3)))
+    on_card = FO._on_card
+
+    def by_loop():
+        FO._on_card = lambda x: False
+        try:
+            return FO.upsample_background(keys, rate, **FLOW)
+        finally:
+            FO._on_card = on_card
+    whole = {"kernels": cuda_ms(lambda: FO.upsample_background(
+        keys, rate, **FLOW), 10, 2), "loop": cuda_ms(by_loop, 5, 1)}
+    print(f"  upsample_background(**FLOW) a clip: {whole['kernels']:.3f} ms "
+          f"with the kernels, {whole['loop']:.3f} ms by the shift loop "
+          f"({card_line()})")
+    return dict(rows=rows, whole_ms=whole)
 
 
 # ---------------------------------------------------------------------------
@@ -2950,7 +3168,7 @@ def derived_train_launches(cfg, gen, dis, frames: int) -> dict:
             "instance_norm_r3": fwd if r3 else 0,
             "instance_norm_bwd": 0 if r3 else bwd,
             "instance_norm_bwd_r3": bwd if r3 else 0,
-            "upconv": 0}
+            "upconv": 0, **_lk_warps(0)}
 
 
 def _train_launches() -> dict:
@@ -2964,13 +3182,14 @@ def _train_launches() -> dict:
             "instance_norm_r3": NK.instance_norm_cuda.r3_launches,
             "instance_norm_bwd": NK.instance_norm_bwd_cuda.launches,
             "instance_norm_bwd_r3": NK.instance_norm_bwd_cuda.r3_launches,
-            "upconv": UK.upconv_cuda.launches}
+            "upconv": UK.upconv_cuda.launches, **_warp_launches()}
 
 
 def _reset_launches():
     """Every kernel wrapper's launch counts to 0."""
     from renderloom_torch.ops import norm_kernel as NK
     from renderloom_torch.ops import rasterize_kernel as RK
+    from renderloom_torch.ops import shiftwarp_kernel as SK
     from renderloom_torch.ops import upconv_kernel as UK
 
     RK.rasterize_tables_cuda.layout_launches = dict.fromkeys(RK.LAYOUTS, 0)
@@ -2980,6 +3199,7 @@ def _reset_launches():
     NK.instance_norm_bwd_cuda.launches = 0
     NK.instance_norm_bwd_cuda.r3_launches = 0
     UK.upconv_cuda.launches = 0
+    SK.shift_warp_cuda.launches = SK.shift_warp_blend_cuda.launches = 0
 
 
 def _snapshot(state):
@@ -4583,7 +4803,8 @@ def phase_serve_files(serve, bf16, probe):
                 "instance_norm_parity": 0,
                 "instance_norm_r3": norm if in_bf16 else 0,
                 "upconv": 0 if in_bf16 else chunks * (rate - 1)
-                * _count_upconvs(serve["gen"])}
+                * _count_upconvs(serve["gen"]),
+                **_lk_warps(0)}         # the CLIs' LK: flow_scale 1
         print(f"  {tag}: launches {launches}; derived {want} ({chunks} "
               f"render chunk, {per_step} norms per generator step x "
               f"{rate - 1} steps); K1 masks "
@@ -4880,7 +5101,8 @@ def phase_eval(serve, probe):
                 "instance_norm": 0 if in_bf16 else norm,
                 "instance_norm_parity": 0,
                 "instance_norm_r3": norm if in_bf16 else 0,
-                "upconv": 0 if in_bf16 else steps * up_step}
+                "upconv": 0 if in_bf16 else steps * up_step,
+                **_lk_warps(0)}         # backgrounds from the h5
         print(f"  {tag}: launches {launches}; derived {want} (K1 once a "
               f"clip with masks; {per_step} norms per generator step x "
               f"{steps} steps: {-(-S // 32)} segment chunks of up to 32 "
@@ -4994,6 +5216,7 @@ import torch
 sys.path.insert(0, sys.argv[1])
 from renderloom_torch.eval.export import load_exported
 from renderloom_torch.ops import norm_kernel as NK, rasterize_kernel as RK
+from renderloom_torch.ops import shiftwarp_kernel as SK
 from renderloom_torch.ops import upconv_kernel as UK
 tic = time.perf_counter()
 serve, meta = load_exported(sys.argv[2])
@@ -5004,6 +5227,7 @@ torch.cuda.synchronize()
 RK.rasterize_tables_cuda.layout_launches = dict.fromkeys(RK.LAYOUTS, 0)
 NK.instance_norm_cuda.launches = NK.instance_norm_cuda.parity_launches = 0
 NK.instance_norm_cuda.r3_launches = UK.upconv_cuda.launches = 0
+SK.shift_warp_cuda.launches = SK.shift_warp_blend_cuda.launches = 0
 fused, sync = serve(motion, conf, keys)
 torch.cuda.synchronize()
 by = RK.rasterize_tables_cuda.layout_launches
@@ -5011,7 +5235,9 @@ launches = {"rasterize": by["nhwc"], "rasterize_packed": by["packed"],
             "instance_norm": NK.instance_norm_cuda.launches,
             "instance_norm_parity": NK.instance_norm_cuda.parity_launches,
             "instance_norm_r3": NK.instance_norm_cuda.r3_launches,
-            "upconv": UK.upconv_cuda.launches}
+            "upconv": UK.upconv_cuda.launches,
+            "shift_warp": SK.shift_warp_cuda.launches,
+            "shift_warp_blend": SK.shift_warp_blend_cuda.launches}
 runs = []
 for _ in range(3):
     torch.cuda.synchronize()
@@ -5361,6 +5587,8 @@ def phase_planner(serve, fast, bf16):
                   f"{max(times)}")
             torch.cuda.empty_cache()
             break
+        if {k: launches[k] for k in _lk_warps(0)} != _lk_warps(n):
+            raise AssertionError(f"N={n}: shift warp launches {launches}")
         times[n] = sum(runs) / len(runs)
         table[n] = dict(ms=times[n], peak_gib=peak, launches=launches,
                         fps=n * L / times[n] * 1e3)
@@ -5466,7 +5694,7 @@ def _kernel_launches() -> dict:
             "instance_norm_r3": NK.instance_norm_cuda.r3_launches,
             "instance_norm_bwd": NK.instance_norm_bwd_cuda.launches,
             "instance_norm_bwd_r3": NK.instance_norm_bwd_cuda.r3_launches,
-            "upconv": UK.upconv_cuda.launches}
+            "upconv": UK.upconv_cuda.launches, **_warp_launches()}
 
 
 def dp_gan_run(cfg, raws, device, seed=5):
@@ -6133,7 +6361,14 @@ def phase_flow(serve) -> dict:
     interp = infer_renderer.load_flow_interp(out["float32"]["ckpt"], None,
                                              DEVICE)
     with torch.inference_mode():
+        _reset_launches()
         backs = upsample_background(keys, rate, interp_fn=interp)
+        torch.cuda.synchronize()
+        if _warp_launches() != _time_warps(rate):
+            raise AssertionError(f"learned backgrounds: shift warp launches "
+                                 f"{_warp_launches()}, want "
+                                 f"{_time_warps(rate)}")
+        out["launches"] = _warp_launches()
         L = (keys.shape[0] - 1) * rate + 1
         if tuple(backs.shape) != (L,) + tuple(keys.shape[1:]) or \
                 not bool(torch.isfinite(backs).all()) or \
@@ -6335,12 +6570,13 @@ def phase_serve_learned(serve, files, flow, pose, probe) -> dict:
     want = {"rasterize": chunks, "rasterize_packed": 0,
             "instance_norm": chunks * (rate - 1) * per_step,
             "instance_norm_parity": 0, "instance_norm_r3": 0,
-            "upconv": chunks * (rate - 1) * _count_upconvs(gen)}
+            "upconv": chunks * (rate - 1) * _count_upconvs(gen),
+            **_time_warps(rate)}
     lk = files["serve_files"]
     print(f"  launches {launches}; derived {want}, phase V's LK run "
           f"{lk['launches']}")
-    if launches != want or launches != lk["launches"] or \
-            any(c[0][6] for c in calls):
+    if launches != want or dict(launches, **_lk_warps(0)) != \
+            lk["launches"] or any(c[0][6] for c in calls):
         raise AssertionError(f"V2 kernel launches {launches}")
     got = _png_dir(os.path.join(out_dir, "Generated_frames"))
     n_poses = len(os.listdir(os.path.join(out_dir, "poses")))
@@ -6983,7 +7219,8 @@ def phase_dp_serve(serve) -> dict:
     t_two = time.perf_counter() - tic
     g = lambda r: r["launches"]
     want = {"rasterize": 1, "instance_norm": _count_norms(serve["gen"])
-            * (rate - 1), "upconv": _count_upconvs(serve["gen"]) * (rate - 1)}
+            * (rate - 1), "upconv": _count_upconvs(serve["gen"]) * (rate - 1),
+            **_lk_warps(0)}         # the clips come with backgrounds
     for who, r in [("world 1", one)] + [(f"rank {i}", r)
                                         for i, r in enumerate(two)]:
         if {k: g(r)[k] for k in want} != want or g(r)["instance_norm_bwd"]:
@@ -7526,7 +7763,8 @@ def phase_import(serve, probe) -> dict:
     want = {"rasterize": chunks, "rasterize_packed": 0,
             "instance_norm": chunks * (rate - 1) * per_step,
             "instance_norm_parity": 0, "instance_norm_r3": 0,
-            "upconv": chunks * (rate - 1) * _count_upconvs(serve["gen"])}
+            "upconv": chunks * (rate - 1) * _count_upconvs(serve["gen"]),
+            **_lk_warps(0)}         # the CLI's LK: flow_scale 1
     runs = {}
     for tag, ckpts in (("imported", (out["motion"], out["renderer"])),
                        ("mapped", npz)):
@@ -7941,6 +8179,7 @@ def main() -> int:
     phase_fast_vs_standard(serve, fast)
     bf16 = phase_bf16(serve, fast, conv_lines)
     upconv = phase_upconv(serve)
+    shiftwarp = phase_shiftwarp(serve)
     r3 = phase_norm_r3(bf16)
     parity["serve_clip_fastpath_bf16"] = phase_norm_parity_bf16(bf16)
     phase_bf16_cpu_match()
@@ -8035,7 +8274,37 @@ def main() -> int:
     t16 = {k: v["launches"] for k, v in train16.items()}
     w32, w16 = (h5train[k]["launches"] for k in ("train_h5",
                                                  "train_h5_bf16"))
+    sw = lambda k: {"serve_clip": launches[k],
+                    "serve_clip_fastpath": fast["launches"][k],
+                    "serve_clip_bf16": bf16["standard"]["launches"][k],
+                    "serve_clip_fastpath_bf16": bf16["fastpath"]["launches"]
+                    [k], **{tag: v["launches"][k]
+                            for tag, v in {**files, **evals}.items()},
+                    "serve_exported": xs["launches"][k],
+                    "serve_exported_fastpath_bf16": xf["launches"][k],
+                    "serve_planner_fastpath_bf16": n8[k],
+                    "backgrounds_learned": flow["launches"][k],
+                    **({"serve_files_learned": learned["launches"][k]}
+                       if learned else {}),
+                    **dps(k), "serve_files_imported": ci_s[k],
+                    "train_3_steps": train["launches"][k]}
     kernels = [
+        dict(name="shift_warp_blend", route="cuda",
+             source="renderloom_torch/csrc/shiftwarp.cu",
+             replaces="none: the shift loop of ops/flow.py:_shift_resample1d "
+                      "and the LK time blend, which the JAX package leaves "
+                      "to XLA",
+             launches=launches["shift_warp_blend"],
+             launches_by_path=sw("shift_warp_blend"),
+             **shiftwarp["rows"]["blend"],
+             upsample_background_ms=shiftwarp["whole_ms"]),
+        dict(name="shift_warp", route="cuda",
+             source="renderloom_torch/csrc/shiftwarp.cu",
+             replaces="none: the shift loop of ops/flow.py:_shift_resample1d",
+             launches=launches["shift_warp"],
+             launches_by_path=sw("shift_warp"),
+             **shiftwarp["rows"]["warp_consistency"],
+             full_size=shiftwarp["rows"]["warp_full"]),
         dict(name="upconv", route="cuda",
              source="renderloom_torch/csrc/upconv.cu",
              replaces="none: upsample2x + the 3x3 convolution of the mask "

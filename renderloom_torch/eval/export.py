@@ -6,10 +6,12 @@ program holds the motion transformer's and the generator's weights and
 every constant the pipeline builds at trace time (resize matrices, the
 motion statistics), and calls the port's kernels through their
 registered operators ``renderloom::rasterize`` (K1),
-``renderloom::instance_norm`` (K2 in every mode) and
+``renderloom::instance_norm`` (K2 in every mode),
 ``renderloom::upconv`` (the float32 mask net's fused upsample and
-convolution), so a loaded artifact launches the same hand-written
-kernels as the live pipeline.  Loading it touches no model code, config
+convolution), ``renderloom::shift_warp`` and
+``renderloom::shift_warp_blend`` (the float32 LK backgrounds' warps and
+blend), so a loaded artifact launches the same hand-written kernels as
+the live pipeline.  Loading it touches no model code, config
 or checkpoint of the port: only the modules that register those
 operators.
 
@@ -110,7 +112,8 @@ def load_exported(path: str) -> Tuple[Callable, Dict[str, Any]]:
         raise ValueError(f"{path}: unsupported device {device}")
     # the operators the program calls
     from renderloom_torch.ops import (norm_kernel,  # noqa: F401
-                                      rasterize_kernel, upconv_kernel)
+                                      rasterize_kernel, shiftwarp_kernel,
+                                      upconv_kernel)
 
     program = torch.export.load(path).module()
     # float32 means float32, as the live pipeline sets it

@@ -5,7 +5,8 @@ Port of the JAX package's ``renderloom/ops/flow.py``.  LK backend
 (``upsample_background``): flow is estimated once per keyframe pair and
 direction, at 1/flow_scale resolution for the serving pipeline, whose
 full-resolution frames are then warped with the clipped separable
-shift-and-blend warp, reproduced exactly (not ``grid_sample``), or at
+shift-and-blend warp, reproduced exactly (not ``grid_sample``; on the
+card in float32 as a gather kernel fused with the time blend), or at
 full resolution with the bilinear warp (``flow_scale=1``, the serving
 CLIs' backgrounds).  The reference's two usage patterns:
 ``interpolate_pair`` (a keyframe pair and a time) and
@@ -29,6 +30,8 @@ import torch.nn.functional as F
 
 from renderloom_torch.ops.image import (bilinear_sample, gaussian_kernel1d,
                                         resize_bilinear)
+from renderloom_torch.ops.shiftwarp_kernel import (blend_stream, shift_warp,
+                                                   shift_warp_blend)
 
 
 def _blur(img: torch.Tensor, sigma: float = 1.0) -> torch.Tensor:
@@ -100,11 +103,28 @@ def _shift_resample1d(img: torch.Tensor, f: torch.Tensor, axis: int,
     return acc
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def _gathers(img: torch.Tensor, flow: torch.Tensor) -> bool:
+    """Whether the shift warp of ``img`` by ``flow`` runs as the gather
+    kernel (``ops/shiftwarp_kernel.py``): both float32 on the card, no
+    gradient wanted (the kernel has no backward).  Everything else,
+    the CPU included, keeps the shift loop."""
+    return (_on_card(img) and img.dtype == flow.dtype == torch.float32
+            and not (torch.is_grad_enabled()
+                     and (img.requires_grad or flow.requires_grad)))
+
+
 def backward_warp_shift(img: torch.Tensor, flow: torch.Tensor,
                         max_disp: int = 16) -> torch.Tensor:
     """Separable shift-and-blend backward warp of (B, H, W, C) at
     ``x + flow``, |flow| clipped to ±max_disp per axis: horizontal pass,
-    then vertical pass."""
+    then vertical pass.  A float32 card tensor takes the gather kernel,
+    bit for bit this loop."""
+    if _gathers(img, flow):
+        return shift_warp(img.contiguous(), flow.contiguous(), max_disp)
     out = _shift_resample1d(img, flow[..., 0], 2, max_disp)
     return _shift_resample1d(out, flow[..., 1], 1, max_disp)
 
@@ -216,7 +236,9 @@ def upsample_background(frames: torch.Tensor, rate: int, levels: int = 4,
     the flow and the errors at 1/flow_scale resolution, upsamples them,
     and warps with the clipped shift warp (``max_disp``);
     ``flow_scale == 1`` (the JAX function's default, which the serving
-    CLIs use) works at full resolution with the bilinear warp.
+    CLIs use) works at full resolution with the bilinear warp.  With
+    ``flow_scale > 1`` float32 card keyframes take one kernel for the
+    warps, the blend and the stream (``ops/shiftwarp_kernel.py``).
 
     A midpoint-only ``interp_fn`` (the learned UNet) takes recursive
     doubling instead, :func:`frame_double_pairs` log2(rate) times; the
@@ -252,27 +274,14 @@ def upsample_background(frames: torch.Tensor, rate: int, levels: int = 4,
         c_s = backward_warp_shift(b_s, flows_s, disp_s)
         e_s = torch.abs(c_s - a_s).mean(dim=-1, keepdim=True)
         errs = resize_bilinear(e_s, H, W)
+        if _gathers(frames, flows):
+            # the warps, the time blend and the stream in one kernel
+            return shift_warp_blend(frames.contiguous(), flows.contiguous(),
+                                    errs.contiguous(), rate, max_disp)
         warp = lambda x, f: backward_warp_shift(x, f, max_disp)
     else:
         flows = estimate_flow(a, b, levels, iters)
         errs = torch.abs(backward_warp(b, flows) - a).mean(dim=-1,
                                                            keepdim=True)
         warp = backward_warp
-    e0, e1 = errs[:K - 1], errs[K - 1:]
-    f01, f10 = flows[:K - 1], flows[K - 1:]
-
-    T = rate - 1
-    t = (torch.arange(1, rate, dtype=torch.float32, device=frames.device)
-         / rate).reshape(T, 1, 1, 1, 1)
-    rep = lambda x: x[None].expand(T, *x.shape).reshape(-1, *x.shape[1:])
-    flat = lambda x: x.reshape(T * (K - 1), *x.shape[2:])
-    w0 = warp(rep(p0), flat(t * f10))
-    w1 = warp(rep(p1), flat((1.0 - t) * f01))
-    a0 = (1.0 - t) / (1.0 + e0)
-    a1 = t / (1.0 + e1)
-    w0 = w0.reshape(T, K - 1, H, W, C)
-    w1 = w1.reshape(T, K - 1, H, W, C)
-    mids = (a0 * w0 + a1 * w1) / (a0 + a1)          # (T, K-1, H, W, C)
-
-    grp = torch.cat([frames[:-1, None], mids.transpose(0, 1)], dim=1)
-    return torch.cat([grp.reshape((K - 1) * rate, H, W, C), frames[-1:]])
+    return blend_stream(frames, flows, errs, rate, warp)
